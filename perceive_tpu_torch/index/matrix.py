@@ -1,0 +1,529 @@
+"""Device-resident embedding matrix with an id <-> row map (bf16/f32 tiers).
+
+Port of perceive_tpu/index/matrix.py for PyTorch.  One dense (capacity,
+padded_dim) tensor on the device holds every embedding row, beside a
+(capacity,) int32 tensor of per-row source ids (-1 for tombstones and the
+unallocated tail).  The host keeps the id maps and a mirror of the vectors;
+``sync`` uploads what changed (a full upload after growth, else the dirty
+rows with ``index_copy_``).
+
+The stored bytes and keys are the JAX package's: f32 little-endian BLOBs,
+``chunk_key`` = item_id * CHUNK_STRIDE + chunk_idx, capacities a multiple
+of ROW_ALIGN, widths padded to LANE_ALIGN, and the same prefix-sweep
+ladder.  Only the unquantized tiers (bfloat16, float32) are ported; the
+quantized tiers and snapshots are later work (ROADMAP.md queue 1).
+
+Device updates happen in place on the current stream, so a sweep enqueued
+before an update reads the old rows and one enqueued after reads the new
+ones; ``reuse_gen`` still tells a search that a row changed owner between
+its sweep and its host-side decode.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+# Row and lane alignment inherited from the JAX package (TPU tiling); kept
+# so both packages lay rows out alike.  Not yet measured on this card.
+ROW_ALIGN = 512
+LANE_ALIGN = 128
+
+INT4 = "int4"
+INT2 = "int2"
+
+CHUNK_STRIDE = 4096
+
+_SWEEP_ALIGN = 24576
+_SWEEP_MIN = 98304
+
+
+def sweep_rows_for(hwm: int, capacity: int) -> int:
+    """Rows a query sweep covers: the smallest ladder value >= the live-row
+    high-water mark ``hwm`` (ratio 9/8 steps), clamped to the capacity;
+    small matrices sweep the whole capacity."""
+    if capacity <= _SWEEP_MIN or hwm >= capacity:
+        return capacity
+    v = _SWEEP_MIN
+    while v < hwm:
+        v = _round_up(v + v // 8, _SWEEP_ALIGN)
+    return min(v, capacity)
+
+
+def chunk_key(item_id: int, chunk_idx: int = 0) -> int:
+    if not 0 <= chunk_idx < CHUNK_STRIDE:
+        raise ValueError(f"chunk_idx {chunk_idx} outside [0, {CHUNK_STRIDE})")
+    return item_id * CHUNK_STRIDE + chunk_idx
+
+
+def key_item(key: int) -> int:
+    return key // CHUNK_STRIDE
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def auto_matrix_dtype(n_rows: int, padded_dim: int = 384):
+    """Storage tier for a corpus of ``n_rows`` vectors of ``padded_dim``
+    dims, by the JAX package's rule (bytes per row scale the row count by
+    padded_dim/384).  The thresholds are inherited from TPU measurements
+    and not yet measured on this card.  Returns torch.bfloat16 up to 1.5M
+    rows, then torch.int8, INT2 and INT4 — tiers this port does not store
+    yet (callers raise on them)."""
+    eff = n_rows * max(padded_dim, 1) / 384.0
+    if eff <= 1_500_000:
+        return torch.bfloat16
+    if eff <= 4_000_000:
+        return torch.int8
+    if eff <= 24_000_000:
+        return INT2
+    return INT4
+
+
+def serialize_embedding(vec: np.ndarray) -> bytes:
+    """f32 little-endian BLOB, the stored form of every embedding."""
+    return np.ascontiguousarray(vec, dtype="<f4").tobytes()
+
+
+def deserialize_embedding(blob: bytes) -> np.ndarray:
+    return np.frombuffer(blob, dtype="<f4").copy()
+
+
+def _mem_available_bytes() -> Optional[int]:
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return None
+
+
+def _mirror_ram_budget() -> int:
+    """Bytes the host mirror may hold in RAM before spilling to a memory
+    mapped file (PERCEIVE_TPU_MIRROR_RAM_GB overrides; default half of
+    MemAvailable, clamped to [8, 64] GiB)."""
+    env = os.environ.get("PERCEIVE_TPU_MIRROR_RAM_GB")
+    if env is not None:
+        try:
+            return int(float(env) * 2**30)
+        except ValueError:
+            pass
+    avail = _mem_available_bytes()
+    if avail is None:
+        return 8 * 2**30
+    return max(8 * 2**30, min(avail // 2, 64 * 2**30))
+
+
+def _mirror_spill_dir() -> Optional[str]:
+    """Directory for spilled mirror files (PERCEIVE_TPU_MIRROR_DIR, default
+    the app data dir, never the possibly RAM-backed temp dir)."""
+    env = os.environ.get("PERCEIVE_TPU_MIRROR_DIR")
+    if env:
+        os.makedirs(env, exist_ok=True)
+        return env
+    try:
+        from perceive_tpu.paths import data_dir
+
+        return str(data_dir())
+    except OSError:
+        return None
+
+
+def _mirror_np_dtype():
+    """Host mirror element dtype (PERCEIVE_TPU_MIRROR_DTYPE: float32, or
+    bfloat16 through ml_dtypes where that package is installed)."""
+    name = os.environ.get("PERCEIVE_TPU_MIRROR_DTYPE", "float32").lower()
+    if name in ("bf16", "bfloat16"):
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(np.float32)
+
+
+class HostMirror:
+    """Host-side mirror of the vector matrix (growth and exact reads go
+    through it).  Starts in RAM and spills to a memory-mapped file once it
+    would exceed the RAM budget; growth of a spilled mirror extends the file
+    in place.  ``self.arr`` is replaced atomically, so lock-free readers see
+    either the old or the new array, never a partial one."""
+
+    def __init__(
+        self,
+        capacity: int,
+        width: int,
+        *,
+        dtype: Optional[np.dtype] = None,
+        ram_budget: Optional[int] = None,
+        dir: Optional[str] = None,
+    ):
+        self.width = width
+        self.dtype = np.dtype(dtype) if dtype is not None else _mirror_np_dtype()
+        self.ram_budget = ram_budget if ram_budget is not None else _mirror_ram_budget()
+        self.dir = dir
+        self.path: Optional[str] = None  # set once spilled to disk
+        self.arr = self._alloc(capacity)
+
+    def _nbytes(self, capacity: int) -> int:
+        return capacity * self.width * self.dtype.itemsize
+
+    def _alloc(self, capacity: int) -> np.ndarray:
+        if self._nbytes(capacity) <= self.ram_budget:
+            return np.zeros((capacity, self.width), dtype=self.dtype)
+        import tempfile
+
+        fd, path = tempfile.mkstemp(
+            suffix=".mirror", dir=self.dir if self.dir is not None else _mirror_spill_dir()
+        )
+        os.close(fd)
+        self.path = path
+        return np.memmap(path, dtype=self.dtype, mode="w+", shape=(capacity, self.width))
+
+    def grow(self, new_cap: int) -> None:
+        old = self.arr
+        old_cap = old.shape[0]
+        if self.path is None:
+            if self._nbytes(new_cap) <= self.ram_budget:
+                new = np.zeros((new_cap, self.width), dtype=self.dtype)
+            else:
+                new = self._alloc(new_cap)  # spill: RAM -> file-backed
+            new[:old_cap] = old
+            self.arr = new
+            return
+        old.flush()
+        os.truncate(self.path, self._nbytes(new_cap))
+        self.arr = np.memmap(self.path, dtype=self.dtype, mode="r+", shape=(new_cap, self.width))
+
+    def read_f32(self, rows, ncols: Optional[int] = None) -> np.ndarray:
+        """Rows (fancy index or slice) as an f32 COPY, first ``ncols``
+        columns — never a view of the live buffer."""
+        sel = self.arr[rows] if ncols is None else self.arr[rows, :ncols]
+        return np.array(sel, dtype=np.float32, copy=True)
+
+    def write(self, rows, vals_f32: np.ndarray, dim: int) -> None:
+        """Store f32 vectors (first ``dim`` columns; the pad tail stays 0)."""
+        self.arr[rows, :dim] = vals_f32
+        if self.width > dim:
+            self.arr[rows, dim:] = 0.0
+
+    def remap(self) -> None:
+        """Flush and re-map a file-backed mirror, dropping the page
+        residency a bulk build accumulated."""
+        if self.path is None:
+            return
+        shape = self.arr.shape
+        self.arr.flush()
+        self.arr = np.memmap(self.path, dtype=self.dtype, mode="r+", shape=shape)
+
+    def close(self) -> None:
+        if self.path is not None:
+            try:
+                del self.arr
+                os.unlink(self.path)
+            except OSError:
+                pass
+            self.path = None
+
+    def __del__(self):  # best-effort temp-file cleanup
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+_STORED_DTYPES = (torch.bfloat16, torch.float32)
+
+
+class EmbeddingMatrix:
+    """Mutable device-resident vector store (bf16 or f32 rows).
+
+    Host state: ``row_of`` (key -> row), ``item_ids`` / ``source_ids``
+    (row -> ids), ``groups`` (item -> its chunk keys), the free-row list and
+    the host mirror.  Device state: ``(capacity, padded_dim)`` vectors in
+    the storage dtype and ``(capacity,)`` int32 source ids on ``device``.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+        capacity: int = 4096,
+        device: torch.device | str = "cpu",
+        row_align: int = ROW_ALIGN,
+    ):
+        if dtype not in _STORED_DTYPES:
+            raise NotImplementedError(
+                f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the quantized tiers)"
+            )
+        self.dim = dim
+        self.padded_dim = _round_up(dim, LANE_ALIGN)
+        self.dtype = dtype
+        self.row_align = row_align
+        self.capacity = _round_up(max(capacity, row_align), row_align)
+        self.device = torch.device(device)
+        self._lock = threading.RLock()
+
+        self.rows = 0  # high-water mark of allocated rows
+        self._free: list[int] = []
+        # bumped whenever a freed row is handed to a new key (or rows move):
+        # a search that swept before the change retries its decode
+        self.reuse_gen = 0
+        self.row_of: dict[int, int] = {}
+        # item id -> set of chunk keys (only for items with a non-zero chunk)
+        self.groups: dict[int, set[int]] = {}
+        self.multi_chunk_groups = 0
+        self.item_ids = np.full(self.capacity, -1, dtype=np.int64)
+        self.source_ids = np.full(self.capacity, -1, dtype=np.int32)
+        self._mirror = HostMirror(self.capacity, self.padded_dim)
+        self._dirty = True  # full upload needed (first sync / growth)
+        self._dirty_rows: set[int] = set()
+        self._device_vectors: Optional[torch.Tensor] = None
+        self._device_source_ids: Optional[torch.Tensor] = None
+
+    # -- device views -------------------------------------------------------
+
+    # rows per host->device chunk of a full upload (~100 MB of f32 at 384-d)
+    _SYNC_CHUNK_ROWS = 65_536
+
+    def sync(self) -> None:
+        """Upload host state to the device if anything changed: the whole
+        matrix after growth (chunked, so no corpus-sized host temporary),
+        else only the dirty rows."""
+        with self._lock:
+            if not self._dirty and not self._dirty_rows:
+                return
+            full = (
+                self._dirty
+                or self._device_vectors is None
+                or len(self._dirty_rows) * 4 > self.rows
+            )
+            if full:
+                self._device_vectors = None  # release before allocating anew
+                vecs = torch.empty((self.capacity, self.padded_dim), dtype=self.dtype, device=self.device)
+                for lo in range(0, self.capacity, self._SYNC_CHUNK_ROWS):
+                    hi = min(lo + self._SYNC_CHUNK_ROWS, self.capacity)
+                    chunk = torch.from_numpy(self._mirror.read_f32(slice(lo, hi)))
+                    vecs[lo:hi].copy_(chunk.to(self.dtype))
+                self._device_vectors = vecs
+                self._device_source_ids = torch.from_numpy(self.source_ids.copy()).to(self.device)
+                self._mirror.remap()
+            else:
+                rows = np.fromiter(self._dirty_rows, dtype=np.int64)
+                idx = torch.from_numpy(rows).to(self.device)
+                vals = torch.from_numpy(self._mirror.read_f32(rows)).to(self.dtype)
+                self._device_vectors.index_copy_(0, idx, vals.to(self.device))
+                srcs = torch.from_numpy(self.source_ids[rows].copy()).to(self.device)
+                self._device_source_ids.index_copy_(0, idx, srcs)
+            self._dirty = False
+            self._dirty_rows.clear()
+
+    def device_view(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(vectors, source_ids) device tensors, synced, captured under the
+        lock."""
+        with self._lock:
+            self.sync()
+            return self._device_vectors, self._device_source_ids
+
+    @property
+    def sweep_rows(self) -> int:
+        """Row count a query sweep must cover (prefix of the capacity)."""
+        return sweep_rows_for(self.rows, self.capacity)
+
+    def host_vectors_for(self, rows) -> np.ndarray:
+        """f32 host mirror rows, copied under the lock."""
+        with self._lock:
+            return self._mirror.read_f32(rows, self.dim)
+
+    @property
+    def _host_vectors(self) -> np.ndarray:
+        return self._mirror.arr
+
+    @property
+    def tier_name(self) -> str:
+        return str(self.dtype).removeprefix("torch.")
+
+    # -- mutation ------------------------------------------------------------
+
+    def _grow(self, need: int) -> None:
+        new_cap = self.capacity
+        while new_cap < need:
+            new_cap *= 2
+        if new_cap == self.capacity:
+            return
+        self._dirty = True
+        self.item_ids = np.concatenate(
+            [self.item_ids, np.full(new_cap - self.capacity, -1, dtype=np.int64)]
+        )
+        self.source_ids = np.concatenate(
+            [self.source_ids, np.full(new_cap - self.capacity, -1, dtype=np.int32)]
+        )
+        self._mirror.grow(new_cap)
+        self.capacity = new_cap
+
+    def upsert(self, item_ids: Sequence[int], source_ids: Sequence[int], vectors: np.ndarray) -> None:
+        """Insert or overwrite a batch of rows keyed by chunk key."""
+        vectors = np.asarray(vectors, dtype=np.float32)
+        if vectors.ndim != 2 or vectors.shape[1] != self.dim:
+            raise ValueError(f"expected (N, {self.dim}) vectors, got {vectors.shape}")
+        item_ids = np.asarray(list(item_ids), dtype=np.int64)
+        source_ids = np.asarray(list(source_ids), dtype=np.int32)
+        uniq = np.unique(item_ids)
+        if len(uniq) < len(item_ids):  # dedupe within batch, keep last occurrence
+            last = {int(i): idx for idx, i in enumerate(item_ids)}
+            keep = np.fromiter(last.values(), dtype=np.int64)
+            item_ids, source_ids, vectors = item_ids[keep], source_ids[keep], vectors[keep]
+        with self._lock:
+            self._grow(self.rows + max(0, len(item_ids) - len(self._free)))
+            get = self.row_of.get
+            rows = np.fromiter(
+                (get(int(i), -1) for i in item_ids), dtype=np.int64, count=len(item_ids)
+            )
+            new = rows < 0
+            n_new = int(new.sum())
+            if n_new:
+                n_reuse = min(len(self._free), n_new)
+                if n_reuse:
+                    self.reuse_gen += 1
+                reused = self._free[len(self._free) - n_reuse :]
+                del self._free[len(self._free) - n_reuse :]
+                fresh = np.concatenate(
+                    [
+                        np.asarray(reused, dtype=np.int64),
+                        np.arange(self.rows, self.rows + n_new - n_reuse, dtype=np.int64),
+                    ]
+                )
+                rows[new] = fresh
+                self.rows += n_new - n_reuse
+                self.row_of.update(zip(item_ids[new].tolist(), fresh.tolist()))
+            for k in item_ids.tolist():
+                iid = k // CHUNK_STRIDE
+                g = self.groups.get(iid)
+                if g is None:
+                    k0 = iid * CHUNK_STRIDE
+                    if k == k0:
+                        continue  # single chunk-0 item: implicit group
+                    g = {k0} if k0 in self.row_of else set()
+                    self.groups[iid] = g
+                before = len(g)
+                g.add(k)
+                if before == 1 and len(g) == 2:
+                    self.multi_chunk_groups += 1
+            self.item_ids[rows] = item_ids
+            self.source_ids[rows] = source_ids
+            self._mirror.write(rows, vectors, self.dim)
+            if not self._dirty:
+                self._dirty_rows.update(rows.tolist())
+
+    def _drop_key(self, key: int) -> None:
+        g = self.groups.get(key // CHUNK_STRIDE)
+        if g is not None:
+            before = len(g)
+            g.discard(key)
+            if before == 2 and len(g) == 1:
+                self.multi_chunk_groups -= 1
+            if not g:
+                del self.groups[key // CHUNK_STRIDE]
+
+    def remove(self, item_ids: Sequence[int]) -> int:
+        """Tombstone rows by key.  Returns how many existed."""
+        n = 0
+        with self._lock:
+            for key in item_ids:
+                row = self.row_of.pop(key, None)
+                if row is not None:
+                    self._drop_key(key)
+                    self.source_ids[row] = -1
+                    self.item_ids[row] = -1
+                    if not self._dirty:
+                        self._dirty_rows.add(int(row))
+                    self._free.append(int(row))
+                    n += 1
+            self._maybe_compact()
+        return n
+
+    # compaction trigger: tombstones outnumber live rows by this floor
+    _COMPACT_MIN = 4096
+
+    def _maybe_compact(self) -> None:
+        live = len(self.row_of)
+        if self.rows - live >= max(self._COMPACT_MIN, live):
+            self.compact()
+
+    def compact(self) -> int:
+        """Move the live rows stranded past the live count into tombstoned
+        rows below it and lower the high-water mark.  Bumps ``reuse_gen``
+        like a row reuse.  Returns rows moved."""
+        with self._lock:
+            live = len(self.row_of)
+            moved = 0
+            if self.rows > live:
+                srcs = live + np.nonzero(self.item_ids[live : self.rows] >= 0)[0]
+                dsts = np.nonzero(self.item_ids[:live] < 0)[0][: len(srcs)]
+                if len(srcs):
+                    self.reuse_gen += 1
+                    arr = self._mirror.arr
+                    arr[dsts] = arr[srcs]
+                    keys = self.item_ids[srcs]
+                    self.item_ids[dsts] = keys
+                    self.source_ids[dsts] = self.source_ids[srcs]
+                    self.item_ids[srcs] = -1
+                    self.source_ids[srcs] = -1
+                    self.row_of.update(zip(keys.tolist(), dsts.tolist()))
+                    if not self._dirty:
+                        self._dirty_rows.update(dsts.tolist())
+                        self._dirty_rows.update(srcs.tolist())
+                    moved = len(srcs)
+                self.rows = live
+            self._free = [int(r) for r in np.nonzero(self.item_ids[: self.rows] < 0)[0]]
+            return moved
+
+    def retier(self, dtype) -> None:
+        """Switch the storage dtype; the next sync restages every row.
+        Only bfloat16 and float32 are stored by this port."""
+        if dtype not in _STORED_DTYPES:
+            raise NotImplementedError(
+                f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the quantized tiers)"
+            )
+        with self._lock:
+            if dtype == self.dtype:
+                return
+            self.reuse_gen += 1
+            self.dtype = dtype
+            self._dirty = True
+            self._dirty_rows.clear()
+
+    def keys_of_group(self, item_id: int) -> list[int]:
+        """All chunk keys currently stored for an item."""
+        g = self.groups.get(item_id)
+        if g is not None:
+            return list(g)
+        k0 = item_id * CHUNK_STRIDE
+        return [k0] if k0 in self.row_of else []
+
+    def remove_source(self, source_id: int) -> int:
+        """Drop every row of a source."""
+        with self._lock:
+            rows = np.nonzero(self.source_ids[: self.rows] == source_id)[0]
+            if len(rows) == 0:
+                return 0
+            keys = self.item_ids[rows].tolist()
+            self.source_ids[rows] = -1
+            self.item_ids[rows] = -1
+            if not self._dirty:
+                self._dirty_rows.update(rows.tolist())
+            for key in keys:
+                self.row_of.pop(key, None)
+                self._drop_key(key)
+            self._free.extend(int(r) for r in rows)
+            self._maybe_compact()
+            return len(rows)
+
+    def __len__(self) -> int:
+        return len(self.row_of)

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (``perceive_tpu_torch/csrc/*.cu``).
+
+The sources compile with ``nvcc`` for Hopper (``sm_90a``) into ONE shared
+library with a plain C interface, loaded through ``ctypes``.  The build runs
+on the first launch only — importing this module needs no compiler — and
+lands in ``perceive_tpu_torch/_build/`` under a name keyed by a hash of the
+sources and flags, so a second process loads the library without
+rebuilding.  No PyTorch headers are compiled (a build takes seconds).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+# seconds the last build in this process took (None: loaded from the cache
+# or not built yet) and the path of its compiler log
+build_seconds = None
+build_log = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _build(out: Path) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = out.with_suffix(".log")
+    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    build_seconds = time.perf_counter() - t0
+    build_log = log
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+    lib.perceive_scan_topk.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_topk.restype = i
+    lib.perceive_scan_topk_workspace.argtypes = [i, i, i]
+    lib.perceive_scan_topk_workspace.restype = z
+    lib.perceive_scan_topk_max_k.argtypes = []
+    lib.perceive_scan_topk_max_k.restype = i
+    lib.perceive_scan_topk_max_dim.argtypes = []
+    lib.perceive_scan_topk_max_dim.restype = i
+    lib.perceive_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.perceive_attention.restype = i
+    lib.perceive_attention_smem.argtypes = [i, i, i]
+    lib.perceive_attention_smem.restype = z
+    lib.perceive_cuda_error_string.argtypes = [i]
+    lib.perceive_cuda_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has no
+    library yet."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out = BUILD_DIR / f"libperceive_kernels_{source_key()}.so"
+            if not out.exists():
+                _build(out)
+            lib = ctypes.CDLL(str(out))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().perceive_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def stream_of(t) -> int:
+    """The current stream of a CUDA tensor's device, as the C side takes it."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

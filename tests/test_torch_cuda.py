@@ -1,0 +1,96 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without a GPU these skip.  On a machine with one:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+(``--noconftest``: tests/conftest.py imports jax, which a GPU machine
+need not have.)
+
+The kernels build from perceive_tpu_torch/csrc on the first launch.
+Tolerances: scan scores 1e-4 (f32 sums in another order), attention 1e-2
+in bf16 against the f32 math on the same bf16 inputs, 1e-5 in f32.
+"""
+
+import pytest
+import torch
+
+from perceive_tpu_torch.ops import attention as attn
+from perceive_tpu_torch.ops import topk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _allowed(dev, ids=None):
+    a = torch.full((16,), -9, dtype=torch.int32, device=dev)
+    if ids is None:
+        a[0] = topk.ALLOW_ALL
+    else:
+        a[: len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,k,filt,n_sweep", [(1, 16, None, 0), (5, 100, [1], 20480), (40, 600, [0, 2], 0)])
+def test_scan_topk_matches_plain(dev, dtype, nq, k, filt, n_sweep):
+    g = torch.Generator(device=dev).manual_seed(nq + k)
+    m = torch.randn((32768, 384), generator=g, device=dev)
+    m = (m / m.norm(dim=1, keepdim=True)).to(dtype)
+    src = torch.randint(0, 3, (32768,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((32768,), generator=g, device=dev) < 0.2] = -1
+    q = torch.randn((nq, 384), generator=g, device=dev)
+    before = topk.LAUNCHES
+    vk, rk = topk.scan_topk(m, src, q, _allowed(dev, filt), k, n_sweep)
+    vp, rp = topk.scan_topk_plain(m, src, q, _allowed(dev, filt), k, n_sweep)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    torch.testing.assert_close(vk, vp, atol=1e-4, rtol=0)
+    # rows may differ only inside near ties
+    diff = rk != rp
+    if diff.any():
+        near = (vp[:, 1:] - vp[:, :-1]).abs() <= 2e-4
+        near = torch.nn.functional.pad(near, (1, 0)) | torch.nn.functional.pad(near, (0, 1))
+        assert bool((~diff | near).all())
+
+
+@pytest.mark.parametrize("b,s,nh,dh,dtype,tol", [
+    (4, 384, 12, 32, torch.bfloat16, 1e-2),
+    (2, 512, 12, 64, torch.bfloat16, 1e-2),
+    (3, 100, 4, 16, torch.float32, 1e-5),
+    (2, 512, 2, 32, torch.float32, 1e-5),
+])
+def test_attention_matches_plain(dev, b, s, nh, dh, dtype, tol):
+    g = torch.Generator(device=dev).manual_seed(s + dh)
+    # v at half scale keeps |out| near 1, where one bf16 rounding is ~4e-3
+    q, k, v = ((torch.randn((b, s, nh, dh), generator=g, device=dev) * sd).to(dtype) for sd in (1.0, 1.0, 0.5))
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+    before = attn.LAUNCHES
+    got = attn.attention(q, k, v, mask)
+    want = attn.attention_plain(q.float(), k.float(), v.float(), mask)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES == before + 1
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((1, 600, 2, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attn.attention(x, x, x, torch.ones((1, 600), dtype=torch.int32, device=dev))
+    m = torch.zeros((512, 384), device=dev, dtype=torch.bfloat16)
+    src = torch.zeros(512, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        topk.scan_topk(m, src, torch.zeros((1, 384), device=dev), _allowed(dev), 9000)
+    with pytest.raises(ValueError):
+        topk.scan_topk(m, src.cpu(), torch.zeros((1, 384), device=dev), _allowed(dev), 4)
+    # an empty matrix matches nothing, as in the plain version
+    vals, rows = topk.scan_topk(m[:0], src[:0], torch.zeros((2, 384), device=dev), _allowed(dev), 4)
+    assert torch.isinf(vals).all() and (rows == -1).all()

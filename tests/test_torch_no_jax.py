@@ -1,0 +1,53 @@
+"""The port imports neither jax nor the Rust tokenizers, and importing the
+kernel loader needs no CUDA compiler (the build runs at the first launch)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _run(code: str, env=None):
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, env=env, timeout=120
+    )
+
+
+def test_port_imports_no_jax_or_tokenizers():
+    res = _run(
+        "import sys\n"
+        "import perceive_tpu_torch, perceive_tpu_torch.cli, perceive_tpu_torch.index.searcher\n"
+        "import perceive_tpu_torch.models, perceive_tpu_torch.ops.topk, perceive_tpu_torch.ops.attention\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'tokenizers') if m in sys.modules]\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_kernel_loader_imports_without_nvcc():
+    env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
+    res = _run(
+        "import perceive_tpu_torch.ops._cuda as c\n"
+        "assert c._lib is None and c.build_seconds is None\n"
+        "assert len(c.source_key()) == 16\n"
+        "assert {p.name for p in c.sources()} >= {'scan_topk.cu', 'attention.cu'}\n",
+        env=env,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_cpu_tensors_never_build():
+    """CPU tensors take the plain versions: no build, no launch counted."""
+    res = _run(
+        "import torch\n"
+        "from perceive_tpu_torch.ops import _cuda, attention, topk\n"
+        "m = torch.zeros(512, 128); s = torch.zeros(512, dtype=torch.int32)\n"
+        "a = torch.full((16,), -9, dtype=torch.int32); a[0] = topk.ALLOW_ALL\n"
+        "topk.scan_topk(m, s, torch.zeros(1, 128), a, 4)\n"
+        "x = torch.zeros(1, 8, 2, 4); attention.attention(x, x, x, torch.ones(1, 8, dtype=torch.int32))\n"
+        "assert _cuda._lib is None and topk.LAUNCHES == 0 and attention.LAUNCHES == 0\n"
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
