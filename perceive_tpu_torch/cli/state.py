@@ -9,11 +9,12 @@ come from a torch.Generator, so they differ from the JAX package's fallback
 weights: vectors written by one package's fallback do not rank
 meaningfully under the other's.
 
-PERCEIVE_TPU_MATRIX_DTYPE: ``auto`` (default) stores bf16 wherever the
-JAX package's auto rule picks bf16; ``bfloat16``/``bf16`` and
-``float32``/``f32`` pin a tier.  Every other tier (int8, int4, int2, and
-``auto`` past the bf16 range) raises NotImplementedError: the port never
-serves bf16 in another tier's place.
+PERCEIVE_TPU_MATRIX_DTYPE: ``auto`` (default) follows the JAX package's
+auto rule as far as it is ported: bf16 up to 1.5M effective rows (rows x
+padded_dim / 384), int8 up to 4M; ``bfloat16``/``bf16``,
+``float32``/``f32`` and ``int8`` pin a tier.  The int4 and int2 tiers, and
+``auto`` past 4M effective rows, raise NotImplementedError: the port never
+serves a corpus in another tier's place.
 
 The device is explicit and defaults to ``cuda:0``; a missing GPU is an
 error, never a silent move to the CPU.
@@ -29,13 +30,12 @@ from typing import Optional
 
 import torch
 
-from perceive_tpu.db import Database, list_sources
-from perceive_tpu.paths import database_path
-from perceive_tpu.types import Source
-
+from ..db import Database, list_sources
 from ..index.matrix import CHUNK_STRIDE, LANE_ALIGN, _round_up, auto_matrix_dtype
 from ..index.searcher import Searcher
 from ..models import Model, ModelError, ModelType
+from ..paths import database_path
+from ..types import Source
 
 DEFAULT_MODEL = ModelType.MSMARCO_BERT_BASE_DOT_V5
 DEFAULT_HIGHLIGHT_MODEL = ModelType.ALL_MINILM_L6_V2
@@ -48,8 +48,9 @@ RANDOM_FALLBACK_VERSION = 1_000_000_000
 _TIERS = {
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
     "float32": torch.float32, "f32": torch.float32,
+    "int8": torch.int8,
 }
-_UNPORTED_TIERS = ("int8", "int4", "int2")
+_UNPORTED_TIERS = ("int4", "int2")
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -96,23 +97,23 @@ def load_model(model_type: ModelType, device: torch.device) -> Model:
 
 
 def storage_tier(choice: str, n_rows: int, padded_dim: int) -> torch.dtype:
-    """The matrix dtype for a PERCEIVE_TPU_MATRIX_DTYPE value, or
-    NotImplementedError for a tier this port does not store."""
+    """The matrix dtype (bf16, f32 or int8) for a PERCEIVE_TPU_MATRIX_DTYPE
+    value, or NotImplementedError for a tier this port does not store."""
     choice = choice.lower()
     if choice == "auto":
         tier = auto_matrix_dtype(n_rows, padded_dim)
-        if tier is torch.bfloat16:
+        if isinstance(tier, torch.dtype):
             return tier
         raise NotImplementedError(
-            f"{n_rows} rows need the {getattr(tier, 'name', tier)} tier, which is not ported "
-            "(ROADMAP.md queue 1: the quantized tiers); set PERCEIVE_TPU_MATRIX_DTYPE=bf16 to "
-            "serve them in bf16 explicitly"
+            f"{n_rows} rows need the {tier} tier, which is not ported "
+            "(ROADMAP.md queue 1: the int2 and int4 tiers); set PERCEIVE_TPU_MATRIX_DTYPE=int8 "
+            "to serve them from the int8 tier explicitly"
         )
     if choice in _TIERS:
         return _TIERS[choice]
     if choice in _UNPORTED_TIERS:
         raise NotImplementedError(
-            f"PERCEIVE_TPU_MATRIX_DTYPE={choice} is not ported (ROADMAP.md queue 1: the quantized tiers)"
+            f"PERCEIVE_TPU_MATRIX_DTYPE={choice} is not ported (ROADMAP.md queue 1: the int2 and int4 tiers)"
         )
     raise ValueError(f"unknown PERCEIVE_TPU_MATRIX_DTYPE {choice!r}")
 

@@ -1,17 +1,19 @@
-"""Device-resident embedding matrix with an id <-> row map (bf16/f32 tiers).
+"""Device-resident embedding matrix with an id <-> row map (bf16, f32 and
+int8 tiers).
 
 Port of perceive_tpu/index/matrix.py for PyTorch.  One dense (capacity,
 padded_dim) tensor on the device holds every embedding row, beside a
 (capacity,) int32 tensor of per-row source ids (-1 for tombstones and the
-unallocated tail).  The host keeps the id maps and a mirror of the vectors;
-``sync`` uploads what changed (a full upload after growth, else the dirty
-rows with ``index_copy_``).
+unallocated tail) and, at the int8 tier, a (capacity,) f32 tensor of
+per-row scales.  The host keeps the id maps and an f32 mirror of the
+vectors; ``sync`` uploads what changed (a full upload after growth or a
+retier, else the dirty rows with ``index_copy_``).
 
 The stored bytes and keys are the JAX package's: f32 little-endian BLOBs,
 ``chunk_key`` = item_id * CHUNK_STRIDE + chunk_idx, capacities a multiple
-of ROW_ALIGN, widths padded to LANE_ALIGN, and the same prefix-sweep
-ladder.  Only the unquantized tiers (bfloat16, float32) are ported; the
-quantized tiers and snapshots are later work (ROADMAP.md queue 1).
+of ROW_ALIGN, widths padded to LANE_ALIGN, the same prefix-sweep ladder,
+and the int8 tier's per-row symmetric quantization (``_quantize``).  The
+int2 and int4 tiers and snapshots are later work (ROADMAP.md queue 1).
 
 Device updates happen in place on the current stream, so a sweep enqueued
 before an update reads the old rows and one enqueued after reads the new
@@ -73,8 +75,9 @@ def auto_matrix_dtype(n_rows: int, padded_dim: int = 384):
     dims, by the JAX package's rule (bytes per row scale the row count by
     padded_dim/384).  The thresholds are inherited from TPU measurements
     and not yet measured on this card.  Returns torch.bfloat16 up to 1.5M
-    rows, then torch.int8, INT2 and INT4 — tiers this port does not store
-    yet (callers raise on them)."""
+    effective rows, torch.int8 up to 4M (exact after the searcher's f32
+    rerank), then INT2 and INT4 — tiers this port does not store yet
+    (``EmbeddingMatrix`` raises on them)."""
     eff = n_rows * max(padded_dim, 1) / 384.0
     if eff <= 1_500_000:
         return torch.bfloat16
@@ -129,7 +132,7 @@ def _mirror_spill_dir() -> Optional[str]:
         os.makedirs(env, exist_ok=True)
         return env
     try:
-        from perceive_tpu.paths import data_dir
+        from ..paths import data_dir
 
         return str(data_dir())
     except OSError:
@@ -237,31 +240,47 @@ class HostMirror:
             pass
 
 
-_STORED_DTYPES = (torch.bfloat16, torch.float32)
+_STORED_DTYPES = (torch.bfloat16, torch.float32, torch.int8)
+
+
+def _check_stored(dtype) -> None:
+    if dtype not in _STORED_DTYPES:
+        raise NotImplementedError(
+            f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the int2 and int4 tiers)"
+        )
+
+
+def _quantize(rows_f32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8, byte for byte the JAX package's: scale =
+    max|v| / 127 (min-clamped so all-zero rows stay representable), values
+    rint(v / scale) clipped to [-127, 127].  Returns (int8 values, f32
+    scales)."""
+    scales = np.maximum(np.abs(rows_f32).max(axis=1), 1e-12) / 127.0
+    q = np.clip(np.rint(rows_f32 / scales[:, None]), -127, 127).astype(np.int8)
+    return q, scales.astype(np.float32)
 
 
 class EmbeddingMatrix:
-    """Mutable device-resident vector store (bf16 or f32 rows).
+    """Mutable device-resident vector store (bf16, f32 or int8 rows).
 
     Host state: ``row_of`` (key -> row), ``item_ids`` / ``source_ids``
     (row -> ids), ``groups`` (item -> its chunk keys), the free-row list and
     the host mirror.  Device state: ``(capacity, padded_dim)`` vectors in
-    the storage dtype and ``(capacity,)`` int32 source ids on ``device``.
+    the storage dtype, ``(capacity,)`` int32 source ids and, for int8,
+    ``(capacity,)`` f32 row scales, on ``device`` (required: nothing here
+    picks one).
     """
 
     def __init__(
         self,
         dim: int,
         *,
+        device: torch.device | str,
         dtype: torch.dtype = torch.bfloat16,
         capacity: int = 4096,
-        device: torch.device | str = "cpu",
         row_align: int = ROW_ALIGN,
     ):
-        if dtype not in _STORED_DTYPES:
-            raise NotImplementedError(
-                f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the quantized tiers)"
-            )
+        _check_stored(dtype)
         self.dim = dim
         self.padded_dim = _round_up(dim, LANE_ALIGN)
         self.dtype = dtype
@@ -275,6 +294,14 @@ class EmbeddingMatrix:
         # bumped whenever a freed row is handed to a new key (or rows move):
         # a search that swept before the change retries its decode
         self.reuse_gen = 0
+        # bumped on every logical change (upsert, remove, compaction,
+        # retier): a result cache keyed on it is valid while it stands
+        self.mutation_gen = 0
+        # high-water quantization stats for the rerank escalation margin:
+        # the largest per-dim quantization step and the largest row norm
+        # ever upserted at a quantized tier (never lowered on remove)
+        self.scale_hw = 0.0
+        self.norm_hw = 0.0
         self.row_of: dict[int, int] = {}
         # item id -> set of chunk keys (only for items with a non-zero chunk)
         self.groups: dict[int, set[int]] = {}
@@ -286,6 +313,17 @@ class EmbeddingMatrix:
         self._dirty_rows: set[int] = set()
         self._device_vectors: Optional[torch.Tensor] = None
         self._device_source_ids: Optional[torch.Tensor] = None
+        self._device_scales: Optional[torch.Tensor] = None  # int8 tier only
+
+    @property
+    def quantized(self) -> bool:
+        return self.dtype == torch.int8
+
+    @property
+    def quant_bits(self) -> int:
+        """Bits per stored dim on the sweep path: 8 (int8), 0 (not
+        quantized)."""
+        return 8 if self.quantized else 0
 
     # -- device views -------------------------------------------------------
 
@@ -305,31 +343,44 @@ class EmbeddingMatrix:
                 or len(self._dirty_rows) * 4 > self.rows
             )
             if full:
-                self._device_vectors = None  # release before allocating anew
+                self._device_vectors = self._device_scales = None  # release before allocating anew
                 vecs = torch.empty((self.capacity, self.padded_dim), dtype=self.dtype, device=self.device)
+                scales = torch.empty((self.capacity,), dtype=torch.float32, device=self.device) if self.quantized else None
                 for lo in range(0, self.capacity, self._SYNC_CHUNK_ROWS):
                     hi = min(lo + self._SYNC_CHUNK_ROWS, self.capacity)
-                    chunk = torch.from_numpy(self._mirror.read_f32(slice(lo, hi)))
-                    vecs[lo:hi].copy_(chunk.to(self.dtype))
-                self._device_vectors = vecs
+                    chunk, sc = self._staged(self._mirror.read_f32(slice(lo, hi)))
+                    vecs[lo:hi].copy_(chunk)
+                    if scales is not None:
+                        scales[lo:hi].copy_(sc)
+                self._device_vectors, self._device_scales = vecs, scales
                 self._device_source_ids = torch.from_numpy(self.source_ids.copy()).to(self.device)
                 self._mirror.remap()
             else:
                 rows = np.fromiter(self._dirty_rows, dtype=np.int64)
                 idx = torch.from_numpy(rows).to(self.device)
-                vals = torch.from_numpy(self._mirror.read_f32(rows)).to(self.dtype)
+                vals, sc = self._staged(self._mirror.read_f32(rows))
                 self._device_vectors.index_copy_(0, idx, vals.to(self.device))
+                if sc is not None:
+                    self._device_scales.index_copy_(0, idx, sc.to(self.device))
                 srcs = torch.from_numpy(self.source_ids[rows].copy()).to(self.device)
                 self._device_source_ids.index_copy_(0, idx, srcs)
             self._dirty = False
             self._dirty_rows.clear()
 
-    def device_view(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(vectors, source_ids) device tensors, synced, captured under the
-        lock."""
+    def _staged(self, rows_f32: np.ndarray):
+        """Host f32 rows -> (rows in the storage dtype, f32 scales or None)
+        as CPU tensors."""
+        if self.quantized:
+            q, scales = _quantize(rows_f32)
+            return torch.from_numpy(q), torch.from_numpy(scales)
+        return torch.from_numpy(rows_f32).to(self.dtype), None
+
+    def device_view(self) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """(vectors, source_ids, scales) device tensors, synced, captured
+        under the lock; scales is None below the int8 tier."""
         with self._lock:
             self.sync()
-            return self._device_vectors, self._device_source_ids
+            return self._device_vectors, self._device_source_ids, self._device_scales
 
     @property
     def sweep_rows(self) -> int:
@@ -420,6 +471,10 @@ class EmbeddingMatrix:
             self._mirror.write(rows, vectors, self.dim)
             if not self._dirty:
                 self._dirty_rows.update(rows.tolist())
+            if len(item_ids):
+                self.mutation_gen += 1
+            if self.quantized and len(vectors):
+                self._note_quant_stats(vectors)
 
     def _drop_key(self, key: int) -> None:
         g = self.groups.get(key // CHUNK_STRIDE)
@@ -445,6 +500,8 @@ class EmbeddingMatrix:
                         self._dirty_rows.add(int(row))
                     self._free.append(int(row))
                     n += 1
+            if n:
+                self.mutation_gen += 1
             self._maybe_compact()
         return n
 
@@ -468,6 +525,7 @@ class EmbeddingMatrix:
                 dsts = np.nonzero(self.item_ids[:live] < 0)[0][: len(srcs)]
                 if len(srcs):
                     self.reuse_gen += 1
+                    self.mutation_gen += 1
                     arr = self._mirror.arr
                     arr[dsts] = arr[srcs]
                     keys = self.item_ids[srcs]
@@ -484,20 +542,33 @@ class EmbeddingMatrix:
             self._free = [int(r) for r in np.nonzero(self.item_ids[: self.rows] < 0)[0]]
             return moved
 
+    def _note_quant_stats(self, vectors: np.ndarray) -> None:
+        """Raise the high-water quantization step (max|v| / 127) and row
+        norm with a batch of f32 rows."""
+        self.scale_hw = max(self.scale_hw, float(np.abs(vectors).max()) / 127.0)
+        self.norm_hw = max(self.norm_hw, float(np.linalg.norm(vectors, axis=1).max()))
+
     def retier(self, dtype) -> None:
-        """Switch the storage dtype; the next sync restages every row.
-        Only bfloat16 and float32 are stored by this port."""
-        if dtype not in _STORED_DTYPES:
-            raise NotImplementedError(
-                f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the quantized tiers)"
-            )
+        """Switch the storage dtype (bfloat16, float32, int8); the next sync
+        restages every row from the host mirror.  The int2 and int4 tiers
+        raise NotImplementedError."""
+        _check_stored(dtype)
         with self._lock:
             if dtype == self.dtype:
                 return
             self.reuse_gen += 1
+            self.mutation_gen += 1  # sweep scores change between tiers
             self.dtype = dtype
+            self._device_scales = None
             self._dirty = True
             self._dirty_rows.clear()
+            if self.quantized:
+                # rows stored at a wider tier never touched the stats
+                self.scale_hw = self.norm_hw = 0.0
+                for lo in range(0, self.rows, self._SYNC_CHUNK_ROWS):
+                    v = self._mirror.read_f32(slice(lo, min(lo + self._SYNC_CHUNK_ROWS, self.rows)), self.dim)
+                    if len(v):
+                        self._note_quant_stats(v)
 
     def keys_of_group(self, item_id: int) -> list[int]:
         """All chunk keys currently stored for an item."""
@@ -522,6 +593,7 @@ class EmbeddingMatrix:
                 self.row_of.pop(key, None)
                 self._drop_key(key)
             self._free.extend(int(r) for r in rows)
+            self.mutation_gen += 1
             self._maybe_compact()
             return len(rows)
 

@@ -1,6 +1,7 @@
-"""Searcher: exact top-k query engine over the device matrix (bf16/f32).
+"""Searcher: exact top-k query engine over the device matrix (bf16, f32
+and int8 tiers).
 
-Port of perceive_tpu/index/searcher.py's unquantized path:
+Port of perceive_tpu/index/searcher.py's bf16, f32 and int8 paths:
 
     build()           SELECT every live embedding -> device matrix
     rebuild_source()  drop + reload one source's rows
@@ -8,10 +9,15 @@ Port of perceive_tpu/index/searcher.py's unquantized path:
     search_fused()    text -> encode (main + highlight model) -> scan
     retrieve()        join ids back to SQLite rows
 
-Every sweep goes through ``ops.topk.scan_topk``: the CUDA kernel for a
-matrix on a CUDA device, its plain version for one on the CPU.  The bf16
-tier is exact, so there is no rerank and no escalation.  Scores are plain
-dot products (cosine when the model L2-normalizes).
+Every sweep goes through ``ops.topk``: the CUDA kernels for a matrix on a
+CUDA device (K1/K2 at bf16 and f32, K3/K4 at int8, by batch width), their
+plain versions for one on the CPU.  The bf16 and f32 tiers score exactly
+as stored, so their sweep is the answer.  The int8 tier's scores are
+approximate: the sweep over-fetches RERANK_FACTOR times the candidates,
+``_rerank`` rescores them in f32 against the host mirror, and ``_scan``
+escalates to a 4x deeper sweep while the k-th exact score does not clear
+the fetched floor plus a 3-sigma quantization-noise margin.  Scores are
+plain dot products (cosine when the model L2-normalizes).
 
 ``build`` always loads from SQLite: snapshots are not ported yet, and any
 snapshot recorded in ``vector_shards`` is ignored.
@@ -28,10 +34,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from perceive_tpu.db import ITEM_COLUMNS, Database, deserialize_item_row, json_ids
-from perceive_tpu.types import Item
-
+from ..db import ITEM_COLUMNS, Database, deserialize_item_row, json_ids
 from ..ops import topk
+from ..types import Item
 from .matrix import CHUNK_STRIDE, EmbeddingMatrix, chunk_key, deserialize_embedding, key_item
 
 K_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
@@ -39,6 +44,25 @@ MAX_K = K_BUCKETS[-1]
 # internal over-fetch (chunk dedupe) may exceed the user-facing MAX_K
 _OVERFETCH_BUCKETS = K_BUCKETS + (2048, 4096, 8192)
 MAX_SOURCE_FILTER = topk.MAX_FILTER
+
+
+# quantized sweeps over-fetch candidates by this factor before the f32
+# rerank; the escalation loop in _scan re-fetches 4x deeper whenever the
+# fetched floor cannot prove the top-k
+RERANK_FACTOR = 4
+
+
+def _margin_sigma() -> float:
+    """N-sigma quantization-noise margin on the escalation trigger
+    (PERCEIVE_TPU_RERANK_MARGIN_SIGMA, default 3; 0 keeps the fetched floor
+    alone).  The floor proves that no row outside the candidates has a
+    QUANTIZED score above it; the margin also covers rows whose quantized
+    score underestimates the exact one, with per-dot noise std
+    sqrt(scale_row^2 * |q|^2 + qscale^2 * |row|^2) / sqrt(12)."""
+    try:
+        return float(os.environ.get("PERCEIVE_TPU_RERANK_MARGIN_SIGMA", "3"))
+    except ValueError:
+        return 3.0
 
 
 def _k_bucket(k: int, n: int) -> int:
@@ -72,6 +96,10 @@ class Searcher:
         self.matrix = matrix if matrix is not None else EmbeddingMatrix(dim, dtype=dtype, device=device)
         # when True (AppState's "auto" tier), growth re-evaluates the tier
         self.auto_retier = False
+        # how often a quantized sweep's floor forced a deeper re-fetch, and
+        # how many scans ran (plain ints, bumped under the GIL)
+        self.escalations = 0
+        self.scan_calls = 0
 
     # -- build ---------------------------------------------------------------
 
@@ -181,9 +209,9 @@ class Searcher:
         return self.matrix.remove(keys)
 
     def _maybe_retier(self) -> None:
-        """Follow the auto tier rule as the corpus grows.  A corpus past the
-        bf16 tier raises (the quantized tiers are not ported) rather than
-        being served in bf16."""
+        """Follow the auto tier rule as the corpus grows (bf16, then int8).
+        A corpus past the int8 tier raises (the int2 and int4 tiers are not
+        ported) rather than being served in another tier."""
         if not self.auto_retier:
             return
         from .matrix import auto_matrix_dtype
@@ -192,23 +220,34 @@ class Searcher:
 
     # -- query ---------------------------------------------------------------
 
+    @staticmethod
+    def _sweep(vectors, scales, source_ids, q, allowed, kb: int, n_sweep: int):
+        """The tier's sweep on device tensors -> ((Q, kb) scores, rows)."""
+        if scales is not None:
+            return topk.scan_topk_int8(vectors, scales, source_ids, q, allowed, kb, n_sweep)
+        return topk.scan_topk(vectors, source_ids, q, allowed, kb, n_sweep)
+
     def _device_scan(self, qp: np.ndarray, kb: int, allowed: np.ndarray):
-        """One sweep -> ((Q, kb) scores, (Q, kb) rows) on the host.  Capture
-        and launch happen under the matrix lock; the copy back outside it."""
+        """One sweep -> ((Q, kb) scores, (Q, kb) rows) on the host (int8:
+        approximate scores; _scan reranks).  Capture and launch happen under
+        the matrix lock; the copy back outside it."""
         m = self.matrix
         with m._lock:
-            vectors, source_ids = m.device_view()
-            vals, rows = topk.scan_topk(
-                vectors, source_ids,
+            vectors, source_ids, scales = m.device_view()
+            vals, rows = self._sweep(
+                vectors, scales, source_ids,
                 torch.from_numpy(np.ascontiguousarray(qp)).to(m.device),
                 torch.from_numpy(allowed).to(m.device), kb, m.sweep_rows,
             )
         return vals.cpu().numpy(), rows.cpu().numpy()
 
     def _first_fetch(self, k: int) -> int:
-        """Candidate depth of the first sweep for a user-facing k (doubled
-        while any document is chunk-embedded: dedupe needs extra)."""
-        return 2 * k if self.matrix.multi_chunk_groups > 0 else k
+        """Candidate depth of the first sweep for a user-facing k: times
+        RERANK_FACTOR at a quantized tier, doubled while any document is
+        chunk-embedded (dedupe needs extra).  The one formula shared by
+        _scan and search_fused."""
+        want = RERANK_FACTOR * k if self.matrix.quantized else k
+        return 2 * want if self.matrix.multi_chunk_groups > 0 else want
 
     def _pad_queries(self, q: np.ndarray) -> np.ndarray:
         """Zero-pad queries to the matrix's lane-aligned width."""
@@ -229,17 +268,63 @@ class Searcher:
         return n
 
     def _scan(self, q: np.ndarray, k: int, allowed: np.ndarray, first_sweep=None):
+        """Sweep (or take the fused sweep ``first_sweep`` = (kb, vals,
+        rows) when its depth matches), then at a quantized tier rerank and
+        escalate until the fetched floor proves the top k."""
         m = self.matrix
+        self.scan_calls += 1
+        want = self._first_fetch(k)
         q0 = q.shape[0]
         qb = self._q_bucket(q0)
         if qb > q0:
             q = np.concatenate([q, np.zeros((qb - q0, q.shape[1]), q.dtype)], axis=0)
-        kb = _k_bucket(self._first_fetch(k), m.sweep_rows)
-        if first_sweep is not None and first_sweep[0] == kb:
-            vals, rows = first_sweep[1], first_sweep[2]  # the fused sweep
-        else:
-            vals, rows = self._device_scan(self._pad_queries(q), kb, allowed)
-        return vals[:q0], rows[:q0]
+        qp = self._pad_queries(q)
+        while True:
+            kb = _k_bucket(want, m.sweep_rows)
+            if first_sweep is not None and first_sweep[0] == kb:
+                vals, rows = first_sweep[1], first_sweep[2]  # the fused sweep
+            else:
+                vals, rows = self._device_scan(qp, kb, allowed)
+            first_sweep = None
+            if not m.quantized:
+                return vals[:q0], rows[:q0]
+            evals, erows = self._rerank(q, vals, rows)
+            # a row outside the candidates scores at most the quantized
+            # floor (the kb-th fetched score): once the k-th exact score
+            # clears it (plus the noise margin), no outside row can
+            # displace the top k; else fetch 4x deeper
+            if kb >= min(m.rows, _OVERFETCH_BUCKETS[-1]):
+                return evals[:q0], erows[:q0]  # fetched everything fetchable
+            buffer_full = np.isfinite(vals[:, -1])  # else every match was fetched
+            kth = evals[:, min(k, evals.shape[1]) - 1]
+            margin = 0.0
+            sigmas = _margin_sigma()
+            if sigmas > 0.0:
+                qnorm = np.linalg.norm(q[:, : m.dim], axis=1)
+                qscale = np.abs(q[:, : m.dim]).max(axis=1) / 127.0
+                margin = sigmas * np.sqrt(
+                    (m.scale_hw * qnorm) ** 2 + (qscale * m.norm_hw) ** 2
+                ) / np.sqrt(12.0)
+            if not (buffer_full & (kth < vals[:, -1] + margin)).any():
+                return evals[:q0], erows[:q0]
+            self.escalations += 1
+            want = 4 * kb  # past the current bucket, not the request
+
+    def _rerank(self, q: np.ndarray, vals: np.ndarray, rows: np.ndarray):
+        """Exact f32 rescoring of quantized candidates against the host
+        mirror, best first (a stable sort: equal scores keep sweep order)."""
+        m = self.matrix
+        out_vals = np.full_like(vals, -np.inf)
+        out_rows = np.full_like(rows, -1)
+        for qi in range(len(q)):
+            cand = rows[qi][vals[qi] > -np.inf]
+            if len(cand) == 0:
+                continue
+            exact = m.host_vectors_for(cand) @ q[qi, : m.dim]
+            order = np.argsort(-exact, kind="stable")
+            out_vals[qi, : len(cand)] = exact[order]
+            out_rows[qi, : len(cand)] = cand[order]
+        return out_vals, out_rows
 
     def _allowed_arrays(self, source_ids: Optional[Sequence[int]]) -> list[np.ndarray]:
         """Fixed-size filter arrays; longer filters split into scan groups
@@ -380,7 +465,9 @@ class Searcher:
         (and, with ``aux_model``, its encode by the highlight model) and the
         first sweep are enqueued on one stream with no sync between them;
         one device-to-host copy brings back the query vectors and the sweep.
-        Retries (row reuse, dedupe underfill) re-sweep from the query vector.
+        At the int8 tier that first sweep is reranked and escalated like any
+        other.  Retries (row reuse, dedupe underfill, escalation) re-sweep
+        from the query vector.
 
         With ``aux_model`` returns ``(hits, aux_qvec)``; ``aux_qvec`` is None
         when there can be no hits."""
@@ -397,22 +484,23 @@ class Searcher:
         for mdl in (model, aux_model):
             if mdl is not None and mdl.device != m.device:
                 raise ValueError(f"model on {mdl.device}, matrix on {m.device}")
-        kb = _k_bucket(self._first_fetch(k), m.sweep_rows)
         allowed = torch.from_numpy(self._allowed_arrays(source_ids)[0]).to(m.device)
         ids = torch.from_numpy(model.tokenizer.encode_batch_ids([query], pad_batch_to=1)).to(m.device)
         if aux_model is not None:
             aux_ids = torch.from_numpy(
                 aux_model.tokenizer.encode_batch_ids([query], pad_batch_to=1)
             ).to(m.device)
-        with m._lock:  # capture through launch
+        with m._lock:  # capture through launch (a retier takes this lock too)
             gen = m.reuse_gen
-            vectors, src = m.device_view()
+            kb = _k_bucket(self._first_fetch(k), m.sweep_rows)
+            vectors, src, scales = m.device_view()
             q = model.encode_ids(ids).float()  # (1, dim)
             parts = [q]
             if aux_model is not None:
                 parts.append(aux_model.encode_ids(aux_ids).float())
             qp = q if m.padded_dim == m.dim else torch.nn.functional.pad(q, (0, m.padded_dim - m.dim))
-            vals, rows = topk.scan_topk(vectors, src, qp, allowed, kb, m.sweep_rows)
+            # int8: the query quantizes on the device inside the sweep
+            vals, rows = self._sweep(vectors, scales, src, qp, allowed, kb, m.sweep_rows)
         # ONE copy back: query vectors, scores and rows (int32 bits) packed
         flat = torch.cat([p.reshape(-1) for p in parts] + [vals.reshape(-1), rows.view(torch.float32).reshape(-1)])
         host = flat.cpu().numpy()

@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels (``perceive_tpu_torch/csrc/*.cu``).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into ONE shared
-library with a plain C interface, loaded through ``ctypes``.  The build runs
+Each ``.cu`` source compiles with ``nvcc`` for Hopper (``sm_90a``) into an
+object file, all of them at once in parallel processes, and the objects link
+into ONE shared library with a plain C interface, loaded through
+``ctypes``.  The build runs
 on the first launch only — importing this module needs no compiler — and
 lands in ``perceive_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and flags, so a second process loads the library without
@@ -24,7 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -61,15 +63,35 @@ def _nvcc() -> str:
 def _build(out: Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in sources() if p.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = out.with_name(f"{out.stem}.{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    logs, failed = [], []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text[-4000:]}")
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    log.write_text("\n".join(logs))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     build_seconds = time.perf_counter() - t0
     build_log = log
@@ -79,6 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
     lib.perceive_scan_topk.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_topk.restype = i
+    lib.perceive_scan_topk_int8.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_topk_int8.restype = i
+    lib.perceive_scan_topk_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_topk_slab.restype = i
     lib.perceive_scan_topk_workspace.argtypes = [i, i, i]
     lib.perceive_scan_topk_workspace.restype = z
     lib.perceive_scan_topk_max_k.argtypes = []

@@ -1,14 +1,27 @@
-"""Exact scan with top-k over the embedding matrix (the bf16/f32 tier).
+"""Exact scan with top-k over the embedding matrix, at the bf16/f32 and int8
+tiers.
 
-Port of perceive_tpu/ops/topk.py's unquantized path (``scan_topk_pallas``
-and its Pallas kernel ``pallas_topk_unsorted``).  ``scan_topk`` is the one
-entry point: on a CUDA matrix it launches the hand-written kernel in
-``csrc/scan_topk.cu``; on a CPU matrix it runs ``scan_topk_plain``, the same
-function in plain PyTorch.  A CUDA launch that fails raises — nothing falls
-back to the plain version.
+Port of perceive_tpu/ops/topk.py's row-major scans.  Four hand-written CUDA
+kernels, each beside its plain PyTorch version and a launch counter:
 
-Semantics, shared by both:
-  * q is cast to the matrix dtype; dot products accumulate in f32;
+    K1  scan_topk_flat        bf16/f32, Q < 256   csrc/scan_topk.cu
+    K2  scan_topk_slab        bf16, Q >= 256      csrc/scan_slab.cu
+    K3  scan_topk_int8_flat   int8, Q < 256       csrc/scan_topk.cu
+    K4  scan_topk_int8_slab   int8, Q >= 256      csrc/scan_slab.cu
+
+A kernel wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches its kernel or raises: nothing falls back.  The entry
+points ``scan_topk`` and ``scan_topk_int8`` route as the JAX package does:
+batches split into sweeps of at most MAX_QUERY_SLAB queries, a sweep of at
+least 2 * QUERY_SLAB queries is zero-padded to a multiple of QUERY_SLAB
+(``_slab_pad``) and takes the slab kernel, every other sweep the flat one.
+An f32 matrix has no slab kernel and stays on K1 at every width.
+
+Semantics, shared by all:
+  * bf16/f32: q is cast to the matrix dtype; dot products accumulate in f32;
+  * int8: queries quantize per query (``quantize_queries``); scores are
+    ``f32(int32 dot) * row scale * query scale``, multiplied in that order,
+    so kernel and plain version agree bit for bit;
   * rows whose source id is negative (tombstones, unallocated tail) or not
     in ``allowed`` are excluded; ``allowed[0] == ALLOW_ALL`` disables the
     source filter;
@@ -19,20 +32,41 @@ Semantics, shared by both:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _cuda
 
 ALLOW_ALL = -2  # sentinel in allowed[0]: disable source filtering
 MAX_FILTER = 16
-# queries per kernel launch; larger batches run as consecutive launches
+QUERY_SLAB = 128  # the slab kernels take sweeps of whole slabs
+SLAB_QUERIES = 64  # queries per block of the slab kernels
+# queries per sweep; larger batches run as consecutive sweeps
 MAX_QUERY_SLAB = 2048
-# workspace budget per launch (the kernel keeps up to min(k, 512)
-# candidates per 512-row block and query); query slabs shrink to fit
+# workspace budget per launch (the kernels keep up to min(k, 512)
+# candidates per 512-row block and query); query chunks shrink to fit
 _WORKSPACE_BYTES = 1 << 30
+# the plain versions' (Q, N) temporaries are bounded by this many bytes
+_PLAIN_BYTES = 1 << 30
+# the plain int8 version sums in f32: exact while every partial sum stays
+# below 2**24, i.e. D * 127 * 127 < 2**24
+_MAX_EXACT_INT8_DIM = 1040
 
-# kernel launches made by scan_topk (one per query slab)
-LAUNCHES = 0
+# kernel launches, one per C-entry call (a query chunk)
+LAUNCHES = 0  # K1
+LAUNCHES_SLAB = 0  # K2
+LAUNCHES_INT8 = 0  # K3
+LAUNCHES_INT8_SLAB = 0  # K4
+
+
+def launch_counts() -> dict:
+    return {"scan_topk": LAUNCHES, "scan_slab": LAUNCHES_SLAB,
+            "scan_int8": LAUNCHES_INT8, "scan_int8_slab": LAUNCHES_INT8_SLAB}
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, LAUNCHES_SLAB, LAUNCHES_INT8, LAUNCHES_INT8_SLAB
+    LAUNCHES = LAUNCHES_SLAB = LAUNCHES_INT8 = LAUNCHES_INT8_SLAB = 0
 
 
 def _sweep_n(n: int, n_sweep: int) -> int:
@@ -40,6 +74,21 @@ def _sweep_n(n: int, n_sweep: int) -> int:
     if not n_sweep or n_sweep >= n:
         return n
     return n_sweep
+
+
+def _slab_pad(nq: int) -> int:
+    """Zero queries that make a sweep of at least 2 * QUERY_SLAB queries a
+    multiple of QUERY_SLAB, so that it takes the slab kernel."""
+    if nq >= 2 * QUERY_SLAB and nq % QUERY_SLAB:
+        return QUERY_SLAB - nq % QUERY_SLAB
+    return 0
+
+
+def _is_slab(nq: int) -> bool:
+    return nq >= 2 * QUERY_SLAB and nq % QUERY_SLAB == 0
+
+
+# -- reference math ------------------------------------------------------------
 
 
 def mask_scores(scores: torch.Tensor, source_ids: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
@@ -51,26 +100,102 @@ def mask_scores(scores: torch.Tensor, source_ids: torch.Tensor, allowed: torch.T
     return scores.masked_fill(~keep[None, :], float("-inf"))
 
 
+# 1/127 rounded to f32: the JAX package divides by the constant 127, and XLA
+# compiles that division into a multiplication by this reciprocal; every
+# JAX path runs it compiled, so the port multiplies too
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def quantize_queries(q: torch.Tensor):
+    """(Q, D) f32 -> ((Q, D) int8, (Q, 1) f32 scales), symmetric per query:
+    scale = max(max|q|, 1e-12) * f32(1/127), values rint(q / scale) (half
+    to even) clipped to [-127, 127]."""
+    q = q.float()
+    scale = torch.clamp(q.abs().amax(dim=1, keepdim=True), min=1e-12) * _INV_127
+    qi8 = torch.clamp(torch.round(q / scale), -127, 127).to(torch.int8)
+    return qi8, scale
+
+
+def scores_int8(matrix: torch.Tensor, scales: torch.Tensor, qi8: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
+    """(Q, N) f32 scores of int8 queries against an (N, D) int8 matrix (or
+    its values in f32): f32(int32 dot) * row scale * query scale.  The int32
+    dot runs as an f32 matmul of the int8 values, exact while D <=
+    _MAX_EXACT_INT8_DIM."""
+    if matrix.shape[1] > _MAX_EXACT_INT8_DIM:
+        raise ValueError(f"dim {matrix.shape[1]} > {_MAX_EXACT_INT8_DIM}: f32 sums of int8 products would round")
+    if matrix.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False  # TF32 would round the integer sums
+    dots = qi8.float() @ matrix.float().T
+    return dots * scales[None, :] * qscale
+
+
+def _order_keys(scores: torch.Tensor, row0: int) -> torch.Tensor:
+    """int64 keys that order like (score, -row): the kernels' 64-bit key
+    (order-preserving f32 bits above the complement of the row), shifted to
+    fit a signed integer.  Unique, so a top-k of keys is exact and equal
+    scores order by the lower row."""
+    bits = (scores + 0.0).view(torch.int32).to(torch.int64)  # -0 -> +0
+    order = torch.where(bits < 0, ~bits, bits + (1 << 31))  # [0, 2**32), monotone
+    rows = torch.arange(row0, row0 + scores.shape[1], device=scores.device, dtype=torch.int64)
+    return order * (1 << 31) + ((1 << 31) - 1 - rows)
+
+
+def _select_topk(scores: torch.Tensor, k: int):
+    """Best-first top k of (Q, N) masked f32 scores -> ((Q, k) f32, (Q, k)
+    int32 rows); equal scores order by the lower row; past the matching rows
+    the slots carry (-inf, -1)."""
+    nq, n = scores.shape
+    kk = min(k, n)
+    keys = _order_keys(scores, 0)
+    top = torch.topk(keys, kk, dim=1, largest=True, sorted=True).values
+    idx = (1 << 31) - 1 - (top & ((1 << 31) - 1))
+    vals = torch.gather(scores, 1, idx)
+    rows = torch.where(torch.isfinite(vals), idx, torch.full_like(idx, -1)).to(torch.int32)
+    if kk < k:
+        vals = torch.nn.functional.pad(vals, (0, k - kk), value=float("-inf"))
+        rows = torch.nn.functional.pad(rows, (0, k - kk), value=-1)
+    return vals, rows
+
+
+def _plain_in_chunks(score_fn, nq: int, n: int, k: int, device):
+    """Run ``score_fn(lo, hi) -> (hi - lo, n) masked scores`` over query
+    chunks whose temporaries stay under _PLAIN_BYTES, selecting each."""
+    step = max(1, _PLAIN_BYTES // max(1, n * 12))
+    vals = torch.empty((nq, k), dtype=torch.float32, device=device)
+    rows = torch.empty((nq, k), dtype=torch.int32, device=device)
+    for lo in range(0, nq, step):
+        hi = min(nq, lo + step)
+        vals[lo:hi], rows[lo:hi] = _select_topk(score_fn(lo, hi), k)
+    return vals, rows
+
+
 def scan_topk_plain(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
-    """Plain PyTorch version of the kernel (see module docstring)."""
+    """Plain PyTorch version of K1 and K2 (see module docstring)."""
     n = _sweep_n(matrix.shape[0], n_sweep)
-    m, src = matrix[:n], source_ids[:n]
+    m, src = matrix[:n].float(), source_ids[:n]
     qc = q.to(matrix.dtype).float()
-    scores = mask_scores(qc @ m.float().T, src, allowed.to(src.device))
-    # a stable sort keeps equal scores in row order: the lower row first
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    vals, idx = vals[:, :k], idx[:, :k]
-    if vals.shape[1] < k:
-        pad = k - vals.shape[1]
-        vals = torch.nn.functional.pad(vals, (0, pad), value=float("-inf"))
-        idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
-    rows = torch.where(torch.isfinite(vals), idx, torch.full_like(idx, -1))
-    return vals, rows.to(torch.int32)
+    allowed = allowed.to(src.device)
+    return _plain_in_chunks(lambda lo, hi: mask_scores(qc[lo:hi] @ m.T, src, allowed),
+                            q.shape[0], n, k, matrix.device)
 
 
-def _check(matrix, source_ids, q, allowed, k: int) -> None:
-    if matrix.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"scan_topk takes a bfloat16 or float32 matrix, got {matrix.dtype}")
+def scan_topk_int8_plain(matrix, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """Plain PyTorch version of K3 and K4 (see module docstring); ties
+    break as a stable sort would, by the lower row."""
+    n = _sweep_n(matrix.shape[0], n_sweep)
+    m, s, src = matrix[:n].float(), scales[:n], source_ids[:n]
+    allowed = allowed.to(src.device)
+    return _plain_in_chunks(
+        lambda lo, hi: mask_scores(scores_int8(m, s, qi8[lo:hi], qscale[lo:hi]), src, allowed),
+        qi8.shape[0], n, k, matrix.device)
+
+
+# -- kernel wrappers -----------------------------------------------------------
+
+
+def _check(matrix, source_ids, q, allowed, k: int, dtypes) -> None:
+    if matrix.dtype not in dtypes:
+        raise TypeError(f"the matrix must be one of {dtypes}, got {matrix.dtype}")
     if matrix.dim() != 2 or q.dim() != 2 or q.shape[1] != matrix.shape[1]:
         raise ValueError(f"shapes: matrix {tuple(matrix.shape)}, q {tuple(q.shape)}")
     if source_ids.shape != (matrix.shape[0],) or source_ids.dtype != torch.int32:
@@ -81,58 +206,182 @@ def _check(matrix, source_ids, q, allowed, k: int) -> None:
         raise ValueError(f"k must be >= 1, got {k}")
 
 
-def scan_topk(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
-    """Exact top-k of ``q @ matrix.T`` with row validity and source filter.
-
-    matrix: (N, D) bf16 or f32; source_ids: (N,) int32; q: (Q, D) float;
-    allowed: (F <= 16,) int32.  Returns ((Q, k) f32 scores, (Q, k) int32
-    rows), sorted best first.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    _check(matrix, source_ids, q, allowed, k)
-    if matrix.device.type == "cpu":
-        return scan_topk_plain(matrix, source_ids, q, allowed, k, n_sweep)
-    if matrix.device.type != "cuda":
-        raise RuntimeError(f"scan_topk: no kernel for device {matrix.device}")
-    return _scan_topk_cuda(matrix, source_ids, q, allowed, k, n_sweep)
+def _check_int8(matrix, scales, qi8, qscale) -> None:
+    if scales.shape != (matrix.shape[0],) or scales.dtype != torch.float32:
+        raise ValueError("scales must be (N,) float32")
+    if qi8.dtype != torch.int8 or qscale.shape != (qi8.shape[0], 1) or qscale.dtype != torch.float32:
+        raise ValueError("queries must be (Q, D) int8 with (Q, 1) float32 scales")
 
 
-def _scan_topk_cuda(matrix, source_ids, q, allowed, k: int, n_sweep: int):
-    global LAUNCHES
+def _arg(t):
+    return t.data_ptr() if isinstance(t, torch.Tensor) else t
+
+
+def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_sweep: int,
+            lead: tuple, per_query: tuple, q_align: int, row_align: int):
+    """Shared body of the CUDA wrappers: check placement and shapes, size
+    the workspace, and call the C entry ``entry`` once per query chunk as
+    ``entry(*lead, source_ids, q, *per_query, allowed, ...)``; ``lead`` and
+    ``per_query`` hold tensors, ints or None (a null pointer), and the
+    tensors of ``per_query`` are cut into the same query chunks as ``q``.
+    Returns (vals, rows, launches)."""
     dev = matrix.device
-    for name, t in (("source_ids", source_ids), ("q", q), ("allowed", allowed)):
+    tensors = [("source_ids", source_ids), ("q", q), ("allowed", allowed)]
+    tensors += [("argument", t) for t in (*lead, *per_query) if isinstance(t, torch.Tensor)]
+    for name, t in tensors:
         if t.device != dev:
-            raise ValueError(f"scan_topk: {name} on {t.device}, matrix on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, matrix on {dev}")
     lib = _cuda.library()
     n, d = matrix.shape
     if k > lib.perceive_scan_topk_max_k():
         raise ValueError(f"k={k} exceeds the kernel's {lib.perceive_scan_topk_max_k()}")
-    vec = 16 // matrix.element_size()
-    if d % vec or d > lib.perceive_scan_topk_max_dim():
-        raise ValueError(f"dim {d} must be a multiple of {vec} and <= {lib.perceive_scan_topk_max_dim()}")
+    row_bytes = d * matrix.element_size()
+    if row_bytes % row_align or d > lib.perceive_scan_topk_max_dim():
+        raise ValueError(f"{what}: rows of {row_bytes} bytes must be a multiple of {row_align} "
+                         f"and dim <= {lib.perceive_scan_topk_max_dim()}")
     if not (matrix.is_contiguous() and source_ids.is_contiguous()) or matrix.data_ptr() % 16:
-        raise ValueError("scan_topk needs a contiguous, 16-byte aligned matrix")
+        raise ValueError(f"{what} needs a contiguous, 16-byte aligned matrix")
     nq = q.shape[0]
     vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
     rows = torch.empty((nq, k), dtype=torch.int32, device=dev)
     ns = _sweep_n(n, n_sweep)
     if nq == 0:
-        return vals, rows
+        return vals, rows, 0
     if ns == 0:  # an empty matrix matches nothing
-        return vals.fill_(float("-inf")), rows.fill_(-1)
-    qc = q.to(matrix.dtype).contiguous()
+        return vals.fill_(float("-inf")), rows.fill_(-1), 0
+    q = q.contiguous()
+    per_query = tuple(t.contiguous() if isinstance(t, torch.Tensor) else t for t in per_query)
     allowed = allowed.contiguous()
-    per_query = lib.perceive_scan_topk_workspace(1, ns, k)
-    slab = max(1, min(MAX_QUERY_SLAB, _WORKSPACE_BYTES // per_query))
-    ws = torch.empty(min(slab, nq) * per_query, dtype=torch.uint8, device=dev)
-    dtype_code = 1 if matrix.dtype == torch.bfloat16 else 0
+    per_q_bytes = lib.perceive_scan_topk_workspace(1, ns, k)
+    chunk = max(1, min(MAX_QUERY_SLAB, _WORKSPACE_BYTES // per_q_bytes))
+    if chunk >= q_align:
+        chunk -= chunk % q_align
+    ws = torch.empty(min(chunk, nq) * per_q_bytes, dtype=torch.uint8, device=dev)
     stream = _cuda.stream_of(matrix)
-    for s in range(0, nq, slab):
-        qs = qc[s : s + slab]
-        code = lib.perceive_scan_topk(
-            matrix.data_ptr(), dtype_code, source_ids.data_ptr(), qs.data_ptr(),
-            allowed.data_ptr(), allowed.shape[0], qs.shape[0], d, ns, k,
-            vals[s:].data_ptr(), rows[s:].data_ptr(), ws.data_ptr(), stream,
-        )
-        _cuda.check(code, "scan_topk")
-        LAUNCHES += 1
+    fn = getattr(lib, entry)
+    launches = 0
+    for s in range(0, nq, chunk):
+        e = min(nq, s + chunk)
+        code = fn(*map(_arg, lead), source_ids.data_ptr(), q[s:e].data_ptr(),
+                  *(_arg(t[s:e] if isinstance(t, torch.Tensor) else t) for t in per_query),
+                  allowed.data_ptr(), allowed.shape[0], e - s, d, ns, k,
+                  vals[s:].data_ptr(), rows[s:].data_ptr(), ws.data_ptr(), stream)
+        _cuda.check(code, what)
+        launches += 1
+    return vals, rows, launches
+
+
+def _device_of(matrix, what: str) -> str:
+    if matrix.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: no kernel for device {matrix.device}")
+    return matrix.device.type
+
+
+def scan_topk_flat(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
+    """K1: exact top-k of ``q @ matrix.T`` over a bf16 or f32 matrix, any Q."""
+    global LAUNCHES
+    _check(matrix, source_ids, q, allowed, k, (torch.bfloat16, torch.float32))
+    if _device_of(matrix, "scan_topk_flat") == "cpu":
+        return scan_topk_plain(matrix, source_ids, q, allowed, k, n_sweep)
+    dtype_code = 1 if matrix.dtype == torch.bfloat16 else 0
+    vals, rows, n = _launch("perceive_scan_topk", "scan_topk_flat", matrix, source_ids,
+                            q.to(matrix.dtype), allowed, k, n_sweep,
+                            (matrix, dtype_code), (), 1, 16)
+    LAUNCHES += n
     return vals, rows
+
+
+def scan_topk_slab(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
+    """K2: the same function as K1 for batches, over a bf16 matrix; tensor
+    cores score a 64-query by 512-row tile per block."""
+    global LAUNCHES_SLAB
+    _check(matrix, source_ids, q, allowed, k, (torch.bfloat16,))
+    if _device_of(matrix, "scan_topk_slab") == "cpu":
+        return scan_topk_plain(matrix, source_ids, q, allowed, k, n_sweep)
+    vals, rows, n = _launch("perceive_scan_topk_slab", "scan_topk_slab", matrix, source_ids,
+                            q.to(torch.bfloat16), allowed, k, n_sweep,
+                            (matrix, 1, None), (None,), SLAB_QUERIES, 128)
+    LAUNCHES_SLAB += n
+    return vals, rows
+
+
+def scan_topk_int8_flat(matrix, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """K3: exact top-k of int8 scores (see ``scores_int8``), any Q."""
+    global LAUNCHES_INT8
+    _check(matrix, source_ids, qi8, allowed, k, (torch.int8,))
+    _check_int8(matrix, scales, qi8, qscale)
+    if _device_of(matrix, "scan_topk_int8_flat") == "cpu":
+        return scan_topk_int8_plain(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
+    vals, rows, n = _launch("perceive_scan_topk_int8", "scan_topk_int8_flat", matrix, source_ids,
+                            qi8, allowed, k, n_sweep, (matrix, scales), (qscale,), 1, 16)
+    LAUNCHES_INT8 += n
+    return vals, rows
+
+
+def scan_topk_int8_slab(matrix, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """K4: K3 for batches; tensor cores score a 64-query by 512-row tile
+    per block."""
+    global LAUNCHES_INT8_SLAB
+    _check(matrix, source_ids, qi8, allowed, k, (torch.int8,))
+    _check_int8(matrix, scales, qi8, qscale)
+    if _device_of(matrix, "scan_topk_int8_slab") == "cpu":
+        return scan_topk_int8_plain(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
+    vals, rows, n = _launch("perceive_scan_topk_slab", "scan_topk_int8_slab", matrix, source_ids,
+                            qi8, allowed, k, n_sweep, (matrix, 2, scales), (qscale,), SLAB_QUERIES, 128)
+    LAUNCHES_INT8_SLAB += n
+    return vals, rows
+
+
+# -- entry points ----------------------------------------------------------------
+
+
+def _sweeps(q: torch.Tensor):
+    """(offset, padded sweep) pairs: MAX_QUERY_SLAB chunks, each padded by
+    ``_slab_pad``."""
+    for s in range(0, max(q.shape[0], 1), MAX_QUERY_SLAB):
+        part = q[s : s + MAX_QUERY_SLAB]
+        pad = _slab_pad(part.shape[0])
+        if pad:
+            part = torch.nn.functional.pad(part, (0, 0, 0, pad))
+        yield s, part
+
+
+def _gather(nq: int, k: int, device, parts):
+    if len(parts) == 1:
+        _, v, r = parts[0]
+        return v[:nq], r[:nq]
+    vals = torch.empty((nq, k), dtype=torch.float32, device=device)
+    rows = torch.empty((nq, k), dtype=torch.int32, device=device)
+    for s, v, r in parts:
+        e = min(nq, s + v.shape[0])
+        vals[s:e], rows[s:e] = v[: e - s], r[: e - s]
+    return vals, rows
+
+
+def scan_topk(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
+    """Exact top-k of ``q @ matrix.T`` with row validity and source filter.
+
+    matrix: (N, D) bf16 or f32; source_ids: (N,) int32; q: (Q, D) float;
+    allowed: (F <= 16,) int32.  Returns ((Q, k) f32 scores, (Q, k) int32
+    rows), sorted best first.  Routes each sweep to K2 or K1."""
+    _check(matrix, source_ids, q, allowed, k, (torch.bfloat16, torch.float32))
+    parts = []
+    for s, part in _sweeps(q):
+        slab = _is_slab(part.shape[0]) and matrix.dtype == torch.bfloat16
+        fn = scan_topk_slab if slab else scan_topk_flat
+        parts.append((s, *fn(matrix, source_ids, part, allowed, k, n_sweep)))
+    return _gather(q.shape[0], k, matrix.device, parts)
+
+
+def scan_topk_int8(matrix, scales, source_ids, q, allowed, k: int, n_sweep: int = 0):
+    """Top-k of int8 scores of f32 queries (quantized here, on the
+    queries' device) against an (N, D) int8 matrix with (N,) f32 row
+    scales.  Approximate scores: the searcher reranks the candidates in
+    f32.  Routes each sweep to K4 or K3."""
+    _check(matrix, source_ids, q, allowed, k, (torch.int8,))
+    parts = []
+    for s, part in _sweeps(q):
+        qi8, qscale = quantize_queries(part)
+        fn = scan_topk_int8_slab if _is_slab(part.shape[0]) else scan_topk_int8_flat
+        parts.append((s, *fn(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)))
+    return _gather(q.shape[0], k, matrix.device, parts)

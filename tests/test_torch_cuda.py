@@ -8,8 +8,10 @@ Marked ``cuda``: without a GPU these skip.  On a machine with one:
 need not have.)
 
 The kernels build from perceive_tpu_torch/csrc on the first launch.
-Tolerances: scan scores 1e-4 (f32 sums in another order), attention 1e-2
-in bf16 against the f32 math on the same bf16 inputs, 1e-5 in f32.
+Tolerances: bf16/f32 scan scores 1e-4 (f32 sums in another order); the int8
+scans (K3, K4) none: scores and rows equal the plain version's bit for bit;
+attention 1e-2 in bf16 against the f32 math on the same bf16 inputs, 1e-5
+in f32.
 """
 
 import pytest
@@ -81,6 +83,66 @@ def test_attention_matches_plain(dev, b, s, nh, dh, dtype, tol):
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
 
 
+def _int8_inputs(dev, n, nq, seed, dup=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((n, 384), generator=g, device=dev)
+    if dup:  # every row 8 times over: dense exact ties
+        v = v[: n // 8].repeat(8, 1)
+    scales = torch.clamp(v.abs().amax(dim=1), min=1e-12) / 127.0
+    m = torch.clamp(torch.round(v / scales[:, None]), -127, 127).to(torch.int8).contiguous()
+    src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((n,), generator=g, device=dev) < 0.2] = -1
+    qi8, qscale = topk.quantize_queries(torch.randn((nq, 384), generator=g, device=dev))
+    return m, scales.float(), src, qi8, qscale
+
+
+@pytest.mark.parametrize("kernel,nq", [("flat", 1), ("flat", 5), ("flat", 40), ("slab", 256), ("slab", 320)])
+@pytest.mark.parametrize("k,filt,n_sweep", [(16, None, 0), (100, [1], 20480), (600, [0, 2], 0), (8192, None, 0)])
+def test_scan_topk_int8_bit_exact(dev, kernel, nq, k, filt, n_sweep):
+    m, scales, src, qi8, qscale = _int8_inputs(dev, 32768, nq, nq + k)
+    fn = topk.scan_topk_int8_flat if kernel == "flat" else topk.scan_topk_int8_slab
+    counter = "LAUNCHES_INT8" if kernel == "flat" else "LAUNCHES_INT8_SLAB"
+    before = getattr(topk, counter)
+    vk, rk = fn(m, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    vp, rp = topk.scan_topk_int8_plain(m, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    torch.cuda.synchronize()
+    assert getattr(topk, counter) == before + 1
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("kernel", ["flat", "slab"])
+def test_scan_topk_int8_ties_lower_row_first(dev, kernel):
+    nq = 3 if kernel == "flat" else 256
+    m, scales, src, qi8, qscale = _int8_inputs(dev, 8192, nq, 9, dup=True)
+    fn = topk.scan_topk_int8_flat if kernel == "flat" else topk.scan_topk_int8_slab
+    vk, rk = fn(m, scales, src, qi8, qscale, _allowed(dev), 64)
+    vp, rp = topk.scan_topk_int8_plain(m, scales, src, qi8, qscale, _allowed(dev), 64)
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    same = vk[:, 1:] == vk[:, :-1]
+    assert bool(same.any()) and bool((rk[:, 1:][same] > rk[:, :-1][same]).all())
+
+
+@pytest.mark.parametrize("nq,k,filt,n_sweep", [(256, 16, None, 0), (320, 100, [1], 20480), (512, 600, [0, 2], 0)])
+def test_scan_topk_slab_matches_plain(dev, nq, k, filt, n_sweep):
+    g = torch.Generator(device=dev).manual_seed(nq + k)
+    m = torch.randn((32768, 384), generator=g, device=dev)
+    m = (m / m.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    src = torch.randint(0, 3, (32768,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((32768,), generator=g, device=dev) < 0.2] = -1
+    q = torch.randn((nq, 384), generator=g, device=dev)
+    before = topk.LAUNCHES_SLAB
+    vk, rk = topk.scan_topk(m, src, q, _allowed(dev, filt), k, n_sweep)  # routes to K2
+    vp, rp = topk.scan_topk_plain(m, src, q, _allowed(dev, filt), k, n_sweep)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES_SLAB == before + 1
+    torch.testing.assert_close(vk, vp, atol=1e-4, rtol=0)
+    diff = rk != rp
+    if diff.any():
+        near = (vp[:, 1:] - vp[:, :-1]).abs() <= 2e-4
+        near = torch.nn.functional.pad(near, (1, 0)) | torch.nn.functional.pad(near, (0, 1))
+        assert bool((~diff | near).all())
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 600, 2, 32), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -91,6 +153,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         topk.scan_topk(m, src, torch.zeros((1, 384), device=dev), _allowed(dev), 9000)
     with pytest.raises(ValueError):
         topk.scan_topk(m, src.cpu(), torch.zeros((1, 384), device=dev), _allowed(dev), 4)
+    with pytest.raises(TypeError):  # no slab kernel for f32
+        topk.scan_topk_slab(m.float(), src, torch.zeros((256, 384), device=dev), _allowed(dev), 4)
+    with pytest.raises(ValueError):  # slab rows must be a multiple of 128 bytes
+        topk.scan_topk_slab(m[:, :32].contiguous(), src, torch.zeros((256, 32), device=dev), _allowed(dev), 4)
     # an empty matrix matches nothing, as in the plain version
     vals, rows = topk.scan_topk(m[:0], src[:0], torch.zeros((2, 384), device=dev), _allowed(dev), 4)
     assert torch.isinf(vals).all() and (rows == -1).all()

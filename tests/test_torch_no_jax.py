@@ -1,5 +1,6 @@
-"""The port imports neither jax nor the Rust tokenizers, and importing the
-kernel loader needs no CUDA compiler (the build runs at the first launch)."""
+"""The port imports neither jax, nor anything of the JAX package, nor the
+Rust tokenizers, and importing the kernel loader needs no CUDA compiler
+(the build runs at the first launch)."""
 
 import os
 import subprocess
@@ -15,11 +16,40 @@ def _run(code: str, env=None):
     )
 
 
+PORT_MODULES = (
+    "perceive_tpu_torch, perceive_tpu_torch.cli, perceive_tpu_torch.cli.state, "
+    "perceive_tpu_torch.index.searcher, perceive_tpu_torch.index.executor, perceive_tpu_torch.db, "
+    "perceive_tpu_torch.models, perceive_tpu_torch.ops.topk, perceive_tpu_torch.ops.attention, "
+    "perceive_tpu_torch.utils.coalesce, perceive_tpu_torch.paths, perceive_tpu_torch.types"
+)
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    res = _run(
+        "import sys\n"
+        f"import {PORT_MODULES}\n"
+        "bad = sorted(m for m in sys.modules if m == 'perceive_tpu' or m.startswith('perceive_tpu.'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py's imports, at module level and inside its phases."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "perceive_tpu")]
+    assert not bad and "perceive_tpu_torch.db" in names, bad
+
+
 def test_port_imports_no_jax_or_tokenizers():
     res = _run(
         "import sys\n"
-        "import perceive_tpu_torch, perceive_tpu_torch.cli, perceive_tpu_torch.index.searcher\n"
-        "import perceive_tpu_torch.models, perceive_tpu_torch.ops.topk, perceive_tpu_torch.ops.attention\n"
+        f"import {PORT_MODULES}\n"
         "bad = [m for m in ('jax', 'jaxlib', 'tokenizers') if m in sys.modules]\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -33,7 +63,7 @@ def test_kernel_loader_imports_without_nvcc():
         "import perceive_tpu_torch.ops._cuda as c\n"
         "assert c._lib is None and c.build_seconds is None\n"
         "assert len(c.source_key()) == 16\n"
-        "assert {p.name for p in c.sources()} >= {'scan_topk.cu', 'attention.cu'}\n",
+        "assert {p.name for p in c.sources()} >= {'scan_topk.cu', 'scan_slab.cu', 'topk_common.cuh', 'attention.cu'}\n",
         env=env,
     )
     assert res.returncode == 0, res.stdout + res.stderr
@@ -47,7 +77,11 @@ def test_cpu_tensors_never_build():
         "m = torch.zeros(512, 128); s = torch.zeros(512, dtype=torch.int32)\n"
         "a = torch.full((16,), -9, dtype=torch.int32); a[0] = topk.ALLOW_ALL\n"
         "topk.scan_topk(m, s, torch.zeros(1, 128), a, 4)\n"
+        "topk.scan_topk(m.bfloat16(), s, torch.zeros(256, 128), a, 4)\n"
+        "topk.scan_topk_int8(m.to(torch.int8), torch.ones(512), s, torch.zeros(300, 128), a, 4)\n"
+        "topk.scan_topk_int8(m.to(torch.int8), torch.ones(512), s, torch.zeros(3, 128), a, 4)\n"
         "x = torch.zeros(1, 8, 2, 4); attention.attention(x, x, x, torch.ones(1, 8, dtype=torch.int32))\n"
-        "assert _cuda._lib is None and topk.LAUNCHES == 0 and attention.LAUNCHES == 0\n"
+        "assert _cuda._lib is None and attention.LAUNCHES == 0\n"
+        "assert set(topk.launch_counts().values()) == {0}\n"
     )
     assert res.returncode == 0, res.stdout + res.stderr

@@ -1,5 +1,5 @@
 """The port's AppState rules: the device is explicit, and the storage tier
-is bf16 or f32 or an error (never bf16 in another tier's place)."""
+is bf16, f32 or int8 or an error (never one tier in another's place)."""
 
 import pytest
 import torch
@@ -30,7 +30,9 @@ def test_cuda_without_a_gpu_raises():
     "choice,n_rows,want",
     [("auto", 0, torch.bfloat16), ("auto", 1_500_000, torch.bfloat16), ("AUTO", 10, torch.bfloat16),
      ("bf16", 9_000_000, torch.bfloat16), ("bfloat16", 0, torch.bfloat16),
-     ("f32", 0, torch.float32), ("float32", 5_000_000, torch.float32)],
+     ("f32", 0, torch.float32), ("float32", 5_000_000, torch.float32),
+     ("auto", 1_500_001, torch.int8), ("auto", 4_000_000, torch.int8), ("int8", 0, torch.int8),
+     ("INT8", 9_000_000, torch.int8)],
 )
 def test_storage_tier(choice, n_rows, want):
     assert storage_tier(choice, n_rows, 384) is want
@@ -38,17 +40,24 @@ def test_storage_tier(choice, n_rows, want):
 
 @pytest.mark.parametrize(
     "choice,n_rows,err",
-    [("auto", 1_500_001, NotImplementedError), ("auto", 800_000, NotImplementedError),
-     ("int8", 0, NotImplementedError), ("int4", 0, NotImplementedError),
+    [("auto", 4_000_001, NotImplementedError), ("auto", 2_100_000, NotImplementedError),
+     ("auto", 30_000_000, NotImplementedError), ("int4", 0, NotImplementedError),
      ("int2", 0, NotImplementedError), ("fp8", 0, ValueError)],
 )
 def test_unported_tiers_raise(choice, n_rows, err):
-    # 800k rows at 768 padded dims count as 1.6M rows of 384: past bf16
-    with pytest.raises(err):
-        storage_tier(choice, n_rows, 768 if n_rows == 800_000 else 384)
+    # 2.1M rows at 768 padded dims count as 4.2M rows of 384: past int8
+    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else None):
+        storage_tier(choice, n_rows, 768 if n_rows == 2_100_000 else 384)
 
 
-@pytest.mark.parametrize("env,want", [(None, torch.bfloat16), ("f32", torch.float32), ("int8", None)])
+def test_auto_tier_scales_by_width():
+    # 800k rows at 768 padded dims count as 1.6M rows of 384: int8, not bf16
+    assert storage_tier("auto", 800_000, 768) is torch.int8
+    assert storage_tier("auto", 800_000, 384) is torch.bfloat16
+
+
+@pytest.mark.parametrize("env,want", [(None, torch.bfloat16), ("f32", torch.float32), ("int8", torch.int8),
+                                      ("int4", None)])
 def test_appstate_tier_from_env(tmp_path, monkeypatch, env, want):
     if env is None:
         monkeypatch.delenv("PERCEIVE_TPU_MATRIX_DTYPE", raising=False)
