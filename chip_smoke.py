@@ -20,9 +20,20 @@ Phases (any failure exits non-zero before the final line):
   8. the int8 slice: 1M more filler rows (2M in all), a fresh AppState whose
      auto rule picks the int8 tier, the same 16 queries through the CLI,
      hits held against an exact f32 top-10 over the host mirror;
-  9. the int8 batch path, as phase 7.
+  9. the int8 batch path, as phase 7;
+ 10. K5 (int2 coarse scores), K6 (exact top-kc select), K7 and K8 (int8
+     scans over the transposed companion) against their plain versions, bit
+     for bit, at the int2 slice's shape (4,194,304 x 384);
+ 11. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
+     AppState whose auto rule picks the int2 tier (coarse pass + int8
+     companion), its self-audit's verdict, the same 16 queries through the
+     CLI, the composed device pipeline held against the composed plain one
+     for every query, hits against an exact f32 top-10
+     (``served_recall_at_10``), the fine phase's gather and dot timed;
+ 12. the int2 batch path, as phase 7.
 Each kernel is timed beside its plain version, one PyTorch call for the same
-function (``library_ms``: a yardstick the port never calls) and its bound.
+function (``library_ms``: a yardstick the port never calls; null where no
+single call computes it) and its bound.
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -30,6 +41,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -48,6 +60,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "scan_int8": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:273"),
     "scan_int8_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:234"),
     "attention": ("perceive_tpu_torch/csrc/attention.cu", "perceive_tpu/ops/attention.py:58"),
+    "int2_scores": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1222"),
+    "select_topk": ("perceive_tpu_torch/csrc/select_topk.cu", "perceive_tpu/ops/topk.py:1748"),
+    "scan_int8t": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:753"),
+    "scan_int8t_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:835"),
 }
 # the H100 SXM data sheet: device memory rate and dense tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -56,11 +72,29 @@ DIM = 384
 KS = (16, 64, 128, 1024, 8192)
 BF16_KB = 32  # the bf16 slice's sweep depth: k=10, doubled for chunk dedupe
 INT8_KB = 128  # the int8 slice's: k=10, x4 over-fetch, doubled for chunk dedupe
+INT2_KCS = (1024, 4096)  # coarse depths: the audit's shallowest, and the default
 SCAN_TOL = 1e-4  # bf16 scans: f32 sums of bf16 products in another order
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from perceive_tpu_torch.ops import attention as attn
+    from perceive_tpu_torch.ops import int2, topk
+
+    return {**topk.launch_counts(), **int2.launch_counts(), "attention": attn.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from perceive_tpu_torch.ops import attention as attn
+    from perceive_tpu_torch.ops import int2, topk
+
+    topk.reset_launch_counts()
+    int2.reset_launch_counts()
+    attn.LAUNCHES = 0
 
 
 @contextlib.contextmanager
@@ -374,6 +408,138 @@ def check_int8_scans(card: str) -> dict:
     return {"K3": {"max_abs_err": 0.0, **times[("K3", 1)]}, "K4": {"max_abs_err": 0.0, **times[("K4", 512)]}}
 
 
+def int2_corpus(g, dev, n: int, hwm: int):
+    """Seeded unit rows as the int2 tier stores them, built on the card: the
+    (DIM/4, n) packed coarse matrix with its row scales (crumbs of the
+    rows on the {-3, -1, 1, 3} * rms/2 grid) and the (DIM, n) int8
+    companion with its scales; source ids and the sweep prefix as
+    corpus_rows gives them."""
+    import torch
+
+    chunks, src, ns = corpus_rows(g, dev, n, hwm)
+    d4 = DIM // 4
+    packed = torch.empty((d4, n), dtype=torch.uint8, device=dev)
+    fine = torch.empty((DIM, n), dtype=torch.int8, device=dev)
+    s2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    s8 = torch.empty((n,), dtype=torch.float32, device=dev)
+    for lo, blk in chunks:
+        hi = lo + blk.shape[0]
+        sc = torch.clamp(blk.pow(2).mean(dim=1).sqrt() / 2.0, min=1e-12)
+        c = torch.clamp(torch.round((blk / sc[:, None] + 3.0) / 2.0), 0, 3).to(torch.int32)
+        c[:, 3 * d4 :] = (c[:, 3 * d4 :] - 2) & 3
+        packed[:, lo:hi] = (c[:, :d4] | (c[:, d4 : 2 * d4] << 2) | (c[:, 2 * d4 : 3 * d4] << 4)
+                            | (c[:, 3 * d4 :] << 6)).to(torch.uint8).T
+        s2[lo:hi] = sc
+        s8[lo:hi] = torch.clamp(blk.abs().amax(dim=1), min=1e-12) / 127.0
+        fine[:, lo:hi] = torch.clamp(torch.round(blk / s8[lo:hi, None]), -127, 127).to(torch.int8).T
+    return packed, s2, fine, s8, src, ns
+
+
+def check_int2_kernels(card: str) -> dict:
+    """K5, K6, K7 and K8 at 4,194,304 x 384, bit for bit."""
+    import torch
+
+    from perceive_tpu_torch.ops import int2, topk
+
+    dev = torch.device("cuda:0")
+    n, hwm = 4_194_304, 3_800_000  # a prefix sweep of 3,809,280 rows
+    g = torch.Generator(device=dev).manual_seed(5)
+    packed, s2, fine, s8, src, ns = int2_corpus(g, dev, n, hwm)
+    allowed = filters(dev)
+
+    def queries(nq):
+        return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
+
+    scores = {}
+    for nq in (1, 8):
+        qi8, qs = queries(nq)
+        for fname, al in allowed.items():
+            got = int2.int2_scores(packed, s2, src, qi8, qs, al, ns)
+            want = int2.int2_scores_plain(packed, s2, src, qi8, qs, al, ns)
+            same = torch.equal(got, want)
+            log(f"K5 Q={nq:<4d} n_sweep={ns} filter={fname:<4s} {'bit-exact ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"K5 disagrees with its plain version (Q={nq}, {fname})")
+            scores[(nq, fname)] = got
+            for kc in INT2_KCS:
+                vk, rk, fk = int2.select_topk(got, kc)
+                vp, rp, fp = int2.select_topk_plain(got, kc)
+                ok = torch.equal(vk, vp) and torch.equal(rk, rp) and torch.equal(fk, fp)
+                log(f"K6 Q={nq:<4d} kc={kc:<5d} filter={fname:<4s} set, order and floor "
+                    f"{'bit-exact ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"K6 disagrees with its plain version (Q={nq}, kc={kc}, {fname})")
+    # K6 on dense ties: every score of a row 8 times over, and on a row that
+    # matches nothing
+    tied = scores[(8, "all")][:, : n // 8].repeat(1, 8).contiguous()
+    tied[7] = float("-inf")
+    for kc in INT2_KCS:
+        got, want = int2.select_topk(tied, kc), int2.select_topk_plain(tied, kc)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"K6 disagrees with its plain version on dense ties (kc={kc})")
+    log("K6 dense ties and an all -inf row: bit-exact, lower row first  ok")
+
+    for kid, fn, widths, ks in (("K7", topk.scan_topk_int8t_flat, (1, 8, 32), KS),
+                                ("K8", topk.scan_topk_int8t_slab, (512, 2048), (16, 128, 1024))):
+        for nq in widths:
+            qi8, qs = queries(nq)
+            for k in ks:
+                for fname, al in allowed.items():
+                    got = fn(fine, s8, src, qi8, qs, al, k, ns)
+                    want = topk.scan_topk_int8t_plain(fine, s8, src, qi8, qs, al, k, ns)
+                    check_case(f"{kid} Q={nq:<4d} k={k:<5d} filter={fname:<4s}", got, want, 0.0)
+
+    live = int((src[:ns] >= 0).sum())
+    keep = src[:ns] >= 0
+    times = {}
+    for nq in (1, 8):  # K5
+        qi8, qs = queries(nq)
+        t = {"ms": cuda_ms(lambda: int2.int2_scores(packed, s2, src, qi8, qs, allowed["all"], ns)),
+             "plain_ms": cuda_ms(lambda: int2.int2_scores_plain(packed, s2, src, qi8, qs, allowed["all"], ns)),
+             "library_ms": None}  # no single PyTorch call unpacks 2-bit crumbs
+        # packed bytes, scales and ids of the sweep read once, the queries
+        # once, the (Q, n_sweep) scores written once; 2 * D int8 operations
+        # a row and query
+        t["bound_ms"], t["bound_by"] = bound(ns * (DIM // 4 + 8) + nq * DIM + nq * ns * 4,
+                                             2.0 * nq * ns * DIM, "int8")
+        times[("K5", nq)] = t
+        log(f"K5 time Q={nq} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+            f"library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    for nq, kc in ((1, 4096), (1, 1024), (8, 4096)):  # K6
+        sc = scores[(nq, "all")]
+        t = {"ms": cuda_ms(lambda: int2.select_topk(sc, kc)),
+             "plain_ms": cuda_ms(lambda: int2.select_topk_plain(sc, kc)),
+             "library_ms": cuda_ms(lambda: torch.topk(sc, kc))}
+        # the scores read once, (score, row) pairs and the floor written once
+        t["bound_ms"], t["bound_by"] = bound(nq * ns * 4 + nq * kc * 8 + nq * 4, 0.0, "int8")
+        times[("K6", nq, kc)] = t
+        log(f"K6 time Q={nq} kc={kc} n={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+            f"library {t['library_ms']:.4f} ms (torch.topk)  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    mv, sv = fine[:, :ns], s8[:ns]
+
+    def library(qi8, qs, k):
+        """As check_int8_scans' yardstick, over the transposed matrix."""
+        dots = torch._int_mm(qi8, mv).float() if qi8.shape[0] > 16 else qi8.float() @ mv.float()
+        return torch.topk((dots * sv * qs).masked_fill(~keep, float("-inf")), k)
+
+    for kid, fn, nq in (("K7", topk.scan_topk_int8t_flat, 1), ("K7", topk.scan_topk_int8t_flat, 32),
+                        ("K8", topk.scan_topk_int8t_slab, 512), ("K8", topk.scan_topk_int8t_slab, 2048)):
+        qi8, qs = queries(nq)
+        k = INT8_KB
+        t = {"ms": cuda_ms(lambda: fn(fine, s8, src, qi8, qs, allowed["all"], k, ns)),
+             "plain_ms": cuda_ms(lambda: topk.scan_topk_int8t_plain(fine, s8, src, qi8, qs, allowed["all"], k, ns))}
+        t["library_ms"] = cuda_ms(lambda: library(qi8, qs, k)) if nq <= 512 else None
+        t["bound_ms"], t["bound_by"] = scan_bound(live, ns, nq, k, 1, "int8")
+        times[(kid, nq)] = t
+        lib = "not timed (its (Q, N) int32 product would take 34 GB)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        log(f"{kid} time Q={nq} k={k} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+            f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    del packed, fine, mv, scores, tied
+    torch.cuda.empty_cache()
+    return {"K5": {"max_abs_err": 0.0, **times[("K5", 1)]}, "K6": {"max_abs_err": 0.0, **times[("K6", 1, 4096)]},
+            "K7": {"max_abs_err": 0.0, **times[("K7", 1)]}, "K8": {"max_abs_err": 0.0, **times[("K8", 512)]}}
+
+
 # -- phase 5: K11 ------------------------------------------------------------
 
 
@@ -424,6 +590,7 @@ N_DOCS = 2048
 N_LONG = N_DOCS // 4  # documents over 400 tokens
 TOTAL_ROWS = 1_000_000
 INT8_ROWS = 2_000_000
+INT2_ROWS = 4_194_304  # 4.19M effective rows at 384 dims: past the int8 tier's 4M
 ENCODE_BATCH = 64
 N_SELF_QUERIES = 8
 N_EXECUTOR_QUERIES = 1024
@@ -484,14 +651,17 @@ def token_windows(tokenizer, texts, chunk_tokens: int, overlap: int):
     return out
 
 
-def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, rng, text: str, mid: int, ver: int):
+def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, text: str, mid: int, ver: int):
     """``n`` seeded unit-vector rows under ids first_id.. with one embedding
-    each, through the columns the ingest pipeline writes."""
-    chunk = 100_000
+    each, through the columns the ingest pipeline writes; the vectors come
+    from ``gen``, a torch.Generator on the card (SQLite takes the time)."""
+    import torch
+
+    chunk = 500_000
     for lo in range(0, n, chunk):
         c = min(chunk, n - lo)
-        v = rng.standard_normal((c, DIM)).astype(np.float32)
-        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        v = torch.randn((c, DIM), generator=gen, device=gen.device)
+        v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
         ids = range(first_id + lo, first_id + lo + c)
         with db.write() as conn:
             conn.executemany(
@@ -568,7 +738,8 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
         )
     n_fill = TOTAL_ROWS - len(flat)
     filler_text = " ".join(vocab_list[300:316])
-    write_filler(db, src_fill.id, N_DOCS + 1, len(flat) + 1, n_fill, rng, filler_text, mid, ver)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    write_filler(db, src_fill.id, N_DOCS + 1, len(flat) + 1, n_fill, gen, filler_text, mid, ver)
     db.close()
     log(f"sqlite corpus: {len(flat)} document rows + {n_fill} filler rows = {TOTAL_ROWS} rows "
         f"written in {time.perf_counter() - t0:.1f} s")
@@ -587,7 +758,7 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
     vecs = (vecs / np.linalg.norm(vecs, axis=1, keepdims=True))[rng.permutation(N_BATCH)]
     vecs_random = rng.standard_normal((N_BATCH, DIM)).astype(np.float32)
     vecs_random /= np.linalg.norm(vecs_random, axis=1, keepdims=True)
-    return {"model": model, "tok": tok, "docs": docs, "db_path": db_path, "rng": rng,
+    return {"model": model, "tok": tok, "docs": docs, "db_path": db_path, "gen": gen,
             "fill_source": src_fill.id, "next_id": N_DOCS + 1 + n_fill, "next_seq": len(flat) + n_fill + 1,
             "filler_text": filler_text, "self_docs": self_docs, "queries": queries, "vecs": vecs,
             "vecs_random": vecs_random}
@@ -598,7 +769,6 @@ def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str):
     is answered and launched ``kernel``, the self-queries rank their
     document first, and snippets come from their documents."""
     from perceive_tpu_torch.cli import main as cli_main
-    from perceive_tpu_torch.ops import topk
 
     db_path, docs, queries, self_docs = ctx["db_path"], ctx["docs"], ctx["queries"], ctx["self_docs"]
 
@@ -614,11 +784,11 @@ def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str):
         run(q)
     walls, results = [], []
     for q in queries:
-        before = topk.launch_counts()[kernel]
+        before = launch_counts()[kernel]
         t0 = time.perf_counter()
         res = run(q)
         walls.append((time.perf_counter() - t0) * 1e3)
-        if topk.launch_counts()[kernel] <= before:
+        if launch_counts()[kernel] <= before:
             raise SystemExit(f"a {tier} query launched no {kernel} kernel")
         results.append(res)
 
@@ -661,9 +831,10 @@ def hits_match(got, want, tol: float) -> bool:
     return True
 
 
-def batch_breakdown(searcher, qs) -> dict:
-    """One search_vectors_batch, with the host seconds spent in the sweeps
-    (launch to copy back), in the f32 rerank, and in the rest."""
+def batch_breakdown(searcher, qs) -> tuple:
+    """One search_vectors_batch -> (its hits, the host seconds spent in the
+    sweeps (launch to copy back), in the f32 rerank, in the rest, and in
+    all)."""
     spent = {"sweep": 0.0, "rerank": 0.0}
 
     def timed(name, fn):
@@ -678,25 +849,28 @@ def batch_breakdown(searcher, qs) -> dict:
     searcher._rerank = timed("rerank", searcher._rerank)
     try:
         t0 = time.perf_counter()
-        searcher.search_vectors_batch(qs, 10)
-        spent["rest"] = time.perf_counter() - t0 - spent["sweep"] - spent["rerank"]
+        out = searcher.search_vectors_batch(qs, 10)
+        spent["all"] = time.perf_counter() - t0
+        spent["rest"] = spent["all"] - spent["sweep"] - spent["rerank"]
     finally:
         del searcher._device_scan, searcher._rerank  # back to the class's methods
-    return spent
+    return out, spent
 
 
-def batch_path(card: str, state, ctx: dict, tier: str, kernel: str) -> dict:
+def batch_path(card: str, state, ctx: dict, tier: str, kernel: str, drain_kernel: str = "",
+               reps: int = 3) -> dict:
     """N_EXECUTOR_QUERIES vector queries from N_CLIENTS threads through a
-    BatchingSearchExecutor, then search_vectors_batch on N_BATCH queries.
-    The launch counts are read right after; then every executor answer is
-    held against the same query through search_vector."""
+    BatchingSearchExecutor, then search_vectors_batch on N_BATCH queries of
+    each mix, ``reps`` times after a warm-up (once, and no warm-up, when
+    ``reps`` is 1).  The launch counts are read right after (``kernel`` must
+    have run, and ``drain_kernel`` too where given); then every executor
+    answer is held against the same query through search_vector."""
     from perceive_tpu_torch.index import BatchingSearchExecutor
-    from perceive_tpu_torch.ops import topk
 
     searcher, vecs = state.searcher, ctx["vecs"]
     results = [None] * N_EXECUTOR_QUERIES
     esc0 = searcher.escalations
-    topk.reset_launch_counts()
+    reset_launch_counts()
     ex = BatchingSearchExecutor(searcher)
     try:
         def client(c):
@@ -715,31 +889,31 @@ def batch_path(card: str, state, ctx: dict, tier: str, kernel: str) -> dict:
         ex.close()
     timed = {}
     for name, qs in (("mixed", vecs), ("random", ctx["vecs_random"])):
-        searcher.search_vectors_batch(qs, 10)  # warm-up
-        esc, walls = searcher.escalations, []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            out = searcher.search_vectors_batch(qs, 10)
-            walls.append(time.perf_counter() - t0)
-        timed[name] = (float(np.median(walls)), (searcher.escalations - esc) / 3)
+        if reps > 1:
+            searcher.search_vectors_batch(qs, 10)  # warm-up
+        esc, runs = searcher.escalations, []
+        for _ in range(reps):
+            runs.append(batch_breakdown(searcher, qs))
+        median = sorted(runs, key=lambda r: r[1]["all"])[len(runs) // 2]
+        timed[name] = (median[1], (searcher.escalations - esc) / reps)
         if name == "mixed":
-            batch = out
-    launches = topk.launch_counts()
+            batch = median[0]
+    launches = launch_counts()
     # the path ends here; the checks below launch per-query sweeps
     if served != N_EXECUTOR_QUERIES or any(r is None for r in results):
         raise SystemExit(f"the executor served {served} of {N_EXECUTOR_QUERIES} queries")
-    if launches[kernel] == 0:
-        raise SystemExit(f"the {tier} batch path launched no {kernel} kernel")
+    for name in (kernel, drain_kernel):
+        if name and launches[name] == 0:
+            raise SystemExit(f"the {tier} batch path launched no {name} kernel")
     log(f"{tier} executor: {N_EXECUTOR_QUERIES} queries from {N_CLIENTS} threads in {t_ex:.3f} s = "
         f"{N_EXECUTOR_QUERIES / t_ex:.1f} QPS; sweeps_total {sweeps}, queries_total {served}  [{card}]")
-    for name, (wall, esc) in timed.items():
-        log(f"{tier} search_vectors_batch, {N_BATCH} {name} queries: {wall * 1e3:.2f} ms (median of 3) = "
-            f"{N_BATCH / wall:.1f} QPS; {esc:g} escalations a batch  [{card}]")
+    for name, (parts, esc) in timed.items():
+        wall = parts["all"]
+        log(f"{tier} search_vectors_batch, {N_BATCH} {name} queries: {wall * 1e3:.2f} ms "
+            f"({'median of ' + str(reps) if reps > 1 else 'one cold run'}) = {N_BATCH / wall:.1f} QPS; "
+            f"{esc:g} escalations a batch; host seconds: "
+            + ", ".join(f"{k} {parts[k]:.4f}" for k in ("sweep", "rerank", "rest")) + f"  [{card}]")
     log(f"{tier} batch path: escalations {searcher.escalations - esc0}; launches {launches}")
-    for name, qs in (("mixed", vecs), ("random", ctx["vecs_random"])):
-        parts = batch_breakdown(searcher, qs)
-        log(f"{tier} search_vectors_batch, {N_BATCH} {name} queries, host seconds: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f"  [{card}]")
     bad = sum(not hits_match(results[i], searcher.search_vector(vecs[i], 10), 1e-5)
               for i in range(N_EXECUTOR_QUERIES))
     bad += sum(not hits_match(batch[i], results[i], 1e-5) for i in range(N_EXECUTOR_QUERIES))
@@ -787,20 +961,21 @@ def bf16_slice(card: str, ctx: dict, dev) -> dict:
     return state, {"launches": launches, "p50": p50, "p95": p95}
 
 
-def exact_top10(searcher, qv, dev) -> list:
-    """The exact f32 top-10 (chunk hits deduped) over the host mirror."""
+def exact_top10(searcher, qvs, dev) -> list:
+    """The exact f32 top-10 (chunk hits deduped) of each of the (Q, dim)
+    queries over the host mirror, in one pass over it."""
     import torch
 
     m = searcher.matrix
     live = torch.from_numpy(m.item_ids[: m.rows] >= 0).to(dev)
-    scores = torch.empty((m.rows,), dtype=torch.float32, device=dev)
+    scores = torch.empty((qvs.shape[0], m.rows), dtype=torch.float32, device=dev)
     step = 262_144
     for lo in range(0, m.rows, step):
         hi = min(m.rows, lo + step)
         rows = torch.from_numpy(m.host_vectors_for(slice(lo, hi))).to(dev)
-        scores[lo:hi] = rows @ qv[0, : m.dim]
-    vals, rows = torch.topk(scores.masked_fill(~live, float("-inf")), 256)
-    return searcher._decode_hits(vals.cpu().numpy(), rows.cpu().numpy(), 10)
+        scores[:, lo:hi] = qvs[:, : m.dim] @ rows.T
+    vals, rows = torch.topk(scores.masked_fill(~live, float("-inf")), 256, dim=1)
+    return [searcher._decode_hits(v, r, 10) for v, r in zip(vals.cpu().numpy(), rows.cpu().numpy())]
 
 
 def int8_slice(card: str, ctx: dict, dev) -> tuple:
@@ -816,9 +991,11 @@ def int8_slice(card: str, ctx: dict, dev) -> tuple:
     model = ctx["model"]
     db = Database(ctx["db_path"])
     n_more = INT8_ROWS - TOTAL_ROWS
-    write_filler(db, ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["rng"],
+    write_filler(db, ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
                  ctx["filler_text"], model.model_id, model.model_version)
     db.close()
+    ctx["next_id"] += n_more
+    ctx["next_seq"] += n_more
     log(f"sqlite corpus: {n_more} more filler rows = {INT8_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -837,8 +1014,8 @@ def int8_slice(card: str, ctx: dict, dev) -> tuple:
     escalations = searcher.escalations - esc0
 
     worst = 0.0
-    for qi, q in enumerate(ctx["queries"]):
-        want = exact_top10(searcher, query_vector(ctx, q, dev), dev)
+    exact = exact_top10(searcher, torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]]), dev)
+    for qi, want in enumerate(exact):
         got = [(r["id"], r["score"]) for r in results[qi]]
         err = max(abs(a[1] - b[1]) for a, b in zip(got, want))
         if [i for i, _ in got] != [i for i, _ in want] or err > 1e-5:
@@ -849,12 +1026,104 @@ def int8_slice(card: str, ctx: dict, dev) -> tuple:
     return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations}
 
 
+def int2_slice(card: str, ctx: dict, dev) -> tuple:
+    """Phase 11: fill SQLite to INT2_ROWS rows, a fresh AppState (auto tier
+    -> int2 with its int8 companion) and its self-audit, 16 CLI queries
+    (K5, K6 and K7 must all run), the composed device pipeline against the
+    plain one for every query, hits against the exact f32 top-10."""
+    import torch
+
+    from perceive_tpu_torch.cli import AppState
+    from perceive_tpu_torch.db import Database
+    from perceive_tpu_torch.index.matrix import INT2
+    from perceive_tpu_torch.index.searcher import _k_bucket
+    from perceive_tpu_torch.ops import int2, topk
+
+    t0 = time.perf_counter()
+    model = ctx["model"]
+    db = Database(ctx["db_path"])
+    n_more = INT2_ROWS - INT8_ROWS
+    write_filler(db, ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
+                 ctx["filler_text"], model.model_id, model.model_version)
+    db.close()
+    ctx["next_id"] += n_more
+    ctx["next_seq"] += n_more
+    log(f"sqlite corpus: {n_more} more filler rows = {INT2_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
+    searcher = state.searcher
+    m = searcher.matrix
+    log(f"AppState build: {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
+        f"capacity {m.capacity} in {time.perf_counter() - t0:.1f} s  [{card}]")
+    if len(m) != INT2_ROWS or m.device != dev or m.dtype != INT2:
+        raise SystemExit(f"searcher holds {len(m)} {m.tier_name} rows on {m.device}; want int2 on {dev}")
+    log(f"int2 coarse self-audit: {json.dumps(searcher.coarse_audit)}")
+    if not m.coarse_trusted:
+        raise SystemExit(f"the self-audit demoted the coarse pass ({searcher.coarse_audit}): "
+                         "the CLI path would run no K5 or K6")
+
+    reset_launch_counts()
+    esc0 = searcher.escalations
+    results, p50, p95 = cli_queries(card, state, ctx, "int2", "int2_scores")
+    counts = launch_counts()
+    launches = {name: counts[name] for name in ("int2_scores", "select_topk", "scan_int8t")}
+    escalations = searcher.escalations - esc0
+    log(f"int2 CLI path: escalations {escalations}; launches {launches}")
+    for name, c in launches.items():
+        if c == 0:
+            raise SystemExit(f"the int2 CLI path launched no {name} kernel (audit {searcher.coarse_audit})")
+
+    # the composed device pipeline equals the composed plain one, per query
+    (packed2, fine), src, (scales2, fscales) = m.device_view()
+    kb = _k_bucket(searcher._first_fetch(10), m.sweep_rows)
+    allowed = torch.from_numpy(searcher._allowed_arrays(None)[0]).to(dev)
+    qvs = torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]])
+    qp = torch.nn.functional.pad(qvs, (0, m.padded_dim - m.dim))
+    kw = dict(n_sweep=m.sweep_rows, fetch=m.coarse_fetch)
+    for qi in range(len(ctx["queries"])):
+        args = (packed2, scales2, fine, fscales, src, qp[qi : qi + 1], allowed, kb)
+        got, want = int2.scan_int2_coarse_fine(*args, **kw), int2.scan_int2_coarse_fine_plain(*args, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"int2 query {qi}: the device pipeline differs from the plain one")
+    kc = int2.int2_coarse_depth(kb, m.sweep_rows, m.coarse_fetch)
+    log(f"int2 device pipeline (K5 -> K6 -> fine phase, kb={kb}, kc={kc}) equals the plain pipeline "
+        f"for 16/16 queries: vals, rows and floor bit for bit")
+
+    # where the pipeline's time goes, at Q = 1
+    qi8, qscale = topk.quantize_queries(qp[:1])
+    coarse = int2.int2_scores(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows)
+    cvals, idx, _ = int2.select_topk(coarse, kc)
+    t = {"pipeline": cuda_ms(lambda: int2.scan_int2_coarse_fine(*args[:5], qp[:1], allowed, kb, **kw)),
+         "K5": cuda_ms(lambda: int2.int2_scores(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows)),
+         "K6": cuda_ms(lambda: int2.select_topk(coarse, kc)),
+         "gather": cuda_ms(lambda: fine.index_select(1, idx.reshape(-1).long())),
+         "fine phase": cuda_ms(lambda: int2.fine_phase(cvals, idx, fine, fscales, qi8, qscale, kb))}
+    log("int2 pipeline at Q=1 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+        + f"  (the fine phase: gather of {kc} columns + int32-exact dot + select)  [{card}]")
+
+    exact = exact_top10(searcher, qvs, dev)
+    hit = total = 0
+    worst = 0.0
+    for qi, want in enumerate(exact):
+        got = dict((r["id"], r["score"]) for r in results[qi])
+        hit += sum(i in got for i, _ in want)
+        total += len(want)
+        worst = max([worst] + [abs(got[i] - s) for i, s in want if i in got])
+    recall = hit / max(total, 1)
+    log(f"int2 served_recall_at_10 {recall:.6f} ({hit}/{total}) against the exact f32 top-10; "
+        f"max score error {worst:.3g}")
+    if recall < 0.99 or worst > 1e-5:
+        raise SystemExit(f"int2 hits miss the exact f32 top-10 (recall {recall}, score error {worst})")
+    return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations,
+                   "recall": recall, "pipeline_ms": t}
+
+
 def main() -> int:
     card = environment()
     import torch
 
     from perceive_tpu_torch.ops import attention as attn
-    from perceive_tpu_torch.ops import topk
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -866,14 +1135,15 @@ def main() -> int:
         int8 = check_int8_scans(card)
     with phase("K11 against its plain version"):
         k11 = check_k11(card)
+    with phase("K5, K6, K7, K8 against their plain version"):
+        int2k = check_int2_kernels(card)
 
     # every main path runs with the launch counts set to 0 just before it
     # and read just after it; the comparisons above do not count
     launches = {}
     with tempfile.TemporaryDirectory() as workdir:
         with phase("bf16 slice: ingest, 1M rows, 16 CLI queries"):
-            topk.reset_launch_counts()
-            attn.LAUNCHES = 0
+            reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             ctx = build_corpus(card, workdir, dev)
             state, bf16_sl = bf16_slice(card, ctx, dev)
@@ -891,6 +1161,17 @@ def main() -> int:
             int8_batch = batch_path(card, state, ctx, "int8", "scan_int8_slab")
             launches["scan_int8_slab"] = int8_batch["launches"]["scan_int8_slab"]
         state.close()
+        del state  # release the int8 tier's mirror and device matrix
+        gc.collect()
+        torch.cuda.empty_cache()
+        with phase("int2 slice: 4.19M rows, 16 CLI queries"):
+            state, int2_sl = int2_slice(card, ctx, dev)
+            launches.update(int2_sl["launches"])
+        with phase("int2 batch path"):
+            # one cold batch of each mix: the host rerank bounds them (PERF.md)
+            int2_batch = batch_path(card, state, ctx, "int2", "scan_int8t_slab", "scan_int8t", reps=1)
+            launches["scan_int8t_slab"] = int2_batch["launches"]["scan_int8t_slab"]
+        state.close()
     log(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
     log(f"kernel launches on the main paths: {launches}")
     for name, n in launches.items():
@@ -898,7 +1179,8 @@ def main() -> int:
             raise SystemExit(f"the main path launched no {name} kernel")
 
     measured = {"scan_topk": bf16["K1"], "scan_slab": bf16["K2"], "scan_int8": int8["K3"],
-                "scan_int8_slab": int8["K4"], "attention": k11}
+                "scan_int8_slab": int8["K4"], "attention": k11, "int2_scores": int2k["K5"],
+                "select_topk": int2k["K6"], "scan_int8t": int2k["K7"], "scan_int8t_slab": int2k["K8"]}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": launches[name], "max_abs_err": measured[name]["max_abs_err"],

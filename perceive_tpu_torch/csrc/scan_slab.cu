@@ -1,10 +1,15 @@
-// Exact scan with top-k selection for batches of queries: K2 (bf16 rows)
-// and K4 (int8 rows), one templated kernel with two instantiations.
+// Exact scan with top-k selection for batches of queries: K2 (bf16 rows),
+// K4 (int8 rows) and K8 (the int2 tier's int8 companion, stored
+// transposed), one templated kernel with three instantiations.
 //
 // Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_slabbed`
 // (`_scan_kernel_slabbed`) and `pallas_topk_int8_slabbed`
-// (`_scan_kernel_int8_slabbed`): the same scans as K1 and K3, for sweeps of
-// at least 256 queries, where each row tile is read once for many queries.
+// (`_scan_kernel_int8_slabbed`), and `pallas_topk_int8t_slabbed`
+// (`_scan_kernel_int8t_slabbed`): the same scans as K1, K3 and K7, for
+// sweeps of at least 256 queries, where each row tile is read once for many
+// queries.  K8 reads the (D, N) layout, whose bytes are contiguous along
+// the rows: it transposes each 4 x 4 byte micro-tile while staging it
+// (__byte_perm), so the shared-memory tile and the fragment loads are K4's.
 //
 // What bounds them on the H100: operations.  At Q = 512 a 1M x 384 bf16
 // sweep is 4.0e11 flop (0.41 ms at 989 TFLOP/s) against 0.77 GB (0.23 ms at
@@ -83,10 +88,11 @@ __device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Grid (query tiles, row blocks); workspace cand[q][block][kc].
-template <int kDtype>
+// Grid (query tiles, row blocks); workspace cand[q][block][kc].  kTrans:
+// the matrix is the transposed (row_bytes, ld) int8 companion (K8).
+template <int kDtype, bool kTrans>
 __global__ void __launch_bounds__(kThreads, 1) scan_slab(
-    const unsigned char* __restrict__ matrix, const float* __restrict__ scales,
+    const unsigned char* __restrict__ matrix, int ld, const float* __restrict__ scales,
     const int* __restrict__ src, const unsigned char* __restrict__ q,
     const float* __restrict__ qscale, const int* __restrict__ allowed, int n_filter, int nq,
     int row_bytes, int n_sweep, int kc, int nblk, u64* __restrict__ cand) {
@@ -128,13 +134,32 @@ __global__ void __launch_bounds__(kThreads, 1) scan_slab(
 
     for (int sl = 0; sl < nslice; ++sl) {
       __syncthreads();  // every warp is done with the previous slice
-      for (int i = tid; i < kChunk * (kSlice / 16); i += kThreads) {
-        const int r = i >> 3, c = i & 7;
-        uint4 v = zero;
-        if (c0 + r < rn)
-          v = *reinterpret_cast<const uint4*>(
-              matrix + static_cast<size_t>(row0 + c0 + r) * row_bytes + sl * kSlice + c * 16);
-        *reinterpret_cast<uint4*>(rs + r * kSlicePitch + c * 16) = v;
+      if (kTrans) {
+        // (d, ld) layout: 4 dims x 4 rows a micro-tile, loaded as 4 words
+        // (lanes: 8 row groups x 4 dim groups, so a load fills 32-byte
+        // sectors) and transposed into 4 rows of 4 k-contiguous bytes
+        for (int i = tid; i < (kChunk / 4) * (kSlice / 4); i += kThreads) {
+          const int w = i >> 5, l = i & 31;
+          const int rg = (w & 3) * 8 + (l & 7), dg = (w >> 2) * 4 + (l >> 3);
+          const int r = 4 * rg, kk = 4 * dg;
+          uint32_t rw[4] = {0u, 0u, 0u, 0u};
+          if (c0 + r < rn) {
+            const unsigned char* p = matrix + static_cast<size_t>(sl * kSlice + kk) * ld + row0 + c0 + r;
+            transpose4x4(ld32(p), ld32(p + ld), ld32(p + 2 * static_cast<size_t>(ld)),
+                         ld32(p + 3 * static_cast<size_t>(ld)), rw);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) *reinterpret_cast<uint32_t*>(rs + (r + j) * kSlicePitch + kk) = rw[j];
+        }
+      } else {
+        for (int i = tid; i < kChunk * (kSlice / 16); i += kThreads) {
+          const int r = i >> 3, c = i & 7;
+          uint4 v = zero;
+          if (c0 + r < rn)
+            v = *reinterpret_cast<const uint4*>(
+                matrix + static_cast<size_t>(row0 + c0 + r) * row_bytes + sl * kSlice + c * 16);
+          *reinterpret_cast<uint4*>(rs + r * kSlicePitch + c * 16) = v;
+        }
       }
       for (int i = tid; i < kSlabQ * (kSlice / 16); i += kThreads) {
         const int r = i >> 3, c = i & 7;
@@ -192,20 +217,20 @@ __global__ void __launch_bounds__(kThreads, 1) scan_slab(
   write_candidates(sc, kScPitch, qn, q0, rn, row0, blk, nblk, kc, cand);
 }
 
-template <int kDtype>
-cudaError_t launch_slab(const unsigned char* matrix, const float* scales, const int* src,
+template <int kDtype, bool kTrans>
+cudaError_t launch_slab(const unsigned char* matrix, int ld, const float* scales, const int* src,
                         const unsigned char* q, const float* qscale, const int* allowed,
                         int n_filter, int nq, int row_bytes, int n_sweep, int k, float* vals,
                         int* rows, void* workspace, cudaStream_t stream) {
   const int nblk = n_blocks(n_sweep);
   const int kc = cand_per_block(k);
-  cudaError_t err = cudaFuncSetAttribute(scan_slab<kDtype>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(scan_slab<kDtype, kTrans>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSlabSmem));
   if (err != cudaSuccess) return err;
   u64* cand = static_cast<u64*>(workspace);
   const dim3 grid((nq + kSlabQ - 1) / kSlabQ, nblk);
-  scan_slab<kDtype><<<grid, kThreads, kSlabSmem, stream>>>(
-      matrix, scales, src, q, qscale, allowed, n_filter, nq, row_bytes, n_sweep, kc, nblk, cand);
+  scan_slab<kDtype, kTrans><<<grid, kThreads, kSlabSmem, stream>>>(
+      matrix, ld, scales, src, q, qscale, allowed, n_filter, nq, row_bytes, n_sweep, kc, nblk, cand);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_pass2(cand, nq, nblk * kc, k, vals, rows, stream);
@@ -232,17 +257,33 @@ int perceive_scan_topk_slab(const void* matrix, int dtype, const float* scales, 
   if (dtype == kBf16) {
     const int row_bytes = 2 * d;
     if (row_bytes % kSlice) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_slab<kBf16>(m, nullptr, src, qq, nullptr, allowed, n_filter, nq, row_bytes,
+    err = launch_slab<kBf16, false>(m, 0, nullptr, src, qq, nullptr, allowed, n_filter, nq, row_bytes,
                              n_sweep, k, vals, rows, workspace, s);
   } else if (dtype == kInt8) {
     if (d % kSlice || scales == nullptr || qscale == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_slab<kInt8>(m, scales, src, qq, qscale, allowed, n_filter, nq, d, n_sweep, k,
+    err = launch_slab<kInt8, false>(m, 0, scales, src, qq, qscale, allowed, n_filter, nq, d, n_sweep, k,
                              vals, rows, workspace, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// K8: K4 over the int2 tier's transposed (d, ld) int8 companion (ld, its
+// capacity, a multiple of 4).  d a multiple of 128.
+int perceive_scan_topk_int8t_slab(const void* m8t, int ld, const float* scales, const int* src,
+                                  const void* q, const float* qscale, const int* allowed,
+                                  int n_filter, int nq, int d, int n_sweep, int k, float* vals,
+                                  int* rows, void* workspace, void* stream) {
+  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || n_blocks(n_sweep) > 65535 || d % kSlice ||
+      ld % 4 || n_sweep > ld || scales == nullptr || qscale == nullptr ||
+      reinterpret_cast<uintptr_t>(m8t) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_slab<kInt8, true>(
+      static_cast<const unsigned char*>(m8t), ld, scales, src, static_cast<const unsigned char*>(q),
+      qscale, allowed, n_filter, nq, d, n_sweep, k, vals, rows, workspace,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

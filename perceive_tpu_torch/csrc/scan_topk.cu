@@ -1,9 +1,12 @@
 // Exact scan with top-k selection over the device embedding matrix, for
-// fewer than 256 queries: K1 (bf16/f32 rows) and K3 (int8 rows).
+// fewer than 256 queries: K1 (bf16/f32 rows), K3 (int8 rows) and K7 (the
+// int2 tier's int8 companion, stored transposed).
 //
 // Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_unsorted`
-// (`_scan_kernel` + `_merge_tile_topk`, the bf16/f32 exact tier) and
-// `pallas_topk_int8_unsorted` (`_scan_kernel_int8`, the int8 tier).
+// (`_scan_kernel` + `_merge_tile_topk`, the bf16/f32 exact tier),
+// `pallas_topk_int8_unsorted` (`_scan_kernel_int8`, the int8 tier) and
+// `pallas_topk_int8t_unsorted` (`_scan_kernel_int8t`, the (D, N) int8
+// companion that int2 batches and escalations sweep).
 //
 // What bounds them on the H100: device-memory bytes.  One sweep of a
 // 1M x 384 bf16 matrix reads 768 MB, of a 2M x 384 int8 matrix 805 MB; a
@@ -199,6 +202,84 @@ __global__ void __launch_bounds__(kThreads) scan_pass1_int8(
   write_candidates(sc, kRows, qn, q0, rn, row0, blk, gridDim.x, kc, cand);
 }
 
+// K7 pass 1: the int8 scan over the TRANSPOSED (d, ld) matrix of the int2
+// tier's companion.  Grid (pairs of kRows-row candidate blocks, query
+// tiles); a thread takes 4 adjacent rows, reads one 32-bit word (4 rows x
+// 1 byte) a dim, so a warp reads 128 contiguous bytes a load, and turns
+// the words of 4 dims into one dp4a operand a row with a 4 x 4 byte
+// transpose (__byte_perm).  Scores as K3's, bit for bit.
+constexpr int kT8QueryTile = 8;
+constexpr int kT8Rows = 2 * kRows;  // rows per block: 256 threads x 4
+
+__global__ void __launch_bounds__(kThreads) scan_pass1_int8t(
+    const int8_t* __restrict__ m8t, int ld, const float* __restrict__ scales,
+    const int* __restrict__ src, const int8_t* __restrict__ q, const float* __restrict__ qscale,
+    const int* __restrict__ allowed, int n_filter, int nq, int d, int n_sweep, int kc, int nblk,
+    u64* __restrict__ cand) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem);                    // [qt][kT8Rows]
+  int8_t* qs = reinterpret_cast<int8_t*>(sc + kT8QueryTile * kT8Rows);  // [qt][d]
+  __shared__ int allow[kMaxFilter];
+  __shared__ float qsc[kT8QueryTile];
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.y * kT8QueryTile;
+  const int qn = min(kT8QueryTile, nq - q0);
+  const int row0 = blockIdx.x * kT8Rows;
+  const int rn = min(kT8Rows, n_sweep - row0);
+
+  const int4* qsrc = reinterpret_cast<const int4*>(q + static_cast<size_t>(q0) * d);
+  int4* qdst = reinterpret_cast<int4*>(qs);
+  for (int i = tid; i < qn * (d / 16); i += kThreads) qdst[i] = qsrc[i];
+  if (tid < qn) qsc[tid] = qscale[q0 + tid];
+  if (tid < kMaxFilter) allow[tid] = tid < n_filter ? allowed[tid] : -9;
+  __syncthreads();
+
+  const int r = 4 * tid;  // this thread's first row within the block
+  if (r < rn) {
+    int acc[kT8QueryTile][4];
+#pragma unroll
+    for (int i = 0; i < kT8QueryTile; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(m8t + row0 + r);
+    const size_t ldw = static_cast<size_t>(ld / 4);
+    for (int c = 0; c < d; c += 4) {
+      uint32_t rw[4];
+      transpose4x4(__ldg(p + c * ldw), __ldg(p + (c + 1) * ldw), __ldg(p + (c + 2) * ldw),
+                   __ldg(p + (c + 3) * ldw), rw);
+#pragma unroll
+      for (int i = 0; i < kT8QueryTile; ++i) {
+        if (i < qn) {
+          const int x = *reinterpret_cast<const int*>(qs + i * d + c);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(static_cast<int>(rw[j]), x, acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = row0 + r + j;
+      if (r + j >= rn) continue;
+      const bool ok = row_allowed(src[row], allow, n_filter);
+      const float srow = scales[row];
+#pragma unroll
+      for (int i = 0; i < kT8QueryTile; ++i)
+        if (i < qn)
+          sc[i * kT8Rows + r + j] =
+              ok ? __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), srow), qsc[i]) : -INFINITY;
+    }
+  }
+  __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int blk = 2 * blockIdx.x + h;
+    if (blk < nblk)
+      for (int i = tid >> 5; i < qn; i += kWarps)
+        warp_select_block(sc + i * kT8Rows + h * kRows, min(kRows, n_sweep - blk * kRows),
+                          blk * kRows, kc, cand + (static_cast<size_t>(q0 + i) * nblk + blk) * kc);
+  }
+}
+
 template <typename T>
 cudaError_t launch(const void* matrix, const int* src, const void* q, const int* allowed,
                    int n_filter, int nq, int d, int n_sweep, int k, float* vals, int* rows,
@@ -273,6 +354,31 @@ int perceive_scan_topk_int8(const int8_t* matrix, const float* scales, const int
   const dim3 grid1(nblk, (nq + qt - 1) / qt);
   scan_pass1_int8<<<grid1, kThreads, smem1, s>>>(matrix, scales, src, q, qscale, allowed,
                                                  n_filter, nq, d, n_sweep, kc, qt, cand);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_pass2(cand, nq, nblk * kc, k, vals, rows, s));
+}
+
+// K7: int8 scan over the transposed (d, ld) companion matrix of the int2
+// tier (ld, its capacity, a multiple of 4), with (ld,) f32 row scales.
+int perceive_scan_topk_int8t(const int8_t* m8t, int ld, const float* scales, const int* src,
+                             const int8_t* q, const float* qscale, const int* allowed,
+                             int n_filter, int nq, int d, int n_sweep, int k, float* vals,
+                             int* rows, void* workspace, void* stream) {
+  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || d % 16 || ld % 4 || n_sweep > ld ||
+      reinterpret_cast<uintptr_t>(m8t) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nblk = n_blocks(n_sweep);
+  const int kc = cand_per_block(k);
+  const size_t smem1 = static_cast<size_t>(kT8QueryTile) * (kT8Rows * sizeof(float) + d);
+  cudaError_t err = cudaFuncSetAttribute(scan_pass1_int8t, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem1));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  u64* cand = static_cast<u64*>(workspace);
+  const dim3 grid1((nblk + 1) / 2, (nq + kT8QueryTile - 1) / kT8QueryTile);
+  scan_pass1_int8t<<<grid1, kThreads, smem1, s>>>(m8t, ld, scales, src, q, qscale, allowed,
+                                                  n_filter, nq, d, n_sweep, kc, nblk, cand);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_pass2(cand, nq, nblk * kc, k, vals, rows, s));

@@ -1,6 +1,8 @@
-// Shared parts of the scan-top-k kernels (scan_topk.cu: K1, K3;
-// scan_slab.cu: K2, K4): the 64-bit candidate keys, the warp-wide select
-// that ends pass 1, and pass 2 with its block-wide radix select.
+// Shared parts of the scan-top-k kernels (scan_topk.cu: K1, K3, K7;
+// scan_slab.cu: K2, K4, K8) and of K5/K6 (scan_int2.cu, select_topk.cu):
+// the 64-bit candidate keys and order values, the 4 x 4 byte transpose of
+// the (D, N) layouts, the warp-wide select that ends pass 1, and pass 2
+// with its block-wide radix select.
 //
 // A candidate is a 64-bit key: the order-preserving bits of the f32 score
 // above the complement of the row index.  Keys are unique, so selection is
@@ -51,6 +53,19 @@ __device__ __forceinline__ float order_float(uint32_t u) {
 // the score plus +0.0, so that -0 and +0 tie on the row alone).
 __device__ __forceinline__ u64 make_key(uint32_t order, int row) {
   return (static_cast<u64>(order) << 32) | static_cast<u64>(0xffffffffu - static_cast<uint32_t>(row));
+}
+
+// A 4 x 4 byte transpose: words w0..w3 hold byte i of row i of columns
+// 0..3 (word j = column j, as the transposed (D, N) layouts load 4 rows of
+// one dim); r[i] gets row i's bytes of columns 0..3, a dp4a operand.
+__device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
+                                             uint32_t* r) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
+  r[0] = __byte_perm(t0, t2, 0x5410);
+  r[1] = __byte_perm(t0, t2, 0x7632);
+  r[2] = __byte_perm(t1, t3, 0x5410);
+  r[3] = __byte_perm(t1, t3, 0x7632);
 }
 
 __device__ __forceinline__ unsigned int warp_sum_u(unsigned int v) {

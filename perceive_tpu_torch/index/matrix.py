@@ -1,19 +1,24 @@
-"""Device-resident embedding matrix with an id <-> row map (bf16, f32 and
-int8 tiers).
+"""Device-resident embedding matrix with an id <-> row map (bf16, f32, int8
+and int2 tiers).
 
 Port of perceive_tpu/index/matrix.py for PyTorch.  One dense (capacity,
 padded_dim) tensor on the device holds every embedding row, beside a
 (capacity,) int32 tensor of per-row source ids (-1 for tombstones and the
 unallocated tail) and, at the int8 tier, a (capacity,) f32 tensor of
-per-row scales.  The host keeps the id maps and an f32 mirror of the
-vectors; ``sync`` uploads what changed (a full upload after growth or a
-retier, else the dirty rows with ``index_copy_``).
+per-row scales.  The int2 tier stores two matrices, both transposed: the
+(padded_dim / 4, capacity) uint8 coarse matrix (``_quantize2``) and the
+(padded_dim, capacity) int8 companion (``_quantize``'s bytes), each with
+its (capacity,) f32 scales.  The host keeps the id maps and an f32 mirror
+of the vectors; ``sync`` uploads what changed (a full upload after growth
+or a retier, else the dirty rows, or columns, with ``index_copy_``).
 
 The stored bytes and keys are the JAX package's: f32 little-endian BLOBs,
 ``chunk_key`` = item_id * CHUNK_STRIDE + chunk_idx, capacities a multiple
 of ROW_ALIGN, widths padded to LANE_ALIGN, the same prefix-sweep ladder,
-and the int8 tier's per-row symmetric quantization (``_quantize``).  The
-int2 and int4 tiers and snapshots are later work (ROADMAP.md queue 1).
+and the int8 tier's per-row symmetric quantization (``_quantize``) and the int2
+tier's 2-bit packing (``_quantize2``).  The int4 tier, the int2 tier's
+int4 companion (both need kernel K9) and snapshots are later work
+(ROADMAP.md queue 1).
 
 Device updates happen in place on the current stream, so a sweep enqueued
 before an update reads the old rows and one enqueued after reads the new
@@ -76,8 +81,8 @@ def auto_matrix_dtype(n_rows: int, padded_dim: int = 384):
     padded_dim/384).  The thresholds are inherited from TPU measurements
     and not yet measured on this card.  Returns torch.bfloat16 up to 1.5M
     effective rows, torch.int8 up to 4M (exact after the searcher's f32
-    rerank), then INT2 and INT4 — tiers this port does not store yet
-    (``EmbeddingMatrix`` raises on them)."""
+    rerank), INT2 up to 24M (coarse-to-fine, reranked likewise), then INT4,
+    a tier this port does not store yet (``EmbeddingMatrix`` raises)."""
     eff = n_rows * max(padded_dim, 1) / 384.0
     if eff <= 1_500_000:
         return torch.bfloat16
@@ -240,14 +245,46 @@ class HostMirror:
             pass
 
 
-_STORED_DTYPES = (torch.bfloat16, torch.float32, torch.int8)
+_STORED_DTYPES = (torch.bfloat16, torch.float32, torch.int8, INT2)
 
 
 def _check_stored(dtype) -> None:
-    if dtype not in _STORED_DTYPES:
+    if not any(dtype == t for t in _STORED_DTYPES):
         raise NotImplementedError(
-            f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the int2 and int4 tiers)"
+            f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the int4 tier, kernel K9)"
         )
+
+
+def _int2_fine_int8_budget(device: torch.device) -> int:
+    """Device bytes the int2 tier's coarse + int8 companion pair may take
+    (the JAX package's rule): PERCEIVE_TPU_INT2_FINE_INT8_GB, else 64% of
+    the CUDA device's memory, else 10 GB."""
+    env = os.environ.get("PERCEIVE_TPU_INT2_FINE_INT8_GB")
+    if env is not None:
+        try:
+            return int(float(env) * 2**30)
+        except ValueError:
+            pass
+    if device.type == "cuda":
+        return int(0.64 * torch.cuda.mem_get_info(device)[1])
+    return 10 * 2**30
+
+
+def int2_fine_bits(capacity: int, padded_dim: int, device: torch.device) -> int:
+    """Width of the int2 tier's fine companion, by the JAX package's policy:
+    8 while coarse (0.25 B/dim) + int8 (1 B/dim) fit the budget, else 4
+    (packed int4); PERCEIVE_TPU_INT2_FINE = int8 | int4 pins it.  The port
+    stores only the int8 companion and raises where the policy asks for
+    int4 (it needs kernel K9; it never serves int8 in its place)."""
+    env = os.environ.get("PERCEIVE_TPU_INT2_FINE", "auto").lower()
+    if env in ("int8", "8"):
+        return 8
+    if env in ("int4", "4") or capacity * padded_dim * 1.25 > _int2_fine_int8_budget(device):
+        raise NotImplementedError(
+            f"the int2 tier of {capacity} x {padded_dim} needs the int4 fine companion, which is not "
+            "ported (ROADMAP.md queue 1: kernel K9)"
+        )
+    return 8
 
 
 def _quantize(rows_f32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -260,15 +297,43 @@ def _quantize(rows_f32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return q, scales.astype(np.float32)
 
 
+def _quantize2(rows_f32: np.ndarray, dim: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row uniform symmetric 2-bit, byte for byte the JAX package's:
+    every dim snaps to {-3, -1, 1, 3} * s with s = max(rms / 2, eps), the
+    rms over the first ``dim`` (unpadded) dims.  Byte j packs dims j, j+D/4,
+    j+2D/4, j+3D/4 of the D = rows_f32.shape[1] padded dims: planes 0-2 as
+    the crumb c (level 2c - 3), plane 3 as t = c - 2 in two's complement.
+    Returns ((n, D/4) uint8, (n,) f32 scales); the device stores the
+    transpose."""
+    scales = np.maximum(
+        np.sqrt(np.mean(rows_f32[:, :dim] ** 2, axis=1)) / 2.0, 1e-12
+    )
+    # pad dims quantize to a nonzero level (the grid has no 0), which is
+    # harmless: queries are zero-padded, so pad lanes never score
+    c = np.clip(
+        np.round((rows_f32 / scales[:, None] + 3.0) / 2.0), 0, 3
+    ).astype(np.uint8)
+    d4 = rows_f32.shape[1] // 4
+    t3 = (c[:, 3 * d4 :] - 2) & 3
+    packed = (
+        c[:, :d4]
+        | (c[:, d4 : 2 * d4] << 2)
+        | (c[:, 2 * d4 : 3 * d4] << 4)
+        | (t3 << 6)
+    )
+    return packed, scales.astype(np.float32)
+
+
 class EmbeddingMatrix:
-    """Mutable device-resident vector store (bf16, f32 or int8 rows).
+    """Mutable device-resident vector store (bf16, f32, int8 or int2 rows).
 
     Host state: ``row_of`` (key -> row), ``item_ids`` / ``source_ids``
     (row -> ids), ``groups`` (item -> its chunk keys), the free-row list and
     the host mirror.  Device state: ``(capacity, padded_dim)`` vectors in
     the storage dtype, ``(capacity,)`` int32 source ids and, for int8,
-    ``(capacity,)`` f32 row scales, on ``device`` (required: nothing here
-    picks one).
+    ``(capacity,)`` f32 row scales; for int2 the coarse and companion
+    matrices and their scales (module docstring).  All on ``device``
+    (required: nothing here picks one).
     """
 
     def __init__(
@@ -302,6 +367,14 @@ class EmbeddingMatrix:
         # ever upserted at a quantized tier (never lowered on remove)
         self.scale_hw = 0.0
         self.norm_hw = 0.0
+        # int2 tier only, set by the searcher's corpus self-audit
+        # (Searcher.audit_coarse): whether the coarse pass may serve queries
+        # (False routes every query to the companion sweep), the coarse
+        # select (always "exact": the port has no approximate select), and
+        # the adaptive coarse depth (0 = ops.int2.INT2_COARSE_FETCH)
+        self.coarse_trusted = True
+        self.coarse_select = "exact"
+        self.coarse_fetch = 0
         self.row_of: dict[int, int] = {}
         # item id -> set of chunk keys (only for items with a non-zero chunk)
         self.groups: dict[int, set[int]] = {}
@@ -313,17 +386,30 @@ class EmbeddingMatrix:
         self._dirty_rows: set[int] = set()
         self._device_vectors: Optional[torch.Tensor] = None
         self._device_source_ids: Optional[torch.Tensor] = None
-        self._device_scales: Optional[torch.Tensor] = None  # int8 tier only
+        self._device_scales: Optional[torch.Tensor] = None  # int8 and int2 tiers
+        # int2 tier only: the (padded_dim, capacity) int8 companion, its scales
+        self._device_fine: Optional[torch.Tensor] = None
+        self._device_fine_scales: Optional[torch.Tensor] = None
+
+    @property
+    def packed2(self) -> bool:
+        return isinstance(self.dtype, str) and self.dtype == INT2
 
     @property
     def quantized(self) -> bool:
-        return self.dtype == torch.int8
+        return self.packed2 or self.dtype == torch.int8
 
     @property
     def quant_bits(self) -> int:
-        """Bits per stored dim on the sweep path: 8 (int8), 0 (not
-        quantized)."""
-        return 8 if self.quantized else 0
+        """Bits per stored dim on the sweep path: 2 (coarse-to-fine), 8
+        (int8), 0 (not quantized)."""
+        return 2 if self.packed2 else (8 if self.quantized else 0)
+
+    @property
+    def fine_bits(self) -> int:
+        """Int2 tier only: width of the fine companion (always 8 here); 0 for
+        every other tier."""
+        return 8 if self.packed2 else 0
 
     # -- device views -------------------------------------------------------
 
@@ -342,7 +428,11 @@ class EmbeddingMatrix:
                 or self._device_vectors is None
                 or len(self._dirty_rows) * 4 > self.rows
             )
-            if full:
+            if full and self.packed2:
+                self._stage_full_int2()
+                self._device_source_ids = torch.from_numpy(self.source_ids.copy()).to(self.device)
+                self._mirror.remap()
+            elif full:
                 self._device_vectors = self._device_scales = None  # release before allocating anew
                 vecs = torch.empty((self.capacity, self.padded_dim), dtype=self.dtype, device=self.device)
                 scales = torch.empty((self.capacity,), dtype=torch.float32, device=self.device) if self.quantized else None
@@ -358,14 +448,47 @@ class EmbeddingMatrix:
             else:
                 rows = np.fromiter(self._dirty_rows, dtype=np.int64)
                 idx = torch.from_numpy(rows).to(self.device)
-                vals, sc = self._staged(self._mirror.read_f32(rows))
-                self._device_vectors.index_copy_(0, idx, vals.to(self.device))
-                if sc is not None:
-                    self._device_scales.index_copy_(0, idx, sc.to(self.device))
+                if self.packed2:  # columns of both transposed matrices
+                    vals = self._mirror.read_f32(rows)
+                    packed, s2 = _quantize2(vals, self.dim)
+                    fine, sf = _quantize(vals)
+                    for dst, cols in ((self._device_vectors, packed.T), (self._device_fine, fine.T)):
+                        dst.index_copy_(1, idx, torch.from_numpy(np.ascontiguousarray(cols)).to(self.device))
+                    self._device_scales.index_copy_(0, idx, torch.from_numpy(s2).to(self.device))
+                    self._device_fine_scales.index_copy_(0, idx, torch.from_numpy(sf).to(self.device))
+                else:
+                    vals, sc = self._staged(self._mirror.read_f32(rows))
+                    self._device_vectors.index_copy_(0, idx, vals.to(self.device))
+                    if sc is not None:
+                        self._device_scales.index_copy_(0, idx, sc.to(self.device))
                 srcs = torch.from_numpy(self.source_ids[rows].copy()).to(self.device)
                 self._device_source_ids.index_copy_(0, idx, srcs)
             self._dirty = False
             self._dirty_rows.clear()
+
+    def _stage_full_int2(self) -> None:
+        """Full upload of the int2 tier: the mirror quantizes, in row chunks,
+        into the transposed coarse matrix and int8 companion (host arrays,
+        then one copy each to the device)."""
+        cap, chunk = self.capacity, self._SYNC_CHUNK_ROWS
+        int2_fine_bits(cap, self.padded_dim, self.device)  # raises where int4 is needed
+        self._device_vectors = self._device_scales = None  # release before allocating anew
+        self._device_fine = self._device_fine_scales = None
+        coarse = np.empty((self.padded_dim // 4, cap), dtype=np.uint8)
+        cscales = np.empty((cap,), np.float32)
+        fine = np.empty((self.padded_dim, cap), dtype=np.int8)
+        fscales = np.empty((cap,), np.float32)
+        for lo in range(0, cap, chunk):
+            hi = min(lo + chunk, cap)
+            vals = self._mirror.read_f32(slice(lo, hi))
+            p2, s2 = _quantize2(vals, self.dim)
+            coarse[:, lo:hi], cscales[lo:hi] = p2.T, s2
+            q8, s8 = _quantize(vals)
+            fine[:, lo:hi], fscales[lo:hi] = q8.T, s8
+        self._device_vectors = torch.from_numpy(coarse).to(self.device)
+        self._device_scales = torch.from_numpy(cscales).to(self.device)
+        self._device_fine = torch.from_numpy(fine).to(self.device)
+        self._device_fine_scales = torch.from_numpy(fscales).to(self.device)
 
     def _staged(self, rows_f32: np.ndarray):
         """Host f32 rows -> (rows in the storage dtype, f32 scales or None)
@@ -375,11 +498,15 @@ class EmbeddingMatrix:
             return torch.from_numpy(q), torch.from_numpy(scales)
         return torch.from_numpy(rows_f32).to(self.dtype), None
 
-    def device_view(self) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    def device_view(self):
         """(vectors, source_ids, scales) device tensors, synced, captured
-        under the lock; scales is None below the int8 tier."""
+        under the lock; scales is None below the int8 tier.  At the int2
+        tier vectors and scales are (coarse, companion) pairs."""
         with self._lock:
             self.sync()
+            if self.packed2:
+                return ((self._device_vectors, self._device_fine), self._device_source_ids,
+                        (self._device_scales, self._device_fine_scales))
             return self._device_vectors, self._device_source_ids, self._device_scales
 
     @property
@@ -398,7 +525,9 @@ class EmbeddingMatrix:
 
     @property
     def tier_name(self) -> str:
-        return str(self.dtype).removeprefix("torch.")
+        """``bfloat16``, ``float32``, ``int8`` or ``int2+int8fine``."""
+        name = str(self.dtype).removeprefix("torch.")
+        return f"{name}+int{self.fine_bits}fine" if self.packed2 else name
 
     # -- mutation ------------------------------------------------------------
 
@@ -543,15 +672,21 @@ class EmbeddingMatrix:
             return moved
 
     def _note_quant_stats(self, vectors: np.ndarray) -> None:
-        """Raise the high-water quantization step (max|v| / 127) and row
-        norm with a batch of f32 rows."""
-        self.scale_hw = max(self.scale_hw, float(np.abs(vectors).max()) / 127.0)
+        """Raise the high-water quantization step and row norm with a batch
+        of f32 rows: the step is max|v| / 127 at int8, the row RMS at int2
+        (its grid {-3, -1, 1, 3} * rms / 2 has step rms)."""
+        if self.packed2:
+            step = float(np.sqrt((vectors**2).mean(axis=1)).max())
+        else:
+            step = float(np.abs(vectors).max()) / 127.0
+        self.scale_hw = max(self.scale_hw, step)
         self.norm_hw = max(self.norm_hw, float(np.linalg.norm(vectors, axis=1).max()))
 
     def retier(self, dtype) -> None:
-        """Switch the storage dtype (bfloat16, float32, int8); the next sync
-        restages every row from the host mirror.  The int2 and int4 tiers
-        raise NotImplementedError."""
+        """Switch the storage dtype (bfloat16, float32, int8, INT2); the next
+        sync restages every row from the host mirror.  The int4 tier raises
+        NotImplementedError.  A fresh int2 tier trusts its coarse pass until
+        the searcher's self-audit says otherwise."""
         _check_stored(dtype)
         with self._lock:
             if dtype == self.dtype:
@@ -559,7 +694,8 @@ class EmbeddingMatrix:
             self.reuse_gen += 1
             self.mutation_gen += 1  # sweep scores change between tiers
             self.dtype = dtype
-            self._device_scales = None
+            self._device_scales = self._device_fine = self._device_fine_scales = None
+            self.coarse_trusted, self.coarse_select, self.coarse_fetch = True, "exact", 0
             self._dirty = True
             self._dirty_rows.clear()
             if self.quantized:

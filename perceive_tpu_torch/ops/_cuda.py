@@ -105,6 +105,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.perceive_scan_topk_int8.restype = i
     lib.perceive_scan_topk_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_topk_slab.restype = i
+    lib.perceive_scan_topk_int8t.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_topk_int8t.restype = i
+    lib.perceive_scan_topk_int8t_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_topk_int8t_slab.restype = i
+    lib.perceive_int2_scores.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p, p]
+    lib.perceive_int2_scores.restype = i
+    lib.perceive_select_topk.argtypes = [p, i, i, i, p, p, p, p, p]
+    lib.perceive_select_topk.restype = i
+    lib.perceive_select_topk_workspace.argtypes = [i, i]
+    lib.perceive_select_topk_workspace.restype = z
     lib.perceive_scan_topk_workspace.argtypes = [i, i, i]
     lib.perceive_scan_topk_workspace.restype = z
     lib.perceive_scan_topk_max_k.argtypes = []

@@ -1,17 +1,22 @@
 """Exact scan with top-k over the embedding matrix, at the bf16/f32 and int8
-tiers.
+tiers and over the int2 tier's int8 companion.
 
-Port of perceive_tpu/ops/topk.py's row-major scans.  Four hand-written CUDA
-kernels, each beside its plain PyTorch version and a launch counter:
+Port of perceive_tpu/ops/topk.py's scans.  Six hand-written CUDA kernels,
+each beside its plain PyTorch version and a launch counter:
 
-    K1  scan_topk_flat        bf16/f32, Q < 256   csrc/scan_topk.cu
-    K2  scan_topk_slab        bf16, Q >= 256      csrc/scan_slab.cu
-    K3  scan_topk_int8_flat   int8, Q < 256       csrc/scan_topk.cu
-    K4  scan_topk_int8_slab   int8, Q >= 256      csrc/scan_slab.cu
+    K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_topk.cu
+    K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab.cu
+    K3  scan_topk_int8_flat    int8, Q < 256                csrc/scan_topk.cu
+    K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab.cu
+    K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_topk.cu
+    K8  scan_topk_int8t_slab   int8 (D, N) transposed, Q >= 256  csrc/scan_slab.cu
+
+The int2 tier's coarse pass (K5, K6) is ops/int2.py.
 
 A kernel wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises: nothing falls back.  The entry
-points ``scan_topk`` and ``scan_topk_int8`` route as the JAX package does:
+points ``scan_topk``, ``scan_topk_int8`` and ``scan_topk_int8t`` route as
+the JAX package does:
 batches split into sweeps of at most MAX_QUERY_SLAB queries, a sweep of at
 least 2 * QUERY_SLAB queries is zero-padded to a multiple of QUERY_SLAB
 (``_slab_pad``) and takes the slab kernel, every other sweep the flat one.
@@ -21,7 +26,8 @@ Semantics, shared by all:
   * bf16/f32: q is cast to the matrix dtype; dot products accumulate in f32;
   * int8: queries quantize per query (``quantize_queries``); scores are
     ``f32(int32 dot) * row scale * query scale``, multiplied in that order,
-    so kernel and plain version agree bit for bit;
+    so kernel and plain version agree bit for bit; the transposed companion
+    scores the same way (``scores_int8t``);
   * rows whose source id is negative (tombstones, unallocated tail) or not
     in ``allowed`` are excluded; ``allowed[0] == ALLOW_ALL`` disables the
     source filter;
@@ -57,16 +63,19 @@ LAUNCHES = 0  # K1
 LAUNCHES_SLAB = 0  # K2
 LAUNCHES_INT8 = 0  # K3
 LAUNCHES_INT8_SLAB = 0  # K4
+LAUNCHES_INT8T = 0  # K7
+LAUNCHES_INT8T_SLAB = 0  # K8
 
 
 def launch_counts() -> dict:
     return {"scan_topk": LAUNCHES, "scan_slab": LAUNCHES_SLAB,
-            "scan_int8": LAUNCHES_INT8, "scan_int8_slab": LAUNCHES_INT8_SLAB}
+            "scan_int8": LAUNCHES_INT8, "scan_int8_slab": LAUNCHES_INT8_SLAB,
+            "scan_int8t": LAUNCHES_INT8T, "scan_int8t_slab": LAUNCHES_INT8T_SLAB}
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES, LAUNCHES_SLAB, LAUNCHES_INT8, LAUNCHES_INT8_SLAB
-    LAUNCHES = LAUNCHES_SLAB = LAUNCHES_INT8 = LAUNCHES_INT8_SLAB = 0
+    global LAUNCHES, LAUNCHES_SLAB, LAUNCHES_INT8, LAUNCHES_INT8_SLAB, LAUNCHES_INT8T, LAUNCHES_INT8T_SLAB
+    LAUNCHES = LAUNCHES_SLAB = LAUNCHES_INT8 = LAUNCHES_INT8_SLAB = LAUNCHES_INT8T = LAUNCHES_INT8T_SLAB = 0
 
 
 def _sweep_n(n: int, n_sweep: int) -> int:
@@ -116,17 +125,30 @@ def quantize_queries(q: torch.Tensor):
     return qi8, scale
 
 
+def int8_dots(qi8: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(Q, N) f32 equal to the int32 dot products of (Q, D) int8 queries with
+    (D, N) columns of small integers (int8 values, int2 levels), run as an
+    f32 matmul: exact while D <= _MAX_EXACT_INT8_DIM (every partial sum stays
+    below 2**24).  The one home of the TF32 switch: on a CUDA device it turns
+    ``torch.backends.cuda.matmul.allow_tf32`` off for the process, since
+    TF32 would round the integer sums (PyTorch's own default is off too)."""
+    if cols.shape[0] > _MAX_EXACT_INT8_DIM:
+        raise ValueError(f"dim {cols.shape[0]} > {_MAX_EXACT_INT8_DIM}: f32 sums of int8 products would round")
+    if cols.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return qi8.float() @ cols.float()
+
+
 def scores_int8(matrix: torch.Tensor, scales: torch.Tensor, qi8: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
     """(Q, N) f32 scores of int8 queries against an (N, D) int8 matrix (or
-    its values in f32): f32(int32 dot) * row scale * query scale.  The int32
-    dot runs as an f32 matmul of the int8 values, exact while D <=
-    _MAX_EXACT_INT8_DIM."""
-    if matrix.shape[1] > _MAX_EXACT_INT8_DIM:
-        raise ValueError(f"dim {matrix.shape[1]} > {_MAX_EXACT_INT8_DIM}: f32 sums of int8 products would round")
-    if matrix.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False  # TF32 would round the integer sums
-    dots = qi8.float() @ matrix.float().T
-    return dots * scales[None, :] * qscale
+    its values in f32): f32(int32 dot) * row scale * query scale."""
+    return int8_dots(qi8, matrix.T) * scales[None, :] * qscale
+
+
+def scores_int8t(m8t: torch.Tensor, scales: torch.Tensor, qi8: torch.Tensor, qscale: torch.Tensor) -> torch.Tensor:
+    """``scores_int8`` over the TRANSPOSED (D, N) int8 matrix (the JAX
+    ``xla_scores_int8t``)."""
+    return int8_dots(qi8, m8t) * scales[None, :] * qscale
 
 
 def _order_keys(scores: torch.Tensor, row0: int) -> torch.Tensor:
@@ -190,6 +212,17 @@ def scan_topk_int8_plain(matrix, scales, source_ids, qi8, qscale, allowed, k: in
         qi8.shape[0], n, k, matrix.device)
 
 
+def scan_topk_int8t_plain(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """Plain PyTorch version of K7 and K8: ``scan_topk_int8_plain`` over the
+    transposed (D, N) matrix."""
+    n = _sweep_n(m8t.shape[1], n_sweep)
+    m, s, src = m8t[:, :n], scales[:n], source_ids[:n]
+    allowed = allowed.to(src.device)
+    return _plain_in_chunks(
+        lambda lo, hi: mask_scores(scores_int8t(m, s, qi8[lo:hi], qscale[lo:hi]), src, allowed),
+        qi8.shape[0], n, k, m8t.device)
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 
@@ -204,6 +237,16 @@ def _check(matrix, source_ids, q, allowed, k: int, dtypes) -> None:
         raise ValueError(f"allowed must be (F,) int32 with 1 <= F <= {MAX_FILTER}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
+
+
+def _check_int8t(m8t, scales, source_ids, q, allowed, k: int) -> None:
+    """``_check`` for the transposed (D, N) int8 matrix; the capacity N is
+    a multiple of 4 (the kernels read 4 rows a word)."""
+    if m8t.dtype != torch.int8 or m8t.dim() != 2 or m8t.shape[1] % 4:
+        raise ValueError(f"the companion must be (D, N) int8 with N a multiple of 4, got {tuple(m8t.shape)} {m8t.dtype}")
+    _check(m8t.T, source_ids, q, allowed, k, (torch.int8,))
+    if scales.shape != (m8t.shape[1],) or scales.dtype != torch.float32:
+        raise ValueError("scales must be (N,) float32")
 
 
 def _check_int8(matrix, scales, qi8, qscale) -> None:
@@ -232,7 +275,7 @@ def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_swe
         if t.device != dev:
             raise ValueError(f"{what}: {name} on {t.device}, matrix on {dev}")
     lib = _cuda.library()
-    n, d = matrix.shape
+    n, d = source_ids.shape[0], q.shape[1]  # (N, D) matrices and (D, N) alike
     if k > lib.perceive_scan_topk_max_k():
         raise ValueError(f"k={k} exceeds the kernel's {lib.perceive_scan_topk_max_k()}")
     row_bytes = d * matrix.element_size()
@@ -332,6 +375,40 @@ def scan_topk_int8_slab(matrix, scales, source_ids, qi8, qscale, allowed, k: int
     return vals, rows
 
 
+def _check_int8t_queries(qi8, qscale) -> None:
+    if qi8.dtype != torch.int8 or qscale.shape != (qi8.shape[0], 1) or qscale.dtype != torch.float32:
+        raise ValueError("queries must be (Q, D) int8 with (Q, 1) float32 scales")
+
+
+def scan_topk_int8t_flat(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """K7: exact top-k of int8 scores over the transposed (D, N) companion
+    of the int2 tier, any Q."""
+    global LAUNCHES_INT8T
+    _check_int8t(m8t, scales, source_ids, qi8, allowed, k)
+    _check_int8t_queries(qi8, qscale)
+    if _device_of(m8t, "scan_topk_int8t_flat") == "cpu":
+        return scan_topk_int8t_plain(m8t, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
+    vals, rows, n = _launch("perceive_scan_topk_int8t", "scan_topk_int8t_flat", m8t, source_ids,
+                            qi8, allowed, k, n_sweep, (m8t, m8t.shape[1], scales), (qscale,), 1, 16)
+    LAUNCHES_INT8T += n
+    return vals, rows
+
+
+def scan_topk_int8t_slab(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """K8: K7 for batches; K4's tensor-core kernel, staging the transposed
+    tiles."""
+    global LAUNCHES_INT8T_SLAB
+    _check_int8t(m8t, scales, source_ids, qi8, allowed, k)
+    _check_int8t_queries(qi8, qscale)
+    if _device_of(m8t, "scan_topk_int8t_slab") == "cpu":
+        return scan_topk_int8t_plain(m8t, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
+    vals, rows, n = _launch("perceive_scan_topk_int8t_slab", "scan_topk_int8t_slab", m8t, source_ids,
+                            qi8, allowed, k, n_sweep, (m8t, m8t.shape[1], scales), (qscale,),
+                            SLAB_QUERIES, 128)
+    LAUNCHES_INT8T_SLAB += n
+    return vals, rows
+
+
 # -- entry points ----------------------------------------------------------------
 
 
@@ -385,3 +462,16 @@ def scan_topk_int8(matrix, scales, source_ids, q, allowed, k: int, n_sweep: int 
         fn = scan_topk_int8_slab if _is_slab(part.shape[0]) else scan_topk_int8_flat
         parts.append((s, *fn(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)))
     return _gather(q.shape[0], k, matrix.device, parts)
+
+
+def scan_topk_int8t(m8t, scales, source_ids, q, allowed, k: int, n_sweep: int = 0):
+    """``scan_topk_int8`` over the int2 tier's transposed (D, N) int8
+    companion (the JAX ``scan_topk_pallas_int8t``).  Routes each sweep to
+    K8 or K7."""
+    _check_int8t(m8t, scales, source_ids, q, allowed, k)
+    parts = []
+    for s, part in _sweeps(q):
+        qi8, qscale = quantize_queries(part)
+        fn = scan_topk_int8t_slab if _is_slab(part.shape[0]) else scan_topk_int8t_flat
+        parts.append((s, *fn(m8t, scales, source_ids, qi8, qscale, allowed, k, n_sweep)))
+    return _gather(q.shape[0], k, m8t.device, parts)

@@ -9,16 +9,18 @@ need not have.)
 
 The kernels build from perceive_tpu_torch/csrc on the first launch.
 Tolerances: bf16/f32 scan scores 1e-4 (f32 sums in another order); the int8
-scans (K3, K4) none: scores and rows equal the plain version's bit for bit;
-attention 1e-2 in bf16 against the f32 math on the same bf16 inputs, 1e-5
-in f32.
+scans (K3, K4, and K7, K8 over the transposed companion) and the int2
+coarse scores (K5) none: scores and rows equal the plain version's bit for
+bit; the exact select (K6) returns the plain version's set, order and floor
+exactly; attention 1e-2 in bf16 against the f32 math on the same bf16
+inputs, 1e-5 in f32.
 """
 
 import pytest
 import torch
 
 from perceive_tpu_torch.ops import attention as attn
-from perceive_tpu_torch.ops import topk
+from perceive_tpu_torch.ops import int2, topk
 
 pytestmark = pytest.mark.cuda
 
@@ -160,3 +162,91 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     # an empty matrix matches nothing, as in the plain version
     vals, rows = topk.scan_topk(m[:0], src[:0], torch.zeros((2, 384), device=dev), _allowed(dev), 4)
     assert torch.isinf(vals).all() and (rows == -1).all()
+
+
+def _int2_inputs(dev, n, nq, seed, d=384, dup=False):
+    """A packed (d/4, n) coarse matrix of random crumbs with row scales, the
+    (d, n) int8 companion, source ids with 20% tombstones, int8 queries."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    packed = torch.randint(0, 256, (d // 4, n), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+    fine = torch.randint(-127, 128, (d, n), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+    if dup:  # every column 8 times over: dense exact ties
+        packed = packed[:, : n // 8].repeat(1, 8).contiguous()
+        fine = fine[:, : n // 8].repeat(1, 8).contiguous()
+    s2 = torch.rand((n,), generator=g, device=dev) + 0.5
+    s8 = torch.rand((n,), generator=g, device=dev) + 0.5
+    if dup:
+        s2, s8 = s2[: n // 8].repeat(8), s8[: n // 8].repeat(8)
+    src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((n,), generator=g, device=dev) < 0.2] = -1
+    qi8, qscale = topk.quantize_queries(torch.randn((nq, d), generator=g, device=dev))
+    return packed, s2, fine, s8, src, qi8, qscale
+
+
+@pytest.mark.parametrize("nq,filt,n_sweep", [(1, None, 0), (8, [1], 20480), (13, [0, 2], 32764)])
+def test_int2_scores_bit_exact(dev, nq, filt, n_sweep):
+    packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, 32768, nq, nq)
+    before = int2.LAUNCHES_SCORES
+    got = int2.int2_scores(packed, s2, src, qi8, qscale, _allowed(dev, filt), n_sweep)
+    want = int2.int2_scores_plain(packed, s2, src, qi8, qscale, _allowed(dev, filt), n_sweep)
+    torch.cuda.synchronize()
+    assert int2.LAUNCHES_SCORES == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["random", "dense_ties", "all_masked", "kc_is_n", "prefix"])
+@pytest.mark.parametrize("kc", [512, 1024, 4096])
+def test_select_topk_matches_plain(dev, case, kc):
+    nq, n = 3, 65536
+    packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, n, nq, kc, dup=case == "dense_ties")
+    allowed = _allowed(dev, [7] if case == "all_masked" else None)
+    n_sweep = 40000 if case == "prefix" else 0
+    scores = int2.int2_scores_plain(packed, s2, src, qi8, qscale, allowed, n_sweep)
+    if case == "kc_is_n":
+        scores, kc = scores[:, :kc].contiguous(), kc
+    before = int2.LAUNCHES_SELECT
+    vk, rk, fk = int2.select_topk(scores, kc)
+    vp, rp, fp = int2.select_topk_plain(scores, kc)
+    torch.cuda.synchronize()
+    assert int2.LAUNCHES_SELECT == before + 1
+    assert torch.equal(rk, rp) and torch.equal(vk, vp) and torch.equal(fk, fp)
+    assert bool((rk[:, 1:] > rk[:, :-1]).all())  # ordered by row
+    if case == "dense_ties":
+        assert int(torch.isfinite(vk).sum()) and bool((vk == fk[:, None]).sum(dim=1).gt(1).any())
+
+
+@pytest.mark.parametrize("kernel,nq", [("flat", 1), ("flat", 8), ("flat", 32), ("slab", 256), ("slab", 512)])
+@pytest.mark.parametrize("k,filt,n_sweep", [(16, None, 0), (128, [1], 20480), (600, [0, 2], 0), (8192, None, 0)])
+def test_scan_topk_int8t_bit_exact(dev, kernel, nq, k, filt, n_sweep):
+    _, _, fine, s8, src, qi8, qscale = _int2_inputs(dev, 32768, nq, nq + k)
+    fn = topk.scan_topk_int8t_flat if kernel == "flat" else topk.scan_topk_int8t_slab
+    counter = "LAUNCHES_INT8T" if kernel == "flat" else "LAUNCHES_INT8T_SLAB"
+    before = getattr(topk, counter)
+    vk, rk = fn(fine, s8, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    vp, rp = topk.scan_topk_int8t_plain(fine, s8, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    torch.cuda.synchronize()
+    assert getattr(topk, counter) == before + 1
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("kernel", ["flat", "slab"])
+def test_scan_topk_int8t_ties_lower_row_first(dev, kernel):
+    nq = 3 if kernel == "flat" else 256
+    _, _, fine, s8, src, qi8, qscale = _int2_inputs(dev, 8192, nq, 9, dup=True)
+    fn = topk.scan_topk_int8t_flat if kernel == "flat" else topk.scan_topk_int8t_slab
+    vk, rk = fn(fine, s8, src, qi8, qscale, _allowed(dev), 64)
+    vp, rp = topk.scan_topk_int8t_plain(fine, s8, src, qi8, qscale, _allowed(dev), 64)
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    same = vk[:, 1:] == vk[:, :-1]
+    assert bool(same.any()) and bool((rk[:, 1:][same] > rk[:, :-1][same]).all())
+
+
+@pytest.mark.parametrize("nq,k,kc", [(1, 128, 4096), (8, 64, 1024)])
+def test_int2_pipeline_matches_plain(dev, nq, k, kc):
+    packed, s2, fine, s8, src, _, _ = _int2_inputs(dev, 65536, nq, kc)
+    q = torch.randn((nq, 384), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    args = (packed, s2, fine, s8, src, q, _allowed(dev), k)
+    got = int2.scan_int2_coarse_fine(*args, k_coarse=kc)
+    want = int2.scan_int2_coarse_fine_plain(*args, k_coarse=kc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -281,7 +281,7 @@ def test_margin_sigma_escalates_like_jax(monkeypatch):
 
     sweeps = {"port": [], "jax": []}
     p_orig, j_orig = p._device_scan, j._device_scan
-    p._device_scan = lambda qp, kb, allowed: sweeps["port"].append(kb) or p_orig(qp, kb, allowed)
+    p._device_scan = lambda qp, kb, allowed, *a: sweeps["port"].append(kb) or p_orig(qp, kb, allowed, *a)
     j._device_scan = lambda qp, kb, allowed, engine, **kw: sweeps["jax"].append(kb) or j_orig(qp, kb, allowed, engine, **kw)
 
     monkeypatch.setenv("PERCEIVE_TPU_RERANK_MARGIN_SIGMA", "1000")

@@ -93,18 +93,18 @@ def test_device_tensors_follow_host(dtype):
 
 
 def test_quantized_tiers_raise():
-    """int8 is stored; the int2 and int4 tiers raise, at construction and
+    """int8 and int2 are stored; the int4 tier raises, at construction and
     on a retier."""
-    for tier in ("int2", "int4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EmbeddingMatrix(DIM, dtype=tier, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        EmbeddingMatrix(DIM, dtype="int4", device="cpu")
     m = EmbeddingMatrix(DIM, device="cpu")
     m.retier(torch.int8)
     assert m.quantized and m.quant_bits == 8
-    with pytest.raises(NotImplementedError):
-        m.retier("int2")
+    m.retier("int2")
+    assert m.quantized and m.quant_bits == 2 and m.packed2
     with pytest.raises(NotImplementedError):
         m.retier("int4")
+    assert EmbeddingMatrix(DIM, dtype="int2", device="cpu").tier_name == "int2+int8fine"
 
 
 def test_device_is_required():

@@ -19,7 +19,8 @@ def _run(code: str, env=None):
 PORT_MODULES = (
     "perceive_tpu_torch, perceive_tpu_torch.cli, perceive_tpu_torch.cli.state, "
     "perceive_tpu_torch.index.searcher, perceive_tpu_torch.index.executor, perceive_tpu_torch.db, "
-    "perceive_tpu_torch.models, perceive_tpu_torch.ops.topk, perceive_tpu_torch.ops.attention, "
+    "perceive_tpu_torch.models, perceive_tpu_torch.ops.topk, perceive_tpu_torch.ops.int2, "
+    "perceive_tpu_torch.ops.attention, perceive_tpu_torch.index.matrix, "
     "perceive_tpu_torch.utils.coalesce, perceive_tpu_torch.paths, perceive_tpu_torch.types"
 )
 
@@ -63,7 +64,8 @@ def test_kernel_loader_imports_without_nvcc():
         "import perceive_tpu_torch.ops._cuda as c\n"
         "assert c._lib is None and c.build_seconds is None\n"
         "assert len(c.source_key()) == 16\n"
-        "assert {p.name for p in c.sources()} >= {'scan_topk.cu', 'scan_slab.cu', 'topk_common.cuh', 'attention.cu'}\n",
+        "assert {p.name for p in c.sources()} >= {'scan_topk.cu', 'scan_slab.cu', 'topk_common.cuh', 'attention.cu',"
+        " 'scan_int2.cu', 'select_topk.cu'}\n",
         env=env,
     )
     assert res.returncode == 0, res.stdout + res.stderr
@@ -73,7 +75,7 @@ def test_cpu_tensors_never_build():
     """CPU tensors take the plain versions: no build, no launch counted."""
     res = _run(
         "import torch\n"
-        "from perceive_tpu_torch.ops import _cuda, attention, topk\n"
+        "from perceive_tpu_torch.ops import _cuda, attention, int2, topk\n"
         "m = torch.zeros(512, 128); s = torch.zeros(512, dtype=torch.int32)\n"
         "a = torch.full((16,), -9, dtype=torch.int32); a[0] = topk.ALLOW_ALL\n"
         "topk.scan_topk(m, s, torch.zeros(1, 128), a, 4)\n"
@@ -81,7 +83,10 @@ def test_cpu_tensors_never_build():
         "topk.scan_topk_int8(m.to(torch.int8), torch.ones(512), s, torch.zeros(300, 128), a, 4)\n"
         "topk.scan_topk_int8(m.to(torch.int8), torch.ones(512), s, torch.zeros(3, 128), a, 4)\n"
         "x = torch.zeros(1, 8, 2, 4); attention.attention(x, x, x, torch.ones(1, 8, dtype=torch.int32))\n"
+        "p2 = torch.zeros(32, 512, dtype=torch.uint8); f8 = torch.zeros(128, 512, dtype=torch.int8)\n"
+        "int2.scan_int2_coarse_fine(p2, torch.ones(512), f8, torch.ones(512), s, torch.zeros(1, 128), a, 4)\n"
+        "topk.scan_topk_int8t(f8, torch.ones(512), s, torch.zeros(300, 128), a, 4)\n"
         "assert _cuda._lib is None and attention.LAUNCHES == 0\n"
-        "assert set(topk.launch_counts().values()) == {0}\n"
+        "assert set(topk.launch_counts().values()) == {0} and set(int2.launch_counts().values()) == {0}\n"
     )
     assert res.returncode == 0, res.stdout + res.stderr

@@ -1,11 +1,12 @@
 """The port's AppState rules: the device is explicit, and the storage tier
-is bf16, f32 or int8 or an error (never one tier in another's place)."""
+is bf16, f32, int8 or int2 or an error (never one tier in another's place)."""
 
 import pytest
 import torch
 
 from perceive_tpu_torch.cli import AppState
 from perceive_tpu_torch.cli.state import resolve_device, storage_tier
+from perceive_tpu_torch.index.matrix import INT2
 from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, TextTokenizer, tiny_test_vocab
 
 
@@ -32,7 +33,8 @@ def test_cuda_without_a_gpu_raises():
      ("bf16", 9_000_000, torch.bfloat16), ("bfloat16", 0, torch.bfloat16),
      ("f32", 0, torch.float32), ("float32", 5_000_000, torch.float32),
      ("auto", 1_500_001, torch.int8), ("auto", 4_000_000, torch.int8), ("int8", 0, torch.int8),
-     ("INT8", 9_000_000, torch.int8)],
+     ("INT8", 9_000_000, torch.int8), ("auto", 4_000_001, INT2), ("auto", 24_000_000, INT2),
+     ("int2", 0, INT2), ("INT2", 30_000_000, INT2)],
 )
 def test_storage_tier(choice, n_rows, want):
     assert storage_tier(choice, n_rows, 384) is want
@@ -40,14 +42,14 @@ def test_storage_tier(choice, n_rows, want):
 
 @pytest.mark.parametrize(
     "choice,n_rows,err",
-    [("auto", 4_000_001, NotImplementedError), ("auto", 2_100_000, NotImplementedError),
+    [("auto", 24_000_001, NotImplementedError), ("auto", 12_100_000, NotImplementedError),
      ("auto", 30_000_000, NotImplementedError), ("int4", 0, NotImplementedError),
-     ("int2", 0, NotImplementedError), ("fp8", 0, ValueError)],
+     ("INT4", 5_000_000, NotImplementedError), ("fp8", 0, ValueError)],
 )
 def test_unported_tiers_raise(choice, n_rows, err):
-    # 2.1M rows at 768 padded dims count as 4.2M rows of 384: past int8
+    # 12.1M rows at 768 padded dims count as 24.2M rows of 384: past int2
     with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else None):
-        storage_tier(choice, n_rows, 768 if n_rows == 2_100_000 else 384)
+        storage_tier(choice, n_rows, 768 if n_rows == 12_100_000 else 384)
 
 
 def test_auto_tier_scales_by_width():
@@ -57,7 +59,7 @@ def test_auto_tier_scales_by_width():
 
 
 @pytest.mark.parametrize("env,want", [(None, torch.bfloat16), ("f32", torch.float32), ("int8", torch.int8),
-                                      ("int4", None)])
+                                      ("int2", INT2), ("int4", None)])
 def test_appstate_tier_from_env(tmp_path, monkeypatch, env, want):
     if env is None:
         monkeypatch.delenv("PERCEIVE_TPU_MATRIX_DTYPE", raising=False)
