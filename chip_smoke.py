@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--audit-case CASE.npz]
+
+``--audit-case`` also writes the int2+int4 self-audit's worst sample and
+the rows around it to CASE.npz, for ``tests/audit_case.py`` to reproduce
+off the card in the port and in the JAX package.
 
 Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
@@ -30,7 +34,21 @@ Phases (any failure exits non-zero before the final line):
      CLI, the composed device pipeline held against the composed plain one
      for every query, hits against an exact f32 top-10
      (``served_recall_at_10``), the fine phase's gather and dot timed;
- 12. the int2 batch path, as phase 7.
+ 12. the int2 batch path, as phase 7;
+ 13. K9 (packed-int4 scan + top-k, flat and slab) against its plain version,
+     bit for bit, at the int4 tier's own size (25,165,824 x 384, past the
+     int2 tier's 24M, generated on the card), with K7 and K8 timed on the
+     same rows unpacked to int8 beside it;
+ 14. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
+     slice's corpus, the same 16 queries through the CLI (flat K9), hits
+     against the exact f32 top-10 (``served_recall_at_10``);
+ 15. the int4 batch path, as phase 12 (slab K9);
+ 16. the int2 tier with the int4 companion: that state retiered to int2
+     under PERCEIVE_TPU_INT2_FINE=int4, its self-audit's verdict (redrawn
+     sample by sample, then a second audit on the audit's next seeded
+     sample), the 16 CLI queries (K5, K6 and flat K9), the composed device pipeline held against
+     the plain one for every query, ``served_recall_at_10``, and one batch
+     of each mix.
 Each kernel is timed beside its plain version, one PyTorch call for the same
 function (``library_ms``: a yardstick the port never calls; null where no
 single call computes it) and its bound.
@@ -64,6 +82,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "select_topk": ("perceive_tpu_torch/csrc/select_topk.cu", "perceive_tpu/ops/topk.py:1748"),
     "scan_int8t": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:753"),
     "scan_int8t_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:835"),
+    "scan_int4": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:519"),
+    "scan_int4_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:618"),
 }
 # the H100 SXM data sheet: device memory rate and dense tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -72,7 +92,9 @@ DIM = 384
 KS = (16, 64, 128, 1024, 8192)
 BF16_KB = 32  # the bf16 slice's sweep depth: k=10, doubled for chunk dedupe
 INT8_KB = 128  # the int8 slice's: k=10, x4 over-fetch, doubled for chunk dedupe
+INT4_KB = 256  # the int4 slices': k=10, x8 over-fetch, doubled for chunk dedupe
 INT2_KCS = (1024, 4096)  # coarse depths: the audit's shallowest, and the default
+INT4_KERNEL_ROWS = 25_165_824  # the int4 tier's own size: past 24M rows
 SCAN_TOL = 1e-4  # bf16 scans: f32 sums of bf16 products in another order
 
 
@@ -95,6 +117,15 @@ def reset_launch_counts() -> None:
     topk.reset_launch_counts()
     int2.reset_launch_counts()
     attn.LAUNCHES = 0
+
+
+PEAK_BYTES = [0]  # the run's peak device memory, across resets of the peak
+
+
+def note_peak() -> None:
+    import torch
+
+    PEAK_BYTES[0] = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated())
 
 
 @contextlib.contextmanager
@@ -122,7 +153,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
     times = []
-    while len(times) < (reps if not times or times[0] < 100 else 3):
+    while len(times) < (reps if not times or times[0] < 100 else min(reps, 3)):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -163,6 +194,7 @@ def environment():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ.pop("PERCEIVE_TPU_MATRIX_DTYPE", None)  # the auto tier rule decides
+    os.environ.pop("PERCEIVE_TPU_INT2_FINE", None)  # and the int2 companion's budget rule
     log(card)  # name, power limit: as nvidia-smi prints them
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  python {sys.version.split()[0]}")
     return card
@@ -540,6 +572,125 @@ def check_int2_kernels(card: str) -> dict:
             "K7": {"max_abs_err": 0.0, **times[("K7", 1)]}, "K8": {"max_abs_err": 0.0, **times[("K8", 512)]}}
 
 
+def int4_matrix(g, dev, n: int):
+    """Seeded unit rows as the int4 tier stores them, quantized on the card
+    in chunks of 131,072 rows (f32 never holds the matrix: 38.7 GB at 25M
+    rows): the (DIM/2, n) packed matrix with its row scales (max|v| / 7),
+    1% of its bytes with a low nibble of 0 (-8, which the tier's
+    quantization never writes), and source ids with 5% tombstones."""
+    import torch
+
+    d2 = DIM // 2
+    packed = torch.empty((d2, n), dtype=torch.uint8, device=dev)
+    scales = torch.empty((n,), dtype=torch.float32, device=dev)
+    for lo in range(0, n, 131072):
+        hi = min(n, lo + 131072)
+        blk = torch.randn((hi - lo, DIM), generator=g, device=dev)
+        blk = blk / blk.norm(dim=1, keepdim=True)
+        s = torch.clamp(blk.abs().amax(dim=1), min=1e-12) / 7.0
+        v = torch.clamp(torch.round(blk / s[:, None]), -7, 7).to(torch.int32)
+        b = (v[:, :d2] + 8) | ((v[:, d2:] & 15) << 4)
+        b = torch.where(torch.rand(b.shape, generator=g, device=dev) < 0.01, b & 0xF0, b)
+        packed[:, lo:hi] = b.to(torch.uint8).T
+        scales[lo:hi] = s
+    src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((n,), generator=g, device=dev) < 0.05] = -1
+    return packed, scales, src
+
+
+def check_int4_kernels(card: str) -> dict:
+    """K9, flat and slab, at 25,165,824 x 384 packed int4, bit for bit; K7
+    and K8 over the same rows unpacked to int8 return the same answers and
+    are timed beside it."""
+    import torch
+
+    from perceive_tpu_torch.index.matrix import sweep_rows_for
+    from perceive_tpu_torch.ops import topk
+
+    dev = torch.device("cuda:0")
+    n = INT4_KERNEL_ROWS
+    g = torch.Generator(device=dev).manual_seed(7)
+    packed, scales, src = int4_matrix(g, dev, n)
+    prefix = sweep_rows_for(22_000_000, n)  # a prefix sweep, as a matrix with 22M live rows gives
+    allowed = filters(dev)
+    flat, slab, plain = topk.scan_topk_int4_flat, topk.scan_topk_int4_slab, topk.scan_topk_int4_plain
+
+    def queries(nq):
+        return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
+
+    for kid, fn, nq, ks, fnames in (("K9-flat", flat, 1, KS, ("all", "2src")),
+                                    ("K9-flat", flat, 32, (16, INT4_KB, 8192), ("all",)),
+                                    ("K9-slab", slab, 512, (16, INT4_KB, 1024), ("all", "2src")),
+                                    ("K9-slab", slab, 2048, (INT4_KB,), ("all",))):
+        qi8, qs = queries(nq)
+        for k in ks:
+            for fname in fnames:
+                got = fn(packed, scales, src, qi8, qs, allowed[fname], k)
+                want = plain(packed, scales, src, qi8, qs, allowed[fname], k)
+                check_case(f"{kid} Q={nq:<4d} k={k:<5d} filter={fname:<4s} n_sweep={n}", got, want, 0.0)
+        if nq in (1, 512):
+            got = fn(packed, scales, src, qi8, qs, allowed["all"], INT4_KB, prefix)
+            want = plain(packed, scales, src, qi8, qs, allowed["all"], INT4_KB, prefix)
+            check_case(f"{kid} Q={nq:<4d} k={INT4_KB:<5d} filter=all  n_sweep={prefix}", got, want, 0.0)
+    before = topk.LAUNCHES_INT4_SLAB
+    topk.scan_topk_int4(packed, scales, src, torch.randn((300, DIM), generator=g, device=dev), allowed["all"], 16)
+    if topk.LAUNCHES_INT4_SLAB != before + 1:
+        raise SystemExit("scan_topk_int4 did not route a 300-query sweep to K9's slab kernel")
+
+    # ties: every column 8 times over, so equal scores are everywhere
+    tn = 262_144
+    tp, tsc, tsrc = packed[:, : tn // 8].repeat(1, 8).contiguous(), scales[: tn // 8].repeat(8), src[: tn // 8].repeat(8)
+    for kid, fn, nq in (("K9-flat", flat, 8), ("K9-slab", slab, 256)):
+        qi8, qs = queries(nq)
+        got = fn(tp, tsc, tsrc, qi8, qs, allowed["all"], 64)
+        v, r = got
+        same = (v[:, 1:] == v[:, :-1]) & torch.isfinite(v[:, 1:])
+        if not (torch_equal(got, plain(tp, tsc, tsrc, qi8, qs, allowed["all"], 64)) and bool(same.any())
+                and bool((r[:, 1:][same] > r[:, :-1][same]).all())):
+            raise SystemExit(f"{kid} tie order differs from the plain version")
+    log("K9 flat and slab, duplicated rows: bit-exact, equal scores order by the lower row  ok")
+    del tp, tsc, tsrc
+
+    # the same rows unpacked to the int8 (D, N) layout of the int2 tier's
+    # companion: K7 and K8 must give K9's answers, and are timed beside it
+    m8 = torch.empty((DIM, n), dtype=torch.int8, device=dev)
+    for lo in range(0, n, 1 << 20):
+        m8[:, lo : lo + (1 << 20)] = topk.unpack_int4(packed[:, lo : lo + (1 << 20)])
+    live = int((src >= 0).sum())
+    times = {}
+    for kid, fn, yard, nq in (("K9-flat", flat, topk.scan_topk_int8t_flat, 1),
+                              ("K9-flat", flat, topk.scan_topk_int8t_flat, 32),
+                              ("K9-slab", slab, topk.scan_topk_int8t_slab, 512),
+                              ("K9-slab", slab, topk.scan_topk_int8t_slab, 2048)):
+        qi8, qs = queries(nq)
+        k, al = INT4_KB, allowed["all"]
+        if not torch_equal(fn(packed, scales, src, qi8, qs, al, k), yard(m8, scales, src, qi8, qs, al, k)):
+            raise SystemExit(f"{kid} Q={nq}: the int8 kernel over the unpacked rows answers differently")
+        # a sweep of 2,048 queries takes seconds: one cold run each, and
+        # the plain version (several seconds more) is timed at the record's
+        # widths only
+        wide = nq == 2048
+        t = {"ms": cuda_ms(lambda: fn(packed, scales, src, qi8, qs, al, k), reps=1 if wide else 20, warmup=0 if wide else 1),
+             "plain_ms": None if wide else cuda_ms(lambda: plain(packed, scales, src, qi8, qs, al, k), reps=3, warmup=0),
+             "library_ms": None,  # no single PyTorch call unpacks nibbles
+             "int8_ms": cuda_ms(lambda: yard(m8, scales, src, qi8, qs, al, k), reps=1 if wide else 20,
+                                warmup=0 if wide else 1)}
+        # the live rows' packed bytes and scales read once, every source id
+        # once, the queries once, the (Q, k) result written once; 2 * D int8
+        # operations a live row and query
+        t["bound_ms"], t["bound_by"] = bound(live * (DIM // 2 + 4) + 4 * n + nq * DIM + nq * k * 8,
+                                             2.0 * nq * live * DIM, "int8")
+        times[(kid, nq)] = t
+        plain_txt = "not timed" if t["plain_ms"] is None else f"{t['plain_ms']:.4f} ms"
+        log(f"{kid} time Q={nq} k={k} n_sweep={n}: kernel {t['ms']:.4f} ms{' (one cold run)' if wide else ''}  "
+            f"plain {plain_txt}  library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  "
+            f"{'K7' if kid == 'K9-flat' else 'K8'} on the rows unpacked to int8 {t['int8_ms']:.4f} ms  [{card}]")
+    del packed, scales, src, m8
+    torch.cuda.empty_cache()
+    return {"flat": {"max_abs_err": 0.0, **times[("K9-flat", 1)]},
+            "slab": {"max_abs_err": 0.0, **times[("K9-slab", 512)]}}
+
+
 # -- phase 5: K11 ------------------------------------------------------------
 
 
@@ -858,35 +1009,44 @@ def batch_breakdown(searcher, qs) -> tuple:
 
 
 def batch_path(card: str, state, ctx: dict, tier: str, kernel: str, drain_kernel: str = "",
-               reps: int = 3) -> dict:
+               reps: int = 3, executor: bool = True, verify_every: int = 1) -> dict:
     """N_EXECUTOR_QUERIES vector queries from N_CLIENTS threads through a
-    BatchingSearchExecutor, then search_vectors_batch on N_BATCH queries of
-    each mix, ``reps`` times after a warm-up (once, and no warm-up, when
-    ``reps`` is 1).  The launch counts are read right after (``kernel`` must
-    have run, and ``drain_kernel`` too where given); then every executor
-    answer is held against the same query through search_vector."""
+    BatchingSearchExecutor (unless not ``executor``), then
+    search_vectors_batch on N_BATCH queries of each mix, ``reps`` times
+    after a warm-up (once, and no warm-up, when ``reps`` is 1).  The launch
+    counts are read right after (``kernel`` must have run, and
+    ``drain_kernel`` too where given); then every executor answer is held
+    against the batch and every ``verify_every``-th against the same query
+    through search_vector (without the executor: every 16th batch answer
+    against search_vector)."""
+    import torch
+
     from perceive_tpu_torch.index import BatchingSearchExecutor
 
     searcher, vecs = state.searcher, ctx["vecs"]
     results = [None] * N_EXECUTOR_QUERIES
     esc0 = searcher.escalations
+    note_peak()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    ex = BatchingSearchExecutor(searcher)
-    try:
-        def client(c):
-            for i in range(c, N_EXECUTOR_QUERIES, N_CLIENTS):
-                results[i] = ex.search(vecs[i], 10, timeout=120)
+    if executor:
+        ex = BatchingSearchExecutor(searcher)
+        try:
+            def client(c):
+                for i in range(c, N_EXECUTOR_QUERIES, N_CLIENTS):
+                    results[i] = ex.search(vecs[i], 10, timeout=120)
 
-        threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        t_ex = time.perf_counter() - t0
-        sweeps, served = ex.sweeps_total, ex.queries_total
-    finally:
-        ex.close()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            t_ex = time.perf_counter() - t0
+            sweeps, served = ex.sweeps_total, ex.queries_total
+        finally:
+            ex.close()
     timed = {}
     for name, qs in (("mixed", vecs), ("random", ctx["vecs_random"])):
         if reps > 1:
@@ -899,14 +1059,17 @@ def batch_path(card: str, state, ctx: dict, tier: str, kernel: str, drain_kernel
         if name == "mixed":
             batch = median[0]
     launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    note_peak()
     # the path ends here; the checks below launch per-query sweeps
-    if served != N_EXECUTOR_QUERIES or any(r is None for r in results):
+    if executor and (served != N_EXECUTOR_QUERIES or any(r is None for r in results)):
         raise SystemExit(f"the executor served {served} of {N_EXECUTOR_QUERIES} queries")
     for name in (kernel, drain_kernel):
         if name and launches[name] == 0:
             raise SystemExit(f"the {tier} batch path launched no {name} kernel")
-    log(f"{tier} executor: {N_EXECUTOR_QUERIES} queries from {N_CLIENTS} threads in {t_ex:.3f} s = "
-        f"{N_EXECUTOR_QUERIES / t_ex:.1f} QPS; sweeps_total {sweeps}, queries_total {served}  [{card}]")
+    if executor:
+        log(f"{tier} executor: {N_EXECUTOR_QUERIES} queries from {N_CLIENTS} threads in {t_ex:.3f} s = "
+            f"{N_EXECUTOR_QUERIES / t_ex:.1f} QPS; sweeps_total {sweeps}, queries_total {served}  [{card}]")
     for name, (parts, esc) in timed.items():
         wall = parts["all"]
         log(f"{tier} search_vectors_batch, {N_BATCH} {name} queries: {wall * 1e3:.2f} ms "
@@ -914,11 +1077,19 @@ def batch_path(card: str, state, ctx: dict, tier: str, kernel: str, drain_kernel
             f"{esc:g} escalations a batch; host seconds: "
             + ", ".join(f"{k} {parts[k]:.4f}" for k in ("sweep", "rerank", "rest")) + f"  [{card}]")
     log(f"{tier} batch path: escalations {searcher.escalations - esc0}; launches {launches}")
-    bad = sum(not hits_match(results[i], searcher.search_vector(vecs[i], 10), 1e-5)
-              for i in range(N_EXECUTOR_QUERIES))
-    bad += sum(not hits_match(batch[i], results[i], 1e-5) for i in range(N_EXECUTOR_QUERIES))
-    log(f"{tier} executor and batch answers equal search_vector's: "
-        f"{2 * N_EXECUTOR_QUERIES - bad}/{2 * N_EXECUTOR_QUERIES}")
+    log(f"{tier} batch path: device memory {resident / 2**30:.3f} GiB resident before it, peak "
+        f"{peak / 2**30:.3f} GiB during it (kernel workspace, batch queries and results on top)  [{card}]")
+    if executor:
+        sample = range(0, N_EXECUTOR_QUERIES, verify_every)
+        bad = sum(not hits_match(results[i], searcher.search_vector(vecs[i], 10), 1e-5) for i in sample)
+        bad += sum(not hits_match(batch[i], results[i], 1e-5) for i in range(N_EXECUTOR_QUERIES))
+        total = len(sample) + N_EXECUTOR_QUERIES
+        log(f"{tier} executor answers equal the batch's ({N_EXECUTOR_QUERIES}) and search_vector's "
+            f"({'every one' if verify_every == 1 else f'every {verify_every}th'}): {total - bad}/{total}")
+    else:
+        sample = range(0, N_BATCH, 16)
+        bad = sum(not hits_match(batch[i], searcher.search_vector(vecs[i], 10), 1e-5) for i in sample)
+        log(f"{tier} batch answers equal search_vector's: {len(sample) - bad}/{len(sample)} (every 16th)")
     if bad:
         raise SystemExit(f"{bad} {tier} executor or batch answers differ from search_vector's")
     return {"launches": launches}
@@ -1036,8 +1207,6 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
     from perceive_tpu_torch.cli import AppState
     from perceive_tpu_torch.db import Database
     from perceive_tpu_torch.index.matrix import INT2
-    from perceive_tpu_torch.index.searcher import _k_bucket
-    from perceive_tpu_torch.ops import int2, topk
 
     t0 = time.perf_counter()
     model = ctx["model"]
@@ -1074,7 +1243,23 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
         if c == 0:
             raise SystemExit(f"the int2 CLI path launched no {name} kernel (audit {searcher.coarse_audit})")
 
-    # the composed device pipeline equals the composed plain one, per query
+    t = check_int2_pipeline(card, searcher, ctx, dev, "int2")
+    ctx["exact"] = exact_top10(searcher, torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]]), dev)
+    recall = served_recall("int2", results, ctx["exact"])
+    return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations,
+                   "recall": recall, "pipeline_ms": t}
+
+
+def check_int2_pipeline(card: str, searcher, ctx: dict, dev, tier: str) -> dict:
+    """The composed device pipeline (K5 -> K6 -> fine phase over the
+    companion the int2 tier holds) equals the composed plain one for every
+    query, vals, rows and floor bit for bit; then its parts timed at Q=1."""
+    import torch
+
+    from perceive_tpu_torch.index.searcher import _k_bucket
+    from perceive_tpu_torch.ops import int2, topk
+
+    m = searcher.matrix
     (packed2, fine), src, (scales2, fscales) = m.device_view()
     kb = _k_bucket(searcher._first_fetch(10), m.sweep_rows)
     allowed = torch.from_numpy(searcher._allowed_arrays(None)[0]).to(dev)
@@ -1085,10 +1270,10 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
         args = (packed2, scales2, fine, fscales, src, qp[qi : qi + 1], allowed, kb)
         got, want = int2.scan_int2_coarse_fine(*args, **kw), int2.scan_int2_coarse_fine_plain(*args, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise SystemExit(f"int2 query {qi}: the device pipeline differs from the plain one")
+            raise SystemExit(f"{tier} query {qi}: the device pipeline differs from the plain one")
     kc = int2.int2_coarse_depth(kb, m.sweep_rows, m.coarse_fetch)
-    log(f"int2 device pipeline (K5 -> K6 -> fine phase, kb={kb}, kc={kc}) equals the plain pipeline "
-        f"for 16/16 queries: vals, rows and floor bit for bit")
+    log(f"{tier} device pipeline (K5 -> K6 -> fine phase over the {tuple(fine.shape)} {fine.dtype} companion, "
+        f"kb={kb}, kc={kc}) equals the plain pipeline for 16/16 queries: vals, rows and floor bit for bit")
 
     # where the pipeline's time goes, at Q = 1
     qi8, qscale = topk.quantize_queries(qp[:1])
@@ -1099,10 +1284,15 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
          "K6": cuda_ms(lambda: int2.select_topk(coarse, kc)),
          "gather": cuda_ms(lambda: fine.index_select(1, idx.reshape(-1).long())),
          "fine phase": cuda_ms(lambda: int2.fine_phase(cvals, idx, fine, fscales, qi8, qscale, kb))}
-    log("int2 pipeline at Q=1 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+    log(f"{tier} pipeline at Q=1 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
         + f"  (the fine phase: gather of {kc} columns + int32-exact dot + select)  [{card}]")
+    return t
 
-    exact = exact_top10(searcher, qvs, dev)
+
+def served_recall(tier: str, results, exact) -> float:
+    """The share of the exact f32 top-10 ids the CLI served, over the 16
+    queries; fails under 0.99 or where a served score of one of them is off
+    by more than 1e-5."""
     hit = total = 0
     worst = 0.0
     for qi, want in enumerate(exact):
@@ -1111,15 +1301,213 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
         total += len(want)
         worst = max([worst] + [abs(got[i] - s) for i, s in want if i in got])
     recall = hit / max(total, 1)
-    log(f"int2 served_recall_at_10 {recall:.6f} ({hit}/{total}) against the exact f32 top-10; "
+    log(f"{tier} served_recall_at_10 {recall:.6f} ({hit}/{total}) against the exact f32 top-10; "
         f"max score error {worst:.3g}")
     if recall < 0.99 or worst > 1e-5:
-        raise SystemExit(f"int2 hits miss the exact f32 top-10 (recall {recall}, score error {worst})")
-    return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations,
-                   "recall": recall, "pipeline_ms": t}
+        raise SystemExit(f"{tier} hits miss the exact f32 top-10 (recall {recall}, score error {worst})")
+    return recall
 
 
-def main() -> int:
+def int4_slice(card: str, ctx: dict, dev) -> tuple:
+    """Phase 14: a fresh AppState pinned to the int4 tier on the int2
+    slice's corpus, 16 CLI queries (flat K9 must run), hits against the
+    exact f32 top-10."""
+    from perceive_tpu_torch.cli import AppState
+
+    t0 = time.perf_counter()
+    model = ctx["model"]
+    os.environ["PERCEIVE_TPU_MATRIX_DTYPE"] = "int4"
+    try:
+        state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
+    finally:
+        os.environ.pop("PERCEIVE_TPU_MATRIX_DTYPE")
+    searcher = state.searcher
+    m = searcher.matrix
+    log(f"AppState build: {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
+        f"capacity {m.capacity} in {time.perf_counter() - t0:.1f} s  [{card}]")
+    if len(m) != INT2_ROWS or m.device != dev or not m.packed4:
+        raise SystemExit(f"searcher holds {len(m)} {m.tier_name} rows on {m.device}; want int4 on {dev}")
+
+    reset_launch_counts()
+    esc0 = searcher.escalations
+    results, p50, p95 = cli_queries(card, state, ctx, "int4", "scan_int4")
+    launches = launch_counts()["scan_int4"]
+    escalations = searcher.escalations - esc0
+    log(f"int4 CLI path: escalations {escalations}; scan_int4 launches {launches}")
+    recall = served_recall("int4", results, ctx["exact"])
+    return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations, "recall": recall}
+
+
+def audit_overlaps(searcher, k: int = 10) -> tuple:
+    """The last int2 self-audit, sample by sample: its seeded draw redrawn,
+    and each sample's top-k overlap measured as its phase 3 does (the
+    production coarse pipeline, reranked, against the companion sweep at 4x
+    the first fetch, reranked; 8 queries a zero-padded sweep).  Returns
+    (sample rows, overlaps, reference rows, served rows); fails unless the
+    mean and the worst are the audit's own."""
+    from perceive_tpu_torch.index.searcher import INT2_COARSE_FETCH, _coarse_audit_queries, _k_bucket
+
+    m = searcher.matrix
+    live_src = m.source_ids[: m.rows]
+    live = np.flatnonzero(live_src >= 0)
+    src_ids, src_counts = np.unique(live_src[live], return_counts=True)
+    rng = np.random.default_rng(0xC0A005E + searcher._audit_seq)
+    sample = np.sort(searcher._stratified_sample(rng, live, live_src, src_ids, src_counts,
+                                                 _coarse_audit_queries(len(live), k),
+                                                 min(INT2_COARSE_FETCH, max(m.sweep_rows, 1))))
+    vecs = m.host_vectors_for(sample)
+    vecs = (vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True), 1e-12)).astype(np.float32)
+    qp = searcher._pad_queries(vecs)
+    allowed = searcher._allowed_arrays(None)[0]
+    kb = _k_bucket(searcher._first_fetch(k), m.sweep_rows)
+    kb_ref = _k_bucket(4 * kb, m.sweep_rows)
+    refs, served, overlaps = [], [], []
+    for lo in range(0, len(qp), 8):
+        hi = min(lo + 8, len(qp))
+        cq = np.zeros((8, qp.shape[1]), qp.dtype)
+        cq[: hi - lo] = qp[lo:hi]
+        rv, rr, _ = searcher._device_scan(cq, kb_ref, allowed, use_coarse=False)
+        _, rr = searcher._rerank(vecs[lo:hi], rv[: hi - lo], rr[: hi - lo])
+        cv, cr, _ = searcher._device_scan(cq, kb, allowed, use_coarse=True, force_coarse=True)
+        _, cr = searcher._rerank(vecs[lo:hi], cv[: hi - lo], cr[: hi - lo])
+        for j in range(hi - lo):
+            ref = [r for r in rr[j][:k].tolist() if r >= 0]
+            refs.append(ref)
+            served.append(cr[j][: len(ref)].tolist())
+            overlaps.append(len(set(ref) & set(served[-1])) / len(ref) if ref else 1.0)
+    mean = sum(o for o, ref in zip(overlaps, refs) if ref) / max(len(qp), 1)
+    audit = searcher.coarse_audit
+    if round(mean, 6) != audit["overlap"] or round(min(overlaps), 6) != audit["min_overlap"]:
+        raise SystemExit(f"the audit redrawn sample by sample gives overlap {mean} / min {min(overlaps)}, "
+                         f"the audit {audit}")
+    return sample, overlaps, refs, served
+
+
+def write_audit_case(searcher, path: str, row: int, overlap: float, ref, served, k: int = 10) -> dict:
+    """One audit sample and the rows around it, for a reproduction off the
+    card: the coarse pass's top 2 * kc rows, the companion's top kb_ref rows
+    (the reference's candidates) and the sample's own row, in the corpus's
+    row order, with their keys, f32 vectors, sources and device bytes.
+    Quantization is per row, so over these rows the coarse top kc and the
+    companion's top kb_ref are the same rows as over the whole corpus.
+    Also the coarse and the companion rank (score, then lower row) of each
+    reference row over the whole corpus."""
+    import torch
+
+    from perceive_tpu_torch.index.searcher import _k_bucket
+    from perceive_tpu_torch.ops import int2, topk
+
+    m = searcher.matrix
+    (packed2, fine), src, (scales2, fscales) = m.device_view()
+    n = m.sweep_rows
+    kb = _k_bucket(searcher._first_fetch(k), n)
+    kb_ref = _k_bucket(4 * kb, n)
+    kc = int2.int2_coarse_depth(kb, n, m.coarse_fetch)
+    v = m.host_vectors_for(np.array([row]))
+    v = (v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)).astype(np.float32)
+    q = torch.from_numpy(searcher._pad_queries(v)).to(m.device)
+    allowed = torch.from_numpy(searcher._allowed_arrays(None)[0]).to(m.device)
+    qi8, qs = topk.quantize_queries(q)
+    coarse = int2.int2_scores(packed2, scales2, src, qi8, qs, allowed, n)
+    _, ctop, _ = int2.select_topk_plain(coarse, min(2 * kc, n))
+    _, ftop = topk.scan_topk_int4(fine, fscales, src, q, allowed, kb_ref, n)
+    fscore = topk.mask_scores(topk.scores_int4(fine[:, :n], fscales[:n], qi8, qs), src[:n], allowed)
+
+    def ranks(scores):  # by the kernels' key: score, then the lower row
+        s = scores[0]
+        return [int((s > s[r]).sum()) + int((s[:r] == s[r]).sum()) for r in ref]
+
+    rows = np.unique(np.concatenate([ctop.cpu().numpy().ravel(), ftop.cpu().numpy().ravel(), [row], ref]))
+    rows = rows[rows >= 0]
+    rt = torch.from_numpy(rows).to(m.device)
+    case = {"rows": rows, "keys": m.item_ids[rows], "vecs": m.host_vectors_for(rows), "src": m.source_ids[rows],
+            "pos": int(np.searchsorted(rows, row)), "row": row, "dim": m.dim, "overlap": overlap,
+            "ref": np.asarray(ref), "served": np.asarray(served), "kb": kb, "kb_ref": kb_ref, "kc": kc,
+            "fetch": m.coarse_fetch, "first_fetch": searcher._first_fetch(k),
+            "ref_coarse_rank": ranks(coarse), "ref_fine_rank": ranks(fscore),
+            "packed2": packed2[:, rt].cpu().numpy(), "scales2": scales2[rt].cpu().numpy(),
+            "packed4": fine[:, rt].cpu().numpy(), "scales4": fscales[rt].cpu().numpy()}
+    np.savez(path, **case)
+    return case
+
+
+def int2_int4_slice(card: str, state, ctx: dict, dev, audit_case: str = "") -> None:
+    """Phase 16: the int4 state retiered to int2 under
+    PERCEIVE_TPU_INT2_FINE=int4 (the companion takes the int4 tier's bytes;
+    only the host mirror is re-read) and its self-audit; 16 CLI queries on
+    the route the verdict gives (trusted: K5, K6 and flat K9 must run;
+    demoted: the companion sweep, flat K9); where the audit demotes, the 16
+    queries again with the audit disabled by its documented switch
+    (PERCEIVE_TPU_COARSE_AUDIT=0, which trusts the coarse pass), so that K5,
+    K6 and flat K9 serve them; every served set held against the exact f32
+    top-10; the composed device pipeline against the plain one; one batch of
+    each mix."""
+    from perceive_tpu_torch.index.matrix import INT2
+
+    searcher = state.searcher
+    m = searcher.matrix
+    os.environ["PERCEIVE_TPU_INT2_FINE"] = "int4"
+    try:
+        t0 = time.perf_counter()
+        m.retier(INT2)
+        searcher.audit_coarse()
+        log(f"retier to {m.tier_name} and self-audit in {time.perf_counter() - t0:.1f} s  [{card}]")
+        if m.tier_name != "int2+int4fine":
+            raise SystemExit(f"the retiered matrix is {m.tier_name}, not int2+int4fine")
+        log(f"int2+int4 coarse self-audit: {json.dumps(searcher.coarse_audit)}")
+        sample, overlaps, refs, served = audit_overlaps(searcher)
+        low = [(int(sample[i]), overlaps[i]) for i in np.argsort(overlaps, kind="stable")
+               if overlaps[i] < 1.0]
+        log(f"int2+int4 self-audit sample by sample: {len(low)} of {len(sample)} under overlap 1 "
+            f"(row, overlap): {low[:16]}")
+        if audit_case and low:
+            i = int(np.flatnonzero(sample == low[0][0])[0])
+            case = write_audit_case(searcher, audit_case, low[0][0], low[0][1], refs[i], served[i])
+            log(f"int2+int4 worst audit sample, row {low[0][0]}: reference rows {case['ref'].tolist()}, served "
+                f"{case['served'].tolist()}; the reference rows' coarse ranks {case['ref_coarse_rank']} (kc "
+                f"{case['kc']}) and companion ranks {case['ref_fine_rank']} (kb {case['kb']}); "
+                f"{len(case['rows'])} rows around it written to {audit_case}")
+        searcher.audit_coarse()  # a second witness: the audit's next seeded sample
+        log(f"int2+int4 coarse self-audit on its next sample: {json.dumps(searcher.coarse_audit)}")
+        routes = [("audited", m.coarse_trusted)]
+        if not m.coarse_trusted:
+            routes.append(("audit off", True))
+        for route, coarse in routes:
+            if route == "audit off":
+                prev = os.environ.get("PERCEIVE_TPU_COARSE_AUDIT")
+                os.environ["PERCEIVE_TPU_COARSE_AUDIT"] = "0"
+                try:
+                    searcher.audit_coarse()  # disabled: trusts the coarse pass
+                finally:
+                    if prev is None:
+                        os.environ.pop("PERCEIVE_TPU_COARSE_AUDIT")
+                    else:
+                        os.environ["PERCEIVE_TPU_COARSE_AUDIT"] = prev
+            tier = f"int2+int4 ({route}, coarse pass {'serving' if coarse else 'demoted'})"
+            reset_launch_counts()
+            esc0 = searcher.escalations
+            results, _, _ = cli_queries(card, state, ctx, tier, "int2_scores" if coarse else "scan_int4")
+            counts = launch_counts()
+            want = ("int2_scores", "select_topk", "scan_int4") if coarse else ("scan_int4",)
+            launches = {name: counts[name] for name in ("int2_scores", "select_topk", "scan_int4")}
+            escalations = searcher.escalations - esc0
+            log(f"{tier} CLI path: escalations {escalations}; launches {launches}")
+            for name in want:
+                if launches[name] == 0:
+                    raise SystemExit(f"the {tier} CLI path launched no {name} kernel")
+            served_recall(tier, results, ctx["exact"])
+        check_int2_pipeline(card, searcher, ctx, dev, "int2+int4")
+        batch_path(card, state, ctx, "int2+int4", "scan_int4_slab", reps=1, executor=False)
+    finally:
+        os.environ.pop("PERCEIVE_TPU_INT2_FINE")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--audit-case", default="", help="write the int2+int4 self-audit's worst sample here (.npz)")
+    args = ap.parse_args(argv)
     card = environment()
     import torch
 
@@ -1137,6 +1525,8 @@ def main() -> int:
         k11 = check_k11(card)
     with phase("K5, K6, K7, K8 against their plain version"):
         int2k = check_int2_kernels(card)
+    with phase("K9 (flat, slab) against its plain version at 25,165,824 x 384"):
+        int4k = check_int4_kernels(card)
 
     # every main path runs with the launch counts set to 0 just before it
     # and read just after it; the comparisons above do not count
@@ -1172,7 +1562,20 @@ def main() -> int:
             int2_batch = batch_path(card, state, ctx, "int2", "scan_int8t_slab", "scan_int8t", reps=1)
             launches["scan_int8t_slab"] = int2_batch["launches"]["scan_int8t_slab"]
         state.close()
-    log(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        with phase("int4 slice: the 4.19M-row corpus pinned to int4, 16 CLI queries"):
+            state, int4_sl = int4_slice(card, ctx, dev)
+            launches["scan_int4"] = int4_sl["launches"]
+        with phase("int4 batch path"):
+            int4_batch = batch_path(card, state, ctx, "int4", "scan_int4_slab", "scan_int4", reps=1, verify_every=4)
+            launches["scan_int4_slab"] = int4_batch["launches"]["scan_int4_slab"]
+        with phase("int2 with the int4 companion: retier, self-audit, 16 CLI queries, a batch of each mix"):
+            int2_int4_slice(card, state, ctx, dev, args.audit_case)
+        state.close()
+    note_peak()
+    log(f"max_memory_allocated {PEAK_BYTES[0] / 2**30:.3f} GiB  [{card}]")
     log(f"kernel launches on the main paths: {launches}")
     for name, n in launches.items():
         if n == 0:
@@ -1180,7 +1583,8 @@ def main() -> int:
 
     measured = {"scan_topk": bf16["K1"], "scan_slab": bf16["K2"], "scan_int8": int8["K3"],
                 "scan_int8_slab": int8["K4"], "attention": k11, "int2_scores": int2k["K5"],
-                "select_topk": int2k["K6"], "scan_int8t": int2k["K7"], "scan_int8t_slab": int2k["K8"]}
+                "select_topk": int2k["K6"], "scan_int8t": int2k["K7"], "scan_int8t_slab": int2k["K8"],
+                "scan_int4": int4k["flat"], "scan_int4_slab": int4k["slab"]}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": launches[name], "max_abs_err": measured[name]["max_abs_err"],

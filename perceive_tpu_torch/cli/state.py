@@ -10,12 +10,10 @@ weights: vectors written by one package's fallback do not rank
 meaningfully under the other's.
 
 PERCEIVE_TPU_MATRIX_DTYPE: ``auto`` (default) follows the JAX package's
-auto rule as far as it is ported: bf16 up to 1.5M effective rows (rows x
-padded_dim / 384), int8 up to 4M, int2 (coarse-to-fine with an int8
-companion) up to 24M; ``bfloat16``/``bf16``, ``float32``/``f32``, ``int8``
-and ``int2`` pin a tier.  The int4 tier, and ``auto`` past 24M effective
-rows, raise NotImplementedError: the port never serves a corpus in another
-tier's place.
+auto rule: bf16 up to 1.5M effective rows (rows x padded_dim / 384), int8
+up to 4M, int2 (coarse-to-fine with an int8 or int4 companion) up to 24M,
+then packed int4; ``bfloat16``/``bf16``, ``float32``/``f32``, ``int8``,
+``int4`` and ``int2`` pin a tier.  Any other value raises ValueError.
 
 The device is explicit and defaults to ``cuda:0``; a missing GPU is an
 error, never a silent move to the CPU.
@@ -32,7 +30,7 @@ from typing import Optional
 import torch
 
 from ..db import Database, list_sources
-from ..index.matrix import CHUNK_STRIDE, INT2, LANE_ALIGN, _round_up, auto_matrix_dtype
+from ..index.matrix import CHUNK_STRIDE, INT2, INT4, LANE_ALIGN, _round_up, auto_matrix_dtype
 from ..index.searcher import Searcher
 from ..models import Model, ModelError, ModelType
 from ..paths import database_path
@@ -50,9 +48,9 @@ _TIERS = {
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
     "float32": torch.float32, "f32": torch.float32,
     "int8": torch.int8,
+    "int4": INT4,
     "int2": INT2,
 }
-_UNPORTED_TIERS = ("int4",)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -99,25 +97,13 @@ def load_model(model_type: ModelType, device: torch.device) -> Model:
 
 
 def storage_tier(choice: str, n_rows: int, padded_dim: int):
-    """The matrix dtype (bf16, f32, int8 or INT2) for a
-    PERCEIVE_TPU_MATRIX_DTYPE value, or NotImplementedError for a tier this
-    port does not store."""
+    """The matrix dtype (bf16, f32, int8, INT4 or INT2) for a
+    PERCEIVE_TPU_MATRIX_DTYPE value."""
     choice = choice.lower()
     if choice == "auto":
-        tier = auto_matrix_dtype(n_rows, padded_dim)
-        if tier in _TIERS.values():
-            return tier
-        raise NotImplementedError(
-            f"{n_rows} rows need the {tier} tier, which is not ported "
-            "(ROADMAP.md queue 1: the int4 tier, kernel K9); set PERCEIVE_TPU_MATRIX_DTYPE=int2 "
-            "to serve them from the int2 tier explicitly"
-        )
+        return auto_matrix_dtype(n_rows, padded_dim)
     if choice in _TIERS:
         return _TIERS[choice]
-    if choice in _UNPORTED_TIERS:
-        raise NotImplementedError(
-            f"PERCEIVE_TPU_MATRIX_DTYPE={choice} is not ported (ROADMAP.md queue 1: the int4 tier, kernel K9)"
-        )
     raise ValueError(f"unknown PERCEIVE_TPU_MATRIX_DTYPE {choice!r}")
 
 

@@ -1,15 +1,23 @@
 // Exact scan with top-k selection for batches of queries: K2 (bf16 rows),
-// K4 (int8 rows) and K8 (the int2 tier's int8 companion, stored
-// transposed), one templated kernel with three instantiations.
+// K4 (int8 rows), K8 (the int2 tier's int8 companion, stored transposed)
+// and K9's slab kernel (the packed-int4 matrix, stored transposed), one
+// templated kernel with four instantiations.
 //
 // Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_slabbed`
-// (`_scan_kernel_slabbed`) and `pallas_topk_int8_slabbed`
-// (`_scan_kernel_int8_slabbed`), and `pallas_topk_int8t_slabbed`
-// (`_scan_kernel_int8t_slabbed`): the same scans as K1, K3 and K7, for
-// sweeps of at least 256 queries, where each row tile is read once for many
-// queries.  K8 reads the (D, N) layout, whose bytes are contiguous along
-// the rows: it transposes each 4 x 4 byte micro-tile while staging it
-// (__byte_perm), so the shared-memory tile and the fragment loads are K4's.
+// (`_scan_kernel_slabbed`), `pallas_topk_int8_slabbed`
+// (`_scan_kernel_int8_slabbed`), `pallas_topk_int8t_slabbed`
+// (`_scan_kernel_int8t_slabbed`) and `pallas_topk_int4_slabbed`
+// (`_scan_kernel_int4_slabbed`): the same scans as K1, K3, K7 and K9's flat
+// kernel, for sweeps of at least 256 queries, where each row tile is read
+// once for many queries.  K8 reads the (D, N) layout, whose bytes are
+// contiguous along the rows: it transposes each 4 x 4 byte micro-tile while
+// staging it (__byte_perm), so the shared-memory tile and the fragment
+// loads are K4's.  K9 reads the (D/2, N) packed layout the same way and
+// decodes each staged byte-row r into two int8 dims, r (low nibble less 8)
+// and r + D/2 (high nibble, sign-extended): a slice of 64 byte-rows fills
+// the 128-byte k-slice with dims r.. (first half) and r + D/2.. (second
+// half), and the query tile is staged in the same dim order.  It reads half
+// of K8's bytes a row and does more integer work while staging.
 //
 // What bounds them on the H100: operations.  At Q = 512 a 1M x 384 bf16
 // sweep is 4.0e11 flop (0.41 ms at 989 TFLOP/s) against 0.77 GB (0.23 ms at
@@ -88,9 +96,12 @@ __device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Grid (query tiles, row blocks); workspace cand[q][block][kc].  kTrans:
-// the matrix is the transposed (row_bytes, ld) int8 companion (K8).
-template <int kDtype, bool kTrans>
+// How the matrix is laid out: (N, row_bytes) rows (K2, K4), the transposed
+// (D, ld) int8 companion (K8), or the transposed (D/2, ld) packed int4 (K9).
+enum { kRowMajor = 0, kTransposed = 1, kPacked4 = 2 };
+
+// Grid (query tiles, row blocks); workspace cand[q][block][kc].
+template <int kDtype, int kLayout>
 __global__ void __launch_bounds__(kThreads, 1) scan_slab(
     const unsigned char* __restrict__ matrix, int ld, const float* __restrict__ scales,
     const int* __restrict__ src, const unsigned char* __restrict__ q,
@@ -134,7 +145,30 @@ __global__ void __launch_bounds__(kThreads, 1) scan_slab(
 
     for (int sl = 0; sl < nslice; ++sl) {
       __syncthreads();  // every warp is done with the previous slice
-      if (kTrans) {
+      if (kLayout == kPacked4) {
+        // (d/2, ld) layout: 4 byte-rows x 4 rows a micro-tile, transposed
+        // as K8's, then each row's word splits into its low-nibble dims
+        // (k = 0..63 of the slice) and its high-nibble dims (k = 64..127)
+        for (int i = tid; i < (kChunk / 4) * (kSlice / 8); i += kThreads) {
+          const int w = i >> 5, l = i & 31;
+          const int rg = (w & 3) * 8 + (l & 7), dg = (w >> 2) * 4 + (l >> 3);
+          const int r = 4 * rg, kk = 4 * dg;
+          uint32_t rw[4] = {0x08080808u, 0x08080808u, 0x08080808u, 0x08080808u};  // decode to 0
+          if (c0 + r < rn) {
+            const unsigned char* p =
+                matrix + static_cast<size_t>(sl * (kSlice / 2) + kk) * ld + row0 + c0 + r;
+            transpose4x4(ld32(p), ld32(p + ld), ld32(p + 2 * static_cast<size_t>(ld)),
+                         ld32(p + 3 * static_cast<size_t>(ld)), rw);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            unsigned char* dst = rs + (r + j) * kSlicePitch + kk;
+            *reinterpret_cast<uint32_t*>(dst) = __vsub4(rw[j] & 0x0f0f0f0fu, 0x08080808u);
+            *reinterpret_cast<uint32_t*>(dst + kSlice / 2) =
+                __vsub4(((rw[j] >> 4) & 0x0f0f0f0fu) ^ 0x08080808u, 0x08080808u);
+          }
+        }
+      } else if (kLayout == kTransposed) {
         // (d, ld) layout: 4 dims x 4 rows a micro-tile, loaded as 4 words
         // (lanes: 8 row groups x 4 dim groups, so a load fills 32-byte
         // sectors) and transposed into 4 rows of 4 k-contiguous bytes
@@ -163,10 +197,14 @@ __global__ void __launch_bounds__(kThreads, 1) scan_slab(
       }
       for (int i = tid; i < kSlabQ * (kSlice / 16); i += kThreads) {
         const int r = i >> 3, c = i & 7;
+        // the query bytes of the slice's k order: at K9, dims
+        // sl * 64 + 0..63, then d/2 + sl * 64 + 0..63 (row_bytes = d)
+        const size_t off = kLayout == kPacked4
+                               ? (c < 4 ? 0 : row_bytes / 2) + sl * (kSlice / 2) + (c & 3) * 16
+                               : static_cast<size_t>(sl) * kSlice + c * 16;
         uint4 v = zero;
         if (r < qn)
-          v = *reinterpret_cast<const uint4*>(
-              q + static_cast<size_t>(q0 + r) * row_bytes + sl * kSlice + c * 16);
+          v = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * row_bytes + off);
         *reinterpret_cast<uint4*>(qs + r * kSlicePitch + c * 16) = v;
       }
       __syncthreads();
@@ -217,19 +255,19 @@ __global__ void __launch_bounds__(kThreads, 1) scan_slab(
   write_candidates(sc, kScPitch, qn, q0, rn, row0, blk, nblk, kc, cand);
 }
 
-template <int kDtype, bool kTrans>
+template <int kDtype, int kLayout>
 cudaError_t launch_slab(const unsigned char* matrix, int ld, const float* scales, const int* src,
                         const unsigned char* q, const float* qscale, const int* allowed,
                         int n_filter, int nq, int row_bytes, int n_sweep, int k, float* vals,
                         int* rows, void* workspace, cudaStream_t stream) {
   const int nblk = n_blocks(n_sweep);
   const int kc = cand_per_block(k);
-  cudaError_t err = cudaFuncSetAttribute(scan_slab<kDtype, kTrans>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(scan_slab<kDtype, kLayout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSlabSmem));
   if (err != cudaSuccess) return err;
   u64* cand = static_cast<u64*>(workspace);
   const dim3 grid((nq + kSlabQ - 1) / kSlabQ, nblk);
-  scan_slab<kDtype, kTrans><<<grid, kThreads, kSlabSmem, stream>>>(
+  scan_slab<kDtype, kLayout><<<grid, kThreads, kSlabSmem, stream>>>(
       matrix, ld, scales, src, q, qscale, allowed, n_filter, nq, row_bytes, n_sweep, kc, nblk, cand);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -257,12 +295,12 @@ int perceive_scan_topk_slab(const void* matrix, int dtype, const float* scales, 
   if (dtype == kBf16) {
     const int row_bytes = 2 * d;
     if (row_bytes % kSlice) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_slab<kBf16, false>(m, 0, nullptr, src, qq, nullptr, allowed, n_filter, nq, row_bytes,
+    err = launch_slab<kBf16, kRowMajor>(m, 0, nullptr, src, qq, nullptr, allowed, n_filter, nq, row_bytes,
                              n_sweep, k, vals, rows, workspace, s);
   } else if (dtype == kInt8) {
     if (d % kSlice || scales == nullptr || qscale == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_slab<kInt8, false>(m, 0, scales, src, qq, qscale, allowed, n_filter, nq, d, n_sweep, k,
+    err = launch_slab<kInt8, kRowMajor>(m, 0, scales, src, qq, qscale, allowed, n_filter, nq, d, n_sweep, k,
                              vals, rows, workspace, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -280,8 +318,25 @@ int perceive_scan_topk_int8t_slab(const void* m8t, int ld, const float* scales, 
       ld % 4 || n_sweep > ld || scales == nullptr || qscale == nullptr ||
       reinterpret_cast<uintptr_t>(m8t) % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_slab<kInt8, true>(
+  return static_cast<int>(launch_slab<kInt8, kTransposed>(
       static_cast<const unsigned char*>(m8t), ld, scales, src, static_cast<const unsigned char*>(q),
+      qscale, allowed, n_filter, nq, d, n_sweep, k, vals, rows, workspace,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K9's slab kernel: K4 over the transposed (d/2, ld) packed-int4 matrix
+// (ld, its capacity, a multiple of 4); d (the queries' width) a multiple
+// of 128.
+int perceive_scan_topk_int4_slab(const void* m4t, int ld, const float* scales, const int* src,
+                                 const void* q, const float* qscale, const int* allowed,
+                                 int n_filter, int nq, int d, int n_sweep, int k, float* vals,
+                                 int* rows, void* workspace, void* stream) {
+  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || n_blocks(n_sweep) > 65535 || d % kSlice ||
+      ld % 4 || n_sweep > ld || scales == nullptr || qscale == nullptr ||
+      reinterpret_cast<uintptr_t>(m4t) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_slab<kInt8, kPacked4>(
+      static_cast<const unsigned char*>(m4t), ld, scales, src, static_cast<const unsigned char*>(q),
       qscale, allowed, n_filter, nq, d, n_sweep, k, vals, rows, workspace,
       static_cast<cudaStream_t>(stream)));
 }

@@ -1,24 +1,27 @@
-"""Device-resident embedding matrix with an id <-> row map (bf16, f32, int8
-and int2 tiers).
+"""Device-resident embedding matrix with an id <-> row map (bf16, f32, int8,
+int4 and int2 tiers).
 
 Port of perceive_tpu/index/matrix.py for PyTorch.  One dense (capacity,
 padded_dim) tensor on the device holds every embedding row, beside a
 (capacity,) int32 tensor of per-row source ids (-1 for tombstones and the
 unallocated tail) and, at the int8 tier, a (capacity,) f32 tensor of
-per-row scales.  The int2 tier stores two matrices, both transposed: the
-(padded_dim / 4, capacity) uint8 coarse matrix (``_quantize2``) and the
-(padded_dim, capacity) int8 companion (``_quantize``'s bytes), each with
-its (capacity,) f32 scales.  The host keeps the id maps and an f32 mirror
-of the vectors; ``sync`` uploads what changed (a full upload after growth
-or a retier, else the dirty rows, or columns, with ``index_copy_``).
+per-row scales.  The int4 tier stores its rows transposed and packed, a
+(padded_dim / 2, capacity) uint8 matrix (``_quantize4``), with its scales.
+The int2 tier stores two matrices, both transposed: the (padded_dim / 4,
+capacity) uint8 coarse matrix (``_quantize2``) and a fine companion, the
+(padded_dim, capacity) int8 matrix (``_quantize``'s bytes) or, where the
+device budget asks for it (``int2_fine_bits``), the int4 tier's packed
+matrix, each with its (capacity,) f32 scales.  The host keeps the id maps
+and an f32 mirror of the vectors; ``sync`` uploads what changed (a full
+upload after growth or a retier, else the dirty rows, or columns, with
+``index_copy_``).
 
 The stored bytes and keys are the JAX package's: f32 little-endian BLOBs,
 ``chunk_key`` = item_id * CHUNK_STRIDE + chunk_idx, capacities a multiple
 of ROW_ALIGN, widths padded to LANE_ALIGN, the same prefix-sweep ladder,
-and the int8 tier's per-row symmetric quantization (``_quantize``) and the int2
-tier's 2-bit packing (``_quantize2``).  The int4 tier, the int2 tier's
-int4 companion (both need kernel K9) and snapshots are later work
-(ROADMAP.md queue 1).
+and the int8 tier's per-row symmetric quantization (``_quantize``), the
+int4 tier's nibble packing (``_quantize4``) and the int2 tier's 2-bit
+packing (``_quantize2``).  Snapshots are later work (ROADMAP.md queue 1).
 
 Device updates happen in place on the current stream, so a sweep enqueued
 before an update reads the old rows and one enqueued after reads the new
@@ -81,8 +84,8 @@ def auto_matrix_dtype(n_rows: int, padded_dim: int = 384):
     padded_dim/384).  The thresholds are inherited from TPU measurements
     and not yet measured on this card.  Returns torch.bfloat16 up to 1.5M
     effective rows, torch.int8 up to 4M (exact after the searcher's f32
-    rerank), INT2 up to 24M (coarse-to-fine, reranked likewise), then INT4,
-    a tier this port does not store yet (``EmbeddingMatrix`` raises)."""
+    rerank), INT2 up to 24M (coarse-to-fine, reranked likewise), then INT4
+    (packed 4-bit, reranked likewise)."""
     eff = n_rows * max(padded_dim, 1) / 384.0
     if eff <= 1_500_000:
         return torch.bfloat16
@@ -245,14 +248,12 @@ class HostMirror:
             pass
 
 
-_STORED_DTYPES = (torch.bfloat16, torch.float32, torch.int8, INT2)
+_STORED_DTYPES = (torch.bfloat16, torch.float32, torch.int8, INT4, INT2)
 
 
 def _check_stored(dtype) -> None:
     if not any(dtype == t for t in _STORED_DTYPES):
-        raise NotImplementedError(
-            f"storage tier {dtype} is not ported (ROADMAP.md queue 1: the int4 tier, kernel K9)"
-        )
+        raise ValueError(f"unknown storage tier {dtype!r}; one of {_STORED_DTYPES}")
 
 
 def _int2_fine_int8_budget(device: torch.device) -> int:
@@ -273,18 +274,15 @@ def _int2_fine_int8_budget(device: torch.device) -> int:
 def int2_fine_bits(capacity: int, padded_dim: int, device: torch.device) -> int:
     """Width of the int2 tier's fine companion, by the JAX package's policy:
     8 while coarse (0.25 B/dim) + int8 (1 B/dim) fit the budget, else 4
-    (packed int4); PERCEIVE_TPU_INT2_FINE = int8 | int4 pins it.  The port
-    stores only the int8 companion and raises where the policy asks for
-    int4 (it needs kernel K9; it never serves int8 in its place)."""
+    (packed int4, the int4 tier's bytes); PERCEIVE_TPU_INT2_FINE = int8 |
+    int4 pins it.  On an 80 GB card the budget holds about 113M rows of
+    capacity at 384 dims."""
     env = os.environ.get("PERCEIVE_TPU_INT2_FINE", "auto").lower()
     if env in ("int8", "8"):
         return 8
-    if env in ("int4", "4") or capacity * padded_dim * 1.25 > _int2_fine_int8_budget(device):
-        raise NotImplementedError(
-            f"the int2 tier of {capacity} x {padded_dim} needs the int4 fine companion, which is not "
-            "ported (ROADMAP.md queue 1: kernel K9)"
-        )
-    return 8
+    if env in ("int4", "4"):
+        return 4
+    return 8 if capacity * padded_dim * 1.25 <= _int2_fine_int8_budget(device) else 4
 
 
 def _quantize(rows_f32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -295,6 +293,21 @@ def _quantize(rows_f32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     scales = np.maximum(np.abs(rows_f32).max(axis=1), 1e-12) / 127.0
     q = np.clip(np.rint(rows_f32 / scales[:, None]), -127, 127).astype(np.int8)
     return q, scales.astype(np.float32)
+
+
+def _quantize4(rows_f32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int4 packed two dims a byte, byte for byte the JAX
+    package's: scale = max|v| / 7 (min-clamped), values rint(v / scale)
+    clipped to [-7, 7]; byte j of the D = rows_f32.shape[1] padded dims
+    holds dim j in the low nibble biased +8 (range [1, 15]) and dim j + D/2
+    in the high nibble, two's complement.  Returns ((n, D/2) uint8, (n,)
+    f32 scales); the device stores the transpose."""
+    scales = np.maximum(np.abs(rows_f32).max(axis=1), 1e-12) / 7.0
+    q = np.clip(np.rint(rows_f32 / scales[:, None]), -7, 7).astype(np.int8)
+    d2 = rows_f32.shape[1] // 2
+    lo = (q[:, :d2] + 8).astype(np.uint8)
+    hi = (q[:, d2:] & 15).astype(np.uint8)
+    return lo | (hi << 4), scales.astype(np.float32)
 
 
 def _quantize2(rows_f32: np.ndarray, dim: int) -> tuple[np.ndarray, np.ndarray]:
@@ -325,13 +338,15 @@ def _quantize2(rows_f32: np.ndarray, dim: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 class EmbeddingMatrix:
-    """Mutable device-resident vector store (bf16, f32, int8 or int2 rows).
+    """Mutable device-resident vector store (bf16, f32, int8, int4 or int2
+    rows).
 
     Host state: ``row_of`` (key -> row), ``item_ids`` / ``source_ids``
     (row -> ids), ``groups`` (item -> its chunk keys), the free-row list and
     the host mirror.  Device state: ``(capacity, padded_dim)`` vectors in
     the storage dtype, ``(capacity,)`` int32 source ids and, for int8,
-    ``(capacity,)`` f32 row scales; for int2 the coarse and companion
+    ``(capacity,)`` f32 row scales; for int4 the packed ``(padded_dim / 2,
+    capacity)`` matrix and its scales; for int2 the coarse and companion
     matrices and their scales (module docstring).  All on ``device``
     (required: nothing here picks one).
     """
@@ -386,10 +401,15 @@ class EmbeddingMatrix:
         self._dirty_rows: set[int] = set()
         self._device_vectors: Optional[torch.Tensor] = None
         self._device_source_ids: Optional[torch.Tensor] = None
-        self._device_scales: Optional[torch.Tensor] = None  # int8 and int2 tiers
-        # int2 tier only: the (padded_dim, capacity) int8 companion, its scales
+        self._device_scales: Optional[torch.Tensor] = None  # int8, int4 and int2 tiers
+        # int2 tier only: the (padded_dim, capacity) int8 companion or the
+        # (padded_dim / 2, capacity) packed int4 one, and its scales
         self._device_fine: Optional[torch.Tensor] = None
         self._device_fine_scales: Optional[torch.Tensor] = None
+
+    @property
+    def packed4(self) -> bool:
+        return isinstance(self.dtype, str) and self.dtype == INT4
 
     @property
     def packed2(self) -> bool:
@@ -397,19 +417,26 @@ class EmbeddingMatrix:
 
     @property
     def quantized(self) -> bool:
-        return self.packed2 or self.dtype == torch.int8
+        return self.packed4 or self.packed2 or self.dtype == torch.int8
 
     @property
     def quant_bits(self) -> int:
-        """Bits per stored dim on the sweep path: 2 (coarse-to-fine), 8
-        (int8), 0 (not quantized)."""
-        return 2 if self.packed2 else (8 if self.quantized else 0)
+        """Bits per stored dim on the sweep path: 2 (coarse-to-fine), 4
+        (packed), 8 (int8), 0 (not quantized)."""
+        if self.packed2:
+            return 2
+        return 4 if self.packed4 else (8 if self.quantized else 0)
 
     @property
     def fine_bits(self) -> int:
-        """Int2 tier only: width of the fine companion (always 8 here); 0 for
-        every other tier."""
-        return 8 if self.packed2 else 0
+        """Int2 tier only: width of the fine companion, 8 or 4 (the stored
+        one once staged, else the ``int2_fine_bits`` policy); 0 for every
+        other tier."""
+        if not self.packed2:
+            return 0
+        if self._device_fine is not None:
+            return 8 if self._device_fine.dtype == torch.int8 else 4
+        return int2_fine_bits(self.capacity, self.padded_dim, self.device)
 
     # -- device views -------------------------------------------------------
 
@@ -428,8 +455,8 @@ class EmbeddingMatrix:
                 or self._device_vectors is None
                 or len(self._dirty_rows) * 4 > self.rows
             )
-            if full and self.packed2:
-                self._stage_full_int2()
+            if full and (self.packed2 or self.packed4):
+                self._stage_full_transposed()
                 self._device_source_ids = torch.from_numpy(self.source_ids.copy()).to(self.device)
                 self._mirror.remap()
             elif full:
@@ -448,14 +475,17 @@ class EmbeddingMatrix:
             else:
                 rows = np.fromiter(self._dirty_rows, dtype=np.int64)
                 idx = torch.from_numpy(rows).to(self.device)
-                if self.packed2:  # columns of both transposed matrices
+                if self.packed2 or self.packed4:  # columns of the transposed matrices
                     vals = self._mirror.read_f32(rows)
-                    packed, s2 = _quantize2(vals, self.dim)
-                    fine, sf = _quantize(vals)
-                    for dst, cols in ((self._device_vectors, packed.T), (self._device_fine, fine.T)):
-                        dst.index_copy_(1, idx, torch.from_numpy(np.ascontiguousarray(cols)).to(self.device))
-                    self._device_scales.index_copy_(0, idx, torch.from_numpy(s2).to(self.device))
-                    self._device_fine_scales.index_copy_(0, idx, torch.from_numpy(sf).to(self.device))
+                    if self.packed4:
+                        parts = [(self._device_vectors, self._device_scales, *_quantize4(vals))]
+                    else:
+                        fine = _quantize(vals) if self.fine_bits == 8 else _quantize4(vals)
+                        parts = [(self._device_vectors, self._device_scales, *_quantize2(vals, self.dim)),
+                                 (self._device_fine, self._device_fine_scales, *fine)]
+                    for dst, dst_scales, cols, sc in parts:
+                        dst.index_copy_(1, idx, torch.from_numpy(np.ascontiguousarray(cols.T)).to(self.device))
+                        dst_scales.index_copy_(0, idx, torch.from_numpy(sc).to(self.device))
                 else:
                     vals, sc = self._staged(self._mirror.read_f32(rows))
                     self._device_vectors.index_copy_(0, idx, vals.to(self.device))
@@ -466,29 +496,35 @@ class EmbeddingMatrix:
             self._dirty = False
             self._dirty_rows.clear()
 
-    def _stage_full_int2(self) -> None:
-        """Full upload of the int2 tier: the mirror quantizes, in row chunks,
-        into the transposed coarse matrix and int8 companion (host arrays,
-        then one copy each to the device)."""
-        cap, chunk = self.capacity, self._SYNC_CHUNK_ROWS
-        int2_fine_bits(cap, self.padded_dim, self.device)  # raises where int4 is needed
+    def _stage_full_transposed(self) -> None:
+        """Full upload of the transposed tiers: the mirror quantizes, in row
+        chunks, into the packed int4 matrix (int4 tier) or into the coarse
+        matrix and its companion (int2 tier: int8, or packed int4 with the
+        int4 tier's bytes, as ``int2_fine_bits`` decides now), host arrays
+        then one copy each to the device."""
+        cap, chunk, d = self.capacity, self._SYNC_CHUNK_ROWS, self.padded_dim
         self._device_vectors = self._device_scales = None  # release before allocating anew
         self._device_fine = self._device_fine_scales = None
-        coarse = np.empty((self.padded_dim // 4, cap), dtype=np.uint8)
-        cscales = np.empty((cap,), np.float32)
-        fine = np.empty((self.padded_dim, cap), dtype=np.int8)
-        fscales = np.empty((cap,), np.float32)
+        # (quantizer, packed width, byte type) of the sweep matrix, then of
+        # the int2 tier's companion
+        if self.packed4:
+            layouts = [(_quantize4, d // 2, np.uint8)]
+        else:
+            layouts = [(lambda v: _quantize2(v, self.dim), d // 4, np.uint8),
+                       (_quantize, d, np.int8) if int2_fine_bits(cap, d, self.device) == 8
+                       else (_quantize4, d // 2, np.uint8)]
+        staged = [(np.empty((width, cap), dtype=dt), np.empty((cap,), np.float32)) for _, width, dt in layouts]
         for lo in range(0, cap, chunk):
             hi = min(lo + chunk, cap)
             vals = self._mirror.read_f32(slice(lo, hi))
-            p2, s2 = _quantize2(vals, self.dim)
-            coarse[:, lo:hi], cscales[lo:hi] = p2.T, s2
-            q8, s8 = _quantize(vals)
-            fine[:, lo:hi], fscales[lo:hi] = q8.T, s8
-        self._device_vectors = torch.from_numpy(coarse).to(self.device)
-        self._device_scales = torch.from_numpy(cscales).to(self.device)
-        self._device_fine = torch.from_numpy(fine).to(self.device)
-        self._device_fine_scales = torch.from_numpy(fscales).to(self.device)
+            for (quantize, _, _), (m, sc) in zip(layouts, staged):
+                packed, scales = quantize(vals)
+                m[:, lo:hi], sc[lo:hi] = packed.T, scales
+        (m, sc), *companion = [(torch.from_numpy(m).to(self.device), torch.from_numpy(sc).to(self.device))
+                               for m, sc in staged]
+        self._device_vectors, self._device_scales = m, sc
+        if companion:
+            self._device_fine, self._device_fine_scales = companion[0]
 
     def _staged(self, rows_f32: np.ndarray):
         """Host f32 rows -> (rows in the storage dtype, f32 scales or None)
@@ -500,8 +536,9 @@ class EmbeddingMatrix:
 
     def device_view(self):
         """(vectors, source_ids, scales) device tensors, synced, captured
-        under the lock; scales is None below the int8 tier.  At the int2
-        tier vectors and scales are (coarse, companion) pairs."""
+        under the lock; scales is None below the int8 tier.  At the int4
+        tier vectors is the packed (padded_dim / 2, capacity) matrix; at the
+        int2 tier vectors and scales are (coarse, companion) pairs."""
         with self._lock:
             self.sync()
             if self.packed2:
@@ -525,7 +562,8 @@ class EmbeddingMatrix:
 
     @property
     def tier_name(self) -> str:
-        """``bfloat16``, ``float32``, ``int8`` or ``int2+int8fine``."""
+        """``bfloat16``, ``float32``, ``int8``, ``int4``, ``int2+int8fine``
+        or ``int2+int4fine``."""
         name = str(self.dtype).removeprefix("torch.")
         return f"{name}+int{self.fine_bits}fine" if self.packed2 else name
 
@@ -673,20 +711,22 @@ class EmbeddingMatrix:
 
     def _note_quant_stats(self, vectors: np.ndarray) -> None:
         """Raise the high-water quantization step and row norm with a batch
-        of f32 rows: the step is max|v| / 127 at int8, the row RMS at int2
-        (its grid {-3, -1, 1, 3} * rms / 2 has step rms)."""
+        of f32 rows: the step is max|v| / 127 at int8, max|v| / 7 at int4,
+        the row RMS at int2 (its grid {-3, -1, 1, 3} * rms / 2 has step
+        rms)."""
         if self.packed2:
             step = float(np.sqrt((vectors**2).mean(axis=1)).max())
         else:
-            step = float(np.abs(vectors).max()) / 127.0
+            step = float(np.abs(vectors).max()) / (7.0 if self.packed4 else 127.0)
         self.scale_hw = max(self.scale_hw, step)
         self.norm_hw = max(self.norm_hw, float(np.linalg.norm(vectors, axis=1).max()))
 
     def retier(self, dtype) -> None:
-        """Switch the storage dtype (bfloat16, float32, int8, INT2); the next
-        sync restages every row from the host mirror.  The int4 tier raises
-        NotImplementedError.  A fresh int2 tier trusts its coarse pass until
-        the searcher's self-audit says otherwise."""
+        """Switch the storage dtype (bfloat16, float32, int8, INT4, INT2);
+        the next sync restages every row from the host mirror, and the
+        quantization stats are recomputed from it for the new tier's step.
+        A fresh int2 tier trusts its coarse pass until the searcher's
+        self-audit says otherwise."""
         _check_stored(dtype)
         with self._lock:
             if dtype == self.dtype:

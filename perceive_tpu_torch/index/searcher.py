@@ -1,7 +1,8 @@
 """Searcher: exact top-k query engine over the device matrix (bf16, f32,
-int8 and int2 tiers).
+int8, int4 and int2 tiers).
 
-Port of perceive_tpu/index/searcher.py's bf16, f32, int8 and int2 paths:
+Port of perceive_tpu/index/searcher.py's bf16, f32, int8, int4 and int2
+paths:
 
     build()           SELECT every live embedding -> device matrix
     rebuild_source()  drop + reload one source's rows
@@ -10,12 +11,14 @@ Port of perceive_tpu/index/searcher.py's bf16, f32, int8 and int2 paths:
     retrieve()        join ids back to SQLite rows
 
 Every sweep goes through ``ops.topk`` and ``ops.int2``: the CUDA kernels
-for a matrix on a CUDA device (K1/K2 at bf16 and f32, K3/K4 at int8, by
-batch width; at int2 K5 -> K6 -> the fine phase for a single query, K7/K8
-over the int8 companion for batches and escalations), their plain versions
-for one on the CPU.  The bf16 and f32 tiers score exactly as stored, so
-their sweep is the answer.  The quantized tiers' scores are approximate:
-the sweep over-fetches RERANK_FACTOR times the candidates, ``_rerank``
+for a matrix on a CUDA device (K1/K2 at bf16 and f32, K3/K4 at int8, K9's
+flat and slab kernels at int4, by batch width; at int2 K5 -> K6 -> the fine
+phase for a single query, K7/K8 over the int8 companion, or K9 over the
+int4 one, for batches and escalations), their plain versions for one on
+the CPU.  The bf16 and f32 tiers score exactly as stored, so their sweep
+is the answer.  The quantized tiers' scores are approximate: the sweep
+over-fetches RERANK_FACTOR times the candidates (RERANK_FACTOR_INT4 where
+the candidates are ranked by 4-bit scores), ``_rerank``
 rescores them in f32 against the host mirror, and ``_scan`` escalates to a
 4x deeper sweep while the k-th exact score does not clear the fetched
 floor (at int2 also the coarse floor) plus a 3-sigma quantization-noise
@@ -58,10 +61,13 @@ MAX_SOURCE_FILTER = topk.MAX_FILTER
 # rerank; the escalation loop in _scan re-fetches 4x deeper whenever the
 # fetched floor cannot prove the top-k
 RERANK_FACTOR = 4
+# 4-bit scores are noisier: the int4 tier, and the int2 tier with the int4
+# companion, start deeper (the JAX package's factor)
+RERANK_FACTOR_INT4 = 8
 
 # Widest query batch the int2 coarse pass serves; wider batches sweep the
-# int8 companion (the coarse pass costs a (Q, N) score buffer and a select
-# per query).  The JAX package's crossover, measured on its TPU.
+# companion (the coarse pass costs a (Q, N) score buffer and a select per
+# query).  The JAX package's crossover, measured on its TPU.
 _INT2_MAX_Q = 1
 
 
@@ -269,10 +275,8 @@ class Searcher:
         return n
 
     def _maybe_retier(self) -> None:
-        """Follow the auto tier rule as the corpus grows (bf16, then int8,
-        then int2).  A corpus past the int2 tier raises (the int4 tier is not
-        ported) rather than being served in another tier.  A new tier is
-        audited afresh."""
+        """Follow the auto tier rule as the corpus grows or shrinks (bf16,
+        int8, int2, int4).  A new tier is audited afresh."""
         if not self.auto_retier:
             return
         from .matrix import auto_matrix_dtype
@@ -540,13 +544,16 @@ class Searcher:
         """The tier's sweep on device tensors (from ``device_view``) ->
         ((Q, kb) scores, rows, (Q,) coarse floor or None).  At int2,
         ``use_coarse`` runs the coarse-to-fine scan, else the sweep of the
-        int8 companion."""
+        companion, by its width (int8: K7/K8, packed int4: K9)."""
         if self.matrix.packed2:
             (packed2, fine), (scales2, fscales) = vectors, scales
             if use_coarse:
                 return int2_ops.scan_int2_coarse_fine(packed2, scales2, fine, fscales, source_ids, q, allowed,
                                                       kb, n_sweep=n_sweep, fetch=self.matrix.coarse_fetch)
-            return (*topk.scan_topk_int8t(fine, fscales, source_ids, q, allowed, kb, n_sweep), None)
+            scan = topk.scan_topk_int8t if fine.dtype == torch.int8 else topk.scan_topk_int4
+            return (*scan(fine, fscales, source_ids, q, allowed, kb, n_sweep), None)
+        if self.matrix.packed4:
+            return (*topk.scan_topk_int4(vectors, scales, source_ids, q, allowed, kb, n_sweep), None)
         if scales is not None:
             return (*topk.scan_topk_int8(vectors, scales, source_ids, q, allowed, kb, n_sweep), None)
         return (*topk.scan_topk(vectors, source_ids, q, allowed, kb, n_sweep), None)
@@ -577,11 +584,18 @@ class Searcher:
 
     def _first_fetch(self, k: int) -> int:
         """Candidate depth of the first sweep for a user-facing k: times
-        RERANK_FACTOR at a quantized tier, doubled while any document is
-        chunk-embedded (dedupe needs extra).  The one formula shared by
-        _scan and search_fused."""
-        want = RERANK_FACTOR * k if self.matrix.quantized else k
-        return 2 * want if self.matrix.multi_chunk_groups > 0 else want
+        RERANK_FACTOR at a quantized tier whose candidates are ranked by
+        8-bit scores (int8, int2 with the int8 companion), RERANK_FACTOR_INT4
+        where they are ranked by 4-bit or coarser ones (int4, int2 with the
+        int4 companion); doubled while any document is chunk-embedded
+        (dedupe needs extra).  The one formula shared by _scan and
+        search_fused."""
+        m = self.matrix
+        want = k
+        if m.quantized:
+            bits = 8 if m.packed2 and m.fine_bits == 8 else m.quant_bits
+            want = (RERANK_FACTOR_INT4 if bits <= 4 else RERANK_FACTOR) * k
+        return 2 * want if m.multi_chunk_groups > 0 else want
 
     def _pad_queries(self, q: np.ndarray) -> np.ndarray:
         """Zero-pad queries to the matrix's lane-aligned width."""

@@ -109,6 +109,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.perceive_scan_topk_int8t.restype = i
     lib.perceive_scan_topk_int8t_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_topk_int8t_slab.restype = i
+    lib.perceive_scan_topk_int4.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_topk_int4.restype = i
+    lib.perceive_scan_topk_int4_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_topk_int4_slab.restype = i
     lib.perceive_int2_scores.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p, p]
     lib.perceive_int2_scores.restype = i
     lib.perceive_select_topk.argtypes = [p, i, i, i, p, p, p, p, p]

@@ -1,5 +1,5 @@
 """The int2 tier's coarse-to-fine scan: 2-bit coarse scores, an exact top-kc
-select, and a fine rescore against the int8 companion.
+select, and a fine rescore against the int8 or packed-int4 companion.
 
 Port of perceive_tpu/ops/topk.py's int2 section (``scan_int2_coarse_fine``
 with the exact select, ``_int2_fine_phase``).  Two hand-written CUDA
@@ -23,7 +23,8 @@ CPU results are this module's).  Its floor is the kc-th coarse score: every
 row outside the candidates scores at most that.  The candidates go to the
 fine phase in row order, so equal fine scores fall to the lower row.  The
 fine phase is glue, as in JAX: a gather of the kc candidate columns of the
-(D, N) int8 companion and an int32-exact dot (``topk.int8_dots``).
+(D, N) int8 companion, or of the (D/2, N) packed int4 one then unpacked
+(``topk.unpack_int4``), and an int32-exact dot (``topk.int8_dots``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from .topk import (
     int8_dots,
     mask_scores,
     quantize_queries,
+    unpack_int4,
 )
 
 # Coarse candidate depth (the JAX package's INT2_COARSE_FETCH).
@@ -183,11 +185,15 @@ def select_topk(scores: torch.Tensor, kc: int):
 
 def fine_phase(cvals, idx, fine, fscales, qi8, qscale, k: int):
     """Rescore the (Q, kc) candidates ``idx`` (rows, coarse scores
-    ``cvals``; -inf = no candidate) against the (D, N) int8 companion and
-    keep the best k: ((Q, k) fine scores best first, (Q, k) int32 rows,
-    (-inf, -1) past the matches).  Equal fine scores keep candidate order."""
+    ``cvals``; -inf = no candidate) against the companion, the (D, N) int8
+    matrix or the (D/2, N) uint8 packed int4 one, and keep the best k:
+    ((Q, k) fine scores best first, (Q, k) int32 rows, (-inf, -1) past the
+    matches).  Equal fine scores keep candidate order."""
     nq, depth = idx.shape
-    cols = fine.index_select(1, idx.reshape(-1).long()).reshape(fine.shape[0], nq, depth)
+    cols = fine.index_select(1, idx.reshape(-1).long())
+    if fine.dtype == torch.uint8:
+        cols = unpack_int4(cols)
+    cols = cols.reshape(-1, nq, depth)
     dots = torch.stack([int8_dots(qi8[i : i + 1], cols[:, i])[0] for i in range(nq)])
     fsc = fscales[idx.long()]
     scores = (dots * fsc * qscale).masked_fill(~torch.isfinite(cvals), float("-inf"))
@@ -215,7 +221,8 @@ def _coarse_fine(score_fn, select_fn, packed2, scales2, fine, fscales, source_id
 def scan_int2_coarse_fine(packed2, scales2, fine, fscales, source_ids, q, allowed, k: int, *,
                           k_coarse: int = 0, n_sweep: int = 0, fetch: int = 0):
     """Coarse-to-fine int2 scan of f32 queries (quantized here):
-    K5 -> K6 -> the fine phase.  Returns ((Q, k) fine scores best first,
+    K5 -> K6 -> the fine phase, against ``fine``, the int8 or the packed
+    int4 companion (``fine_phase``).  Returns ((Q, k) fine scores best first,
     (Q, k) int32 rows, (Q,) coarse floor: the k_coarse-th coarse score, an
     upper bound on the coarse score of every row outside the candidates;
     -inf when the whole sweep was fetched).  The searcher reranks the rows

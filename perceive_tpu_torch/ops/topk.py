@@ -1,7 +1,7 @@
-"""Exact scan with top-k over the embedding matrix, at the bf16/f32 and int8
-tiers and over the int2 tier's int8 companion.
+"""Exact scan with top-k over the embedding matrix, at the bf16/f32, int8
+and packed-int4 tiers and over the int2 tier's int8 or int4 companion.
 
-Port of perceive_tpu/ops/topk.py's scans.  Six hand-written CUDA kernels,
+Port of perceive_tpu/ops/topk.py's scans.  Eight hand-written CUDA kernels,
 each beside its plain PyTorch version and a launch counter:
 
     K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_topk.cu
@@ -10,13 +10,15 @@ each beside its plain PyTorch version and a launch counter:
     K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab.cu
     K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_topk.cu
     K8  scan_topk_int8t_slab   int8 (D, N) transposed, Q >= 256  csrc/scan_slab.cu
+    K9  scan_topk_int4_flat    packed int4 (D/2, N), Q < 256     csrc/scan_topk.cu
+    K9  scan_topk_int4_slab    packed int4 (D/2, N), Q >= 256    csrc/scan_slab.cu
 
 The int2 tier's coarse pass (K5, K6) is ops/int2.py.
 
 A kernel wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises: nothing falls back.  The entry
-points ``scan_topk``, ``scan_topk_int8`` and ``scan_topk_int8t`` route as
-the JAX package does:
+points ``scan_topk``, ``scan_topk_int8``, ``scan_topk_int8t`` and
+``scan_topk_int4`` route as the JAX package does:
 batches split into sweeps of at most MAX_QUERY_SLAB queries, a sweep of at
 least 2 * QUERY_SLAB queries is zero-padded to a multiple of QUERY_SLAB
 (``_slab_pad``) and takes the slab kernel, every other sweep the flat one.
@@ -27,7 +29,8 @@ Semantics, shared by all:
   * int8: queries quantize per query (``quantize_queries``); scores are
     ``f32(int32 dot) * row scale * query scale``, multiplied in that order,
     so kernel and plain version agree bit for bit; the transposed companion
-    scores the same way (``scores_int8t``);
+    scores the same way (``scores_int8t``), and so does the packed int4
+    matrix (``scores_int4``; layout at ``unpack_int4``);
   * rows whose source id is negative (tombstones, unallocated tail) or not
     in ``allowed`` are excluded; ``allowed[0] == ALLOW_ALL`` disables the
     source filter;
@@ -52,6 +55,10 @@ MAX_QUERY_SLAB = 2048
 # workspace budget per launch (the kernels keep up to min(k, 512)
 # candidates per 512-row block and query); query chunks shrink to fit
 _WORKSPACE_BYTES = 1 << 30
+# K9's: the int4 tier holds past 24M rows, where a query's candidates
+# take 25 MB at k = 64 (50 MB at k = 128), so 1 GiB would hold fewer than
+# one slab block of 64 queries; 4 GiB keeps whole blocks up to k = 128
+_WORKSPACE_BYTES_INT4 = 4 << 30
 # the plain versions' (Q, N) temporaries are bounded by this many bytes
 _PLAIN_BYTES = 1 << 30
 # the plain int8 version sums in f32: exact while every partial sum stays
@@ -65,17 +72,22 @@ LAUNCHES_INT8 = 0  # K3
 LAUNCHES_INT8_SLAB = 0  # K4
 LAUNCHES_INT8T = 0  # K7
 LAUNCHES_INT8T_SLAB = 0  # K8
+LAUNCHES_INT4 = 0  # K9, flat
+LAUNCHES_INT4_SLAB = 0  # K9, slab
 
 
 def launch_counts() -> dict:
     return {"scan_topk": LAUNCHES, "scan_slab": LAUNCHES_SLAB,
             "scan_int8": LAUNCHES_INT8, "scan_int8_slab": LAUNCHES_INT8_SLAB,
-            "scan_int8t": LAUNCHES_INT8T, "scan_int8t_slab": LAUNCHES_INT8T_SLAB}
+            "scan_int8t": LAUNCHES_INT8T, "scan_int8t_slab": LAUNCHES_INT8T_SLAB,
+            "scan_int4": LAUNCHES_INT4, "scan_int4_slab": LAUNCHES_INT4_SLAB}
 
 
 def reset_launch_counts() -> None:
     global LAUNCHES, LAUNCHES_SLAB, LAUNCHES_INT8, LAUNCHES_INT8_SLAB, LAUNCHES_INT8T, LAUNCHES_INT8T_SLAB
+    global LAUNCHES_INT4, LAUNCHES_INT4_SLAB
     LAUNCHES = LAUNCHES_SLAB = LAUNCHES_INT8 = LAUNCHES_INT8_SLAB = LAUNCHES_INT8T = LAUNCHES_INT8T_SLAB = 0
+    LAUNCHES_INT4 = LAUNCHES_INT4_SLAB = 0
 
 
 def _sweep_n(n: int, n_sweep: int) -> int:
@@ -151,15 +163,34 @@ def scores_int8t(m8t: torch.Tensor, scales: torch.Tensor, qi8: torch.Tensor, qsc
     return int8_dots(qi8, m8t) * scales[None, :] * qscale
 
 
-def _order_keys(scores: torch.Tensor, row0: int) -> torch.Tensor:
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(D/2, N) uint8 -> (D, N) int8 (the JAX ``unpack_int4_xla``).  The
+    packed matrix is stored transposed: byte [r, n] holds dim r of row n in
+    the low nibble, biased +8 (``(p & 15) - 8``), and dim r + D/2 in the high
+    nibble, two's complement.  Every byte decodes, a low nibble of 0 to -8."""
+    p = packed.to(torch.int32)
+    hb = p >> 4
+    return torch.cat([(p & 15) - 8, torch.where(hb >= 8, hb - 16, hb)], dim=0).to(torch.int8)
+
+
+def scores_int4(packed, scales, qi8, qscale) -> torch.Tensor:
+    """(Q, N) f32 scores of int8 queries against the packed (D/2, N) int4
+    matrix (the JAX ``xla_scores_int4``): f32(int32 dot) * row scale *
+    query scale."""
+    return int8_dots(qi8, unpack_int4(packed)) * scales[None, :] * qscale
+
+
+def _order_keys(scores: torch.Tensor, row0: int, rows: torch.Tensor | None = None) -> torch.Tensor:
     """int64 keys that order like (score, -row): the kernels' 64-bit key
     (order-preserving f32 bits above the complement of the row), shifted to
     fit a signed integer.  Unique, so a top-k of keys is exact and equal
-    scores order by the lower row."""
+    scores order by the lower row.  Rows are row0, row0 + 1, ... unless
+    ``rows`` (same shape as ``scores``, below 2**31 - 1) gives them."""
     bits = (scores + 0.0).view(torch.int32).to(torch.int64)  # -0 -> +0
     order = torch.where(bits < 0, ~bits, bits + (1 << 31))  # [0, 2**32), monotone
-    rows = torch.arange(row0, row0 + scores.shape[1], device=scores.device, dtype=torch.int64)
-    return order * (1 << 31) + ((1 << 31) - 1 - rows)
+    if rows is None:
+        rows = torch.arange(row0, row0 + scores.shape[1], device=scores.device, dtype=torch.int64)
+    return order * (1 << 31) + ((1 << 31) - 1 - rows.to(torch.int64))
 
 
 def _select_topk(scores: torch.Tensor, k: int):
@@ -189,6 +220,17 @@ def _plain_in_chunks(score_fn, nq: int, n: int, k: int, device):
         hi = min(nq, lo + step)
         vals[lo:hi], rows[lo:hi] = _select_topk(score_fn(lo, hi), k)
     return vals, rows
+
+
+def _merge_topk(vals: torch.Tensor, rows: torch.Tensor, k: int):
+    """Best-first top k of (Q, M) candidates (score, row), rows unique per
+    query; (-inf, -1) slots rank last and come out as (-inf, -1)."""
+    fin = torch.isfinite(vals)
+    keys = _order_keys(vals, 0, torch.where(fin, rows.to(torch.int64), (1 << 31) - 2))
+    pos = torch.topk(keys, k, dim=1, largest=True, sorted=True).indices
+    v = torch.gather(vals, 1, pos)
+    r = torch.where(torch.isfinite(v), torch.gather(rows, 1, pos), -1)
+    return v, r.to(torch.int32)
 
 
 def scan_topk_plain(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
@@ -223,15 +265,38 @@ def scan_topk_int8t_plain(m8t, scales, source_ids, qi8, qscale, allowed, k: int,
         qi8.shape[0], n, k, m8t.device)
 
 
+def scan_topk_int4_plain(packed, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """Plain PyTorch version of K9 (flat and slab): ``scan_topk_int8_plain``
+    over the packed (D/2, N) int4 matrix.  Row chunks of the sweep unpack
+    one at a time (unpacked to f32, a 25M x 384 matrix would take 38.7 GB),
+    each is selected, and the chunks' top k merge by the same keys."""
+    n = _sweep_n(packed.shape[1], n_sweep)
+    d = 2 * packed.shape[0]
+    step = max(4096, _PLAIN_BYTES // (24 * d))  # the unpack's int32 temporaries
+    allowed = allowed.to(source_ids.device)
+    vals = rows = None
+    for lo in range(0, max(n, 1), step):
+        hi = min(n, lo + step)
+        m = unpack_int4(packed[:, lo:hi]).float()
+        s, src = scales[lo:hi], source_ids[lo:hi]
+        v, r = _plain_in_chunks(
+            lambda a, b: mask_scores(int8_dots(qi8[a:b], m) * s[None, :] * qscale[a:b], src, allowed),
+            qi8.shape[0], hi - lo, k, packed.device)
+        r = torch.where(r >= 0, r + lo, r)
+        if vals is None:
+            vals, rows = v, r
+        else:
+            vals, rows = _merge_topk(torch.cat([vals, v], 1), torch.cat([rows, r], 1), k)
+    return vals, rows
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 
-def _check(matrix, source_ids, q, allowed, k: int, dtypes) -> None:
-    if matrix.dtype not in dtypes:
-        raise TypeError(f"the matrix must be one of {dtypes}, got {matrix.dtype}")
-    if matrix.dim() != 2 or q.dim() != 2 or q.shape[1] != matrix.shape[1]:
-        raise ValueError(f"shapes: matrix {tuple(matrix.shape)}, q {tuple(q.shape)}")
-    if source_ids.shape != (matrix.shape[0],) or source_ids.dtype != torch.int32:
+def _check_args(n: int, d: int, source_ids, q, allowed, k: int) -> None:
+    if q.dim() != 2 or q.shape[1] != d:
+        raise ValueError(f"queries must be (Q, {d}), got {tuple(q.shape)}")
+    if source_ids.shape != (n,) or source_ids.dtype != torch.int32:
         raise ValueError("source_ids must be (N,) int32")
     if allowed.dim() != 1 or not 1 <= allowed.shape[0] <= MAX_FILTER or allowed.dtype != torch.int32:
         raise ValueError(f"allowed must be (F,) int32 with 1 <= F <= {MAX_FILTER}")
@@ -239,21 +304,36 @@ def _check(matrix, source_ids, q, allowed, k: int, dtypes) -> None:
         raise ValueError(f"k must be >= 1, got {k}")
 
 
-def _check_int8t(m8t, scales, source_ids, q, allowed, k: int) -> None:
-    """``_check`` for the transposed (D, N) int8 matrix; the capacity N is
-    a multiple of 4 (the kernels read 4 rows a word)."""
-    if m8t.dtype != torch.int8 or m8t.dim() != 2 or m8t.shape[1] % 4:
-        raise ValueError(f"the companion must be (D, N) int8 with N a multiple of 4, got {tuple(m8t.shape)} {m8t.dtype}")
-    _check(m8t.T, source_ids, q, allowed, k, (torch.int8,))
-    if scales.shape != (m8t.shape[1],) or scales.dtype != torch.float32:
+def _check(matrix, source_ids, q, allowed, k: int, dtypes) -> None:
+    if matrix.dtype not in dtypes:
+        raise TypeError(f"the matrix must be one of {dtypes}, got {matrix.dtype}")
+    if matrix.dim() != 2:
+        raise ValueError(f"the matrix must be (N, D), got {tuple(matrix.shape)}")
+    _check_args(matrix.shape[0], matrix.shape[1], source_ids, q, allowed, k)
+
+
+def _check_cols(mat, scales, source_ids, q, allowed, k: int, dtype, dims_per_row: int) -> None:
+    """``_check`` for the column-major matrices: the int2 tier's (D, N)
+    int8 companion (``dims_per_row`` 1) and the packed (D/2, N) int4 matrix
+    (2); the capacity N is a multiple of 4 (the kernels read 4 rows a
+    word)."""
+    if mat.dtype != dtype or mat.dim() != 2 or mat.shape[1] % 4:
+        raise ValueError(f"the matrix must be (D/{dims_per_row}, N) {dtype} with N a multiple of 4, got "
+                         f"{tuple(mat.shape)} {mat.dtype}")
+    _check_args(mat.shape[1], dims_per_row * mat.shape[0], source_ids, q, allowed, k)
+    if scales.shape != (mat.shape[1],) or scales.dtype != torch.float32:
         raise ValueError("scales must be (N,) float32")
+
+
+def _check_qi8(qi8, qscale) -> None:
+    if qi8.dtype != torch.int8 or qscale.shape != (qi8.shape[0], 1) or qscale.dtype != torch.float32:
+        raise ValueError("queries must be (Q, D) int8 with (Q, 1) float32 scales")
 
 
 def _check_int8(matrix, scales, qi8, qscale) -> None:
     if scales.shape != (matrix.shape[0],) or scales.dtype != torch.float32:
         raise ValueError("scales must be (N,) float32")
-    if qi8.dtype != torch.int8 or qscale.shape != (qi8.shape[0], 1) or qscale.dtype != torch.float32:
-        raise ValueError("queries must be (Q, D) int8 with (Q, 1) float32 scales")
+    _check_qi8(qi8, qscale)
 
 
 def _arg(t):
@@ -261,9 +341,11 @@ def _arg(t):
 
 
 def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_sweep: int,
-            lead: tuple, per_query: tuple, q_align: int, row_align: int):
+            lead: tuple, per_query: tuple, q_align: int, row_align: int,
+            budget: int = _WORKSPACE_BYTES):
     """Shared body of the CUDA wrappers: check placement and shapes, size
-    the workspace, and call the C entry ``entry`` once per query chunk as
+    the workspace within ``budget`` bytes, and call the C entry ``entry``
+    once per query chunk as
     ``entry(*lead, source_ids, q, *per_query, allowed, ...)``; ``lead`` and
     ``per_query`` hold tensors, ints or None (a null pointer), and the
     tensors of ``per_query`` are cut into the same query chunks as ``q``.
@@ -296,7 +378,7 @@ def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_swe
     per_query = tuple(t.contiguous() if isinstance(t, torch.Tensor) else t for t in per_query)
     allowed = allowed.contiguous()
     per_q_bytes = lib.perceive_scan_topk_workspace(1, ns, k)
-    chunk = max(1, min(MAX_QUERY_SLAB, _WORKSPACE_BYTES // per_q_bytes))
+    chunk = max(1, min(MAX_QUERY_SLAB, budget // per_q_bytes))
     if chunk >= q_align:
         chunk -= chunk % q_align
     ws = torch.empty(min(chunk, nq) * per_q_bytes, dtype=torch.uint8, device=dev)
@@ -375,21 +457,27 @@ def scan_topk_int8_slab(matrix, scales, source_ids, qi8, qscale, allowed, k: int
     return vals, rows
 
 
-def _check_int8t_queries(qi8, qscale) -> None:
-    if qi8.dtype != torch.int8 or qscale.shape != (qi8.shape[0], 1) or qscale.dtype != torch.float32:
-        raise ValueError("queries must be (Q, D) int8 with (Q, 1) float32 scales")
+def _cols_scan(what: str, entry: str, int4: bool, mat, scales, source_ids, qi8, qscale, allowed, k: int,
+               n_sweep: int, q_align: int) -> tuple:
+    """Shared body of the K7, K8 and K9 wrappers over a column-major matrix
+    (int8 (D, N), or packed int4 (D/2, N) where ``int4``): check, then the
+    plain version for a CPU matrix, else the kernel.  Returns (vals, rows,
+    launches)."""
+    _check_cols(mat, scales, source_ids, qi8, allowed, k, torch.uint8 if int4 else torch.int8, 2 if int4 else 1)
+    _check_qi8(qi8, qscale)
+    if _device_of(mat, what) == "cpu":
+        plain = scan_topk_int4_plain if int4 else scan_topk_int8t_plain
+        return (*plain(mat, scales, source_ids, qi8, qscale, allowed, k, n_sweep), 0)
+    return _launch(entry, what, mat, source_ids, qi8, allowed, k, n_sweep, (mat, mat.shape[1], scales),
+                   (qscale,), q_align, 32 if int4 else 16, _WORKSPACE_BYTES_INT4 if int4 else _WORKSPACE_BYTES)
 
 
 def scan_topk_int8t_flat(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
     """K7: exact top-k of int8 scores over the transposed (D, N) companion
     of the int2 tier, any Q."""
     global LAUNCHES_INT8T
-    _check_int8t(m8t, scales, source_ids, qi8, allowed, k)
-    _check_int8t_queries(qi8, qscale)
-    if _device_of(m8t, "scan_topk_int8t_flat") == "cpu":
-        return scan_topk_int8t_plain(m8t, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
-    vals, rows, n = _launch("perceive_scan_topk_int8t", "scan_topk_int8t_flat", m8t, source_ids,
-                            qi8, allowed, k, n_sweep, (m8t, m8t.shape[1], scales), (qscale,), 1, 16)
+    vals, rows, n = _cols_scan("scan_topk_int8t_flat", "perceive_scan_topk_int8t", False, m8t, scales, source_ids,
+                               qi8, qscale, allowed, k, n_sweep, 1)
     LAUNCHES_INT8T += n
     return vals, rows
 
@@ -398,14 +486,29 @@ def scan_topk_int8t_slab(m8t, scales, source_ids, qi8, qscale, allowed, k: int, 
     """K8: K7 for batches; K4's tensor-core kernel, staging the transposed
     tiles."""
     global LAUNCHES_INT8T_SLAB
-    _check_int8t(m8t, scales, source_ids, qi8, allowed, k)
-    _check_int8t_queries(qi8, qscale)
-    if _device_of(m8t, "scan_topk_int8t_slab") == "cpu":
-        return scan_topk_int8t_plain(m8t, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
-    vals, rows, n = _launch("perceive_scan_topk_int8t_slab", "scan_topk_int8t_slab", m8t, source_ids,
-                            qi8, allowed, k, n_sweep, (m8t, m8t.shape[1], scales), (qscale,),
-                            SLAB_QUERIES, 128)
+    vals, rows, n = _cols_scan("scan_topk_int8t_slab", "perceive_scan_topk_int8t_slab", False, m8t, scales,
+                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES)
     LAUNCHES_INT8T_SLAB += n
+    return vals, rows
+
+
+def scan_topk_int4_flat(packed, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """K9, flat: exact top-k of int4 scores (see ``scores_int4``) over the
+    packed (D/2, N) matrix, any Q."""
+    global LAUNCHES_INT4
+    vals, rows, n = _cols_scan("scan_topk_int4_flat", "perceive_scan_topk_int4", True, packed, scales, source_ids,
+                               qi8, qscale, allowed, k, n_sweep, 1)
+    LAUNCHES_INT4 += n
+    return vals, rows
+
+
+def scan_topk_int4_slab(packed, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
+    """K9, slab: the flat kernel's function for batches; K4's tensor-core
+    kernel, decoding the packed tiles while staging them."""
+    global LAUNCHES_INT4_SLAB
+    vals, rows, n = _cols_scan("scan_topk_int4_slab", "perceive_scan_topk_int4_slab", True, packed, scales,
+                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES)
+    LAUNCHES_INT4_SLAB += n
     return vals, rows
 
 
@@ -450,28 +553,41 @@ def scan_topk(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
     return _gather(q.shape[0], k, matrix.device, parts)
 
 
+def _scan_quantized(flat, slab, matrix, scales, source_ids, q, allowed, k: int, n_sweep: int):
+    """Routing shared by the quantized entry points: each sweep's queries
+    quantize (on their device), then take ``slab`` or ``flat``."""
+    parts = []
+    for s, part in _sweeps(q):
+        qi8, qscale = quantize_queries(part)
+        fn = slab if _is_slab(part.shape[0]) else flat
+        parts.append((s, *fn(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)))
+    return _gather(q.shape[0], k, matrix.device, parts)
+
+
 def scan_topk_int8(matrix, scales, source_ids, q, allowed, k: int, n_sweep: int = 0):
     """Top-k of int8 scores of f32 queries (quantized here, on the
     queries' device) against an (N, D) int8 matrix with (N,) f32 row
     scales.  Approximate scores: the searcher reranks the candidates in
     f32.  Routes each sweep to K4 or K3."""
     _check(matrix, source_ids, q, allowed, k, (torch.int8,))
-    parts = []
-    for s, part in _sweeps(q):
-        qi8, qscale = quantize_queries(part)
-        fn = scan_topk_int8_slab if _is_slab(part.shape[0]) else scan_topk_int8_flat
-        parts.append((s, *fn(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)))
-    return _gather(q.shape[0], k, matrix.device, parts)
+    return _scan_quantized(scan_topk_int8_flat, scan_topk_int8_slab, matrix, scales, source_ids, q, allowed,
+                           k, n_sweep)
 
 
 def scan_topk_int8t(m8t, scales, source_ids, q, allowed, k: int, n_sweep: int = 0):
     """``scan_topk_int8`` over the int2 tier's transposed (D, N) int8
     companion (the JAX ``scan_topk_pallas_int8t``).  Routes each sweep to
     K8 or K7."""
-    _check_int8t(m8t, scales, source_ids, q, allowed, k)
-    parts = []
-    for s, part in _sweeps(q):
-        qi8, qscale = quantize_queries(part)
-        fn = scan_topk_int8t_slab if _is_slab(part.shape[0]) else scan_topk_int8t_flat
-        parts.append((s, *fn(m8t, scales, source_ids, qi8, qscale, allowed, k, n_sweep)))
-    return _gather(q.shape[0], k, m8t.device, parts)
+    _check_cols(m8t, scales, source_ids, q, allowed, k, torch.int8, 1)
+    return _scan_quantized(scan_topk_int8t_flat, scan_topk_int8t_slab, m8t, scales, source_ids, q, allowed,
+                           k, n_sweep)
+
+
+def scan_topk_int4(packed, scales, source_ids, q, allowed, k: int, n_sweep: int = 0):
+    """``scan_topk_int8`` over the packed (D/2, N) int4 matrix: the int4
+    tier, and the int2 tier's int4 companion (the JAX
+    ``scan_topk_pallas_int4``).  Routes each sweep to K9's slab or flat
+    kernel."""
+    _check_cols(packed, scales, source_ids, q, allowed, k, torch.uint8, 2)
+    return _scan_quantized(scan_topk_int4_flat, scan_topk_int4_slab, packed, scales, source_ids, q, allowed,
+                           k, n_sweep)

@@ -9,9 +9,9 @@ need not have.)
 
 The kernels build from perceive_tpu_torch/csrc on the first launch.
 Tolerances: bf16/f32 scan scores 1e-4 (f32 sums in another order); the int8
-scans (K3, K4, and K7, K8 over the transposed companion) and the int2
-coarse scores (K5) none: scores and rows equal the plain version's bit for
-bit; the exact select (K6) returns the plain version's set, order and floor
+scans (K3, K4, and K7, K8 over the transposed companion), the packed-int4
+scans (K9, flat and slab) and the int2 coarse scores (K5) none: scores and
+rows equal the plain version's bit for bit; the exact select (K6) returns the plain version's set, order and floor
 exactly; attention 1e-2 in bf16 against the f32 math on the same bf16
 inputs, 1e-5 in f32.
 """
@@ -246,6 +246,91 @@ def test_int2_pipeline_matches_plain(dev, nq, k, kc):
     packed, s2, fine, s8, src, _, _ = _int2_inputs(dev, 65536, nq, kc)
     q = torch.randn((nq, 384), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     args = (packed, s2, fine, s8, src, q, _allowed(dev), k)
+    got = int2.scan_int2_coarse_fine(*args, k_coarse=kc)
+    want = int2.scan_int2_coarse_fine_plain(*args, k_coarse=kc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _int4_inputs(dev, n, nq, seed, d=384, dup=False):
+    """A packed (d/2, n) int4 matrix of random bytes (every nibble value,
+    a low nibble of 0 included), row scales, source ids with 20%
+    tombstones, int8 queries."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    packed = torch.randint(0, 256, (d // 2, n), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+    scales = torch.rand((n,), generator=g, device=dev) + 0.5
+    if dup:  # every column 8 times over: dense exact ties
+        packed = packed[:, : n // 8].repeat(1, 8).contiguous()
+        scales = scales[: n // 8].repeat(8)
+    src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((n,), generator=g, device=dev) < 0.2] = -1
+    qi8, qscale = topk.quantize_queries(torch.randn((nq, d), generator=g, device=dev))
+    return packed, scales, src, qi8, qscale
+
+
+@pytest.mark.parametrize("kernel,nq", [("flat", 1), ("flat", 8), ("flat", 32), ("slab", 256), ("slab", 512)])
+@pytest.mark.parametrize("k,filt,n_sweep", [(16, None, 0), (128, [1], 20480), (600, [0, 2], 0), (8192, None, 0)])
+def test_scan_topk_int4_bit_exact(dev, kernel, nq, k, filt, n_sweep):
+    packed, scales, src, qi8, qscale = _int4_inputs(dev, 32768, nq, nq + k)
+    assert bool(((packed & 15) == 0).any())
+    fn = topk.scan_topk_int4_flat if kernel == "flat" else topk.scan_topk_int4_slab
+    counter = "LAUNCHES_INT4" if kernel == "flat" else "LAUNCHES_INT4_SLAB"
+    before = getattr(topk, counter)
+    vk, rk = fn(packed, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    vp, rp = topk.scan_topk_int4_plain(packed, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    torch.cuda.synchronize()
+    assert getattr(topk, counter) == before + 1
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("kernel", ["flat", "slab"])
+def test_scan_topk_int4_ties_lower_row_first(dev, kernel):
+    nq = 3 if kernel == "flat" else 256
+    packed, scales, src, qi8, qscale = _int4_inputs(dev, 8192, nq, 9, dup=True)
+    fn = topk.scan_topk_int4_flat if kernel == "flat" else topk.scan_topk_int4_slab
+    vk, rk = fn(packed, scales, src, qi8, qscale, _allowed(dev), 64)
+    vp, rp = topk.scan_topk_int4_plain(packed, scales, src, qi8, qscale, _allowed(dev), 64)
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    same = vk[:, 1:] == vk[:, :-1]
+    assert bool(same.any()) and bool((rk[:, 1:][same] > rk[:, :-1][same]).all())
+
+
+@pytest.mark.parametrize("kernel", ["flat", "slab"])
+@pytest.mark.parametrize("case", ["all_tombstoned", "filter_allows_nothing"])
+def test_scan_topk_int4_matches_nothing(dev, kernel, case):
+    """Every row masked: both kernels return (-inf, -1) in every slot, as
+    the plain version does."""
+    nq = 5 if kernel == "flat" else 256
+    packed, scales, src, qi8, qscale = _int4_inputs(dev, 8192, nq, 4)
+    if case == "all_tombstoned":
+        src = torch.full_like(src, -1)
+    allowed = _allowed(dev, [7] if case == "filter_allows_nothing" else None)
+    fn = topk.scan_topk_int4_flat if kernel == "flat" else topk.scan_topk_int4_slab
+    vk, rk = fn(packed, scales, src, qi8, qscale, allowed, 32)
+    vp, rp = topk.scan_topk_int4_plain(packed, scales, src, qi8, qscale, allowed, 32)
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    assert bool(torch.isinf(vk).all()) and bool((rk == -1).all())
+
+
+def test_scan_topk_int4_routes_and_checks(dev):
+    packed, scales, src, _, _ = _int4_inputs(dev, 4096, 1, 5)
+    q = torch.randn((300, 384), device=dev)
+    before = (topk.LAUNCHES_INT4, topk.LAUNCHES_INT4_SLAB)
+    topk.scan_topk_int4(packed, scales, src, q[:8], _allowed(dev), 16)
+    topk.scan_topk_int4(packed, scales, src, q, _allowed(dev), 16)  # padded to 384: the slab kernel
+    assert (topk.LAUNCHES_INT4, topk.LAUNCHES_INT4_SLAB) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError):  # queries must be twice the packed width
+        topk.scan_topk_int4(packed, scales, src, q[:, :192], _allowed(dev), 16)
+    with pytest.raises(ValueError):
+        topk.scan_topk_int4(packed.to(torch.int8), scales, src, q, _allowed(dev), 16)
+
+
+@pytest.mark.parametrize("nq,k,kc", [(1, 128, 4096), (8, 64, 1024)])
+def test_int2_pipeline_int4_companion_matches_plain(dev, nq, k, kc):
+    packed2, s2, _, _, src, _, _ = _int2_inputs(dev, 65536, nq, kc)
+    packed4, s4, _, _, _ = _int4_inputs(dev, 65536, 1, kc + 1)
+    q = torch.randn((nq, 384), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    args = (packed2, s2, packed4, s4, src, q, _allowed(dev), k)
     got = int2.scan_int2_coarse_fine(*args, k_coarse=kc)
     want = int2.scan_int2_coarse_fine_plain(*args, k_coarse=kc)
     for a, b in zip(got, want):

@@ -243,18 +243,19 @@ def test_int2_matrix_device_bytes_match_jax(monkeypatch):
 
 
 def test_int2_fine_bits_policy(monkeypatch):
-    """The companion is int8 while coarse + int8 fit the budget; where the
-    policy asks for int4 (K9, not ported) the port raises."""
+    """The companion is int8 while coarse + int8 fit the budget, else the
+    packed int4 one, which stages (``int2+int4fine``); the pin decides
+    first."""
     monkeypatch.delenv("PERCEIVE_TPU_INT2_FINE", raising=False)
     monkeypatch.setenv("PERCEIVE_TPU_INT2_FINE_INT8_GB", "1")
     cpu = torch.device("cpu")
     assert int2_fine_bits(4096, 384, cpu) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        int2_fine_bits(4_000_000, 384, cpu)
+    assert int2_fine_bits(4_000_000, 384, cpu) == 4
     monkeypatch.delenv("PERCEIVE_TPU_INT2_FINE_INT8_GB")
     assert int2_fine_bits(20_000_000, 384, cpu) == 8  # 9.6 GB of the 10 GB default
     monkeypatch.setenv("PERCEIVE_TPU_INT2_FINE", "int4")
     m = EmbeddingMatrix(64, dtype=INT2, device="cpu")
     m.upsert([1], [0], np.ones((1, 64), np.float32))
-    with pytest.raises(NotImplementedError, match="K9"):
-        m.sync()
+    (coarse, fine), _, (_, fscales) = m.device_view()
+    assert fine.dtype == torch.uint8 and fine.shape == (64, m.capacity) and fscales.shape == (m.capacity,)
+    assert m.fine_bits == 4 and m.tier_name == "int2+int4fine"

@@ -18,7 +18,7 @@ from perceive_tpu.index.matrix import INT2 as JAX_INT2
 from perceive_tpu.index.searcher import Searcher as JaxSearcher
 from perceive_tpu_torch.cli.state import storage_tier
 from perceive_tpu_torch.index import BatchingSearchExecutor
-from perceive_tpu_torch.index.matrix import INT2
+from perceive_tpu_torch.index.matrix import INT2, INT4
 from perceive_tpu_torch.index.searcher import RERANK_FACTOR, Searcher
 from perceive_tpu_torch.ops import int2, topk
 
@@ -124,8 +124,7 @@ def test_storage_tier_picks_int2():
     for n in (4_000_001, 24_000_000):
         assert storage_tier("auto", n, 384) == INT2
     assert storage_tier("auto", 2_000_001, 768) == INT2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        storage_tier("auto", 24_000_001, 384)
+    assert storage_tier("auto", 24_000_001, 384) == INT4  # past the int2 tier: packed int4
 
 
 def test_retier_into_int2_matches_jax(corpus, monkeypatch):

@@ -1,7 +1,8 @@
 """The port's EmbeddingMatrix host state against the JAX package's, step by
 step through one upsert / remove / re-upsert / source-removal sequence
 (exact equality: the bookkeeping is integer logic), plus its device
-tensors against the host mirror, at the bf16, f32 and int8 tiers."""
+tensors against the host mirror, at the bf16, f32 and int8 tiers (and
+the int4 tier's construction and retiers)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -93,17 +94,28 @@ def test_device_tensors_follow_host(dtype):
 
 
 def test_quantized_tiers_raise():
-    """int8 and int2 are stored; the int4 tier raises, at construction and
-    on a retier."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmbeddingMatrix(DIM, dtype="int4", device="cpu")
+    """int8, int4 and int2 are stored: an int4 matrix builds and stages its
+    packed (padded_dim / 2, capacity) bytes, a matrix retiers into and out
+    of int4; an unknown tier raises, at construction and on a retier."""
+    m4 = EmbeddingMatrix(DIM, dtype="int4", device="cpu")
+    m4.upsert([chunk_key(1)], [0], np.ones((1, DIM), np.float32))
+    packed, _, scales = m4.device_view()
+    assert m4.packed4 and m4.quant_bits == 4 and m4.tier_name == "int4"
+    assert packed.dtype == torch.uint8 and packed.shape == (m4.padded_dim // 2, m4.capacity)
+    assert scales.shape == (m4.capacity,)
+    with pytest.raises(ValueError, match="unknown storage tier"):
+        EmbeddingMatrix(DIM, dtype="fp8", device="cpu")
     m = EmbeddingMatrix(DIM, device="cpu")
     m.retier(torch.int8)
     assert m.quantized and m.quant_bits == 8
     m.retier("int2")
     assert m.quantized and m.quant_bits == 2 and m.packed2
-    with pytest.raises(NotImplementedError):
-        m.retier("int4")
+    m.retier("int4")
+    assert m.quantized and m.quant_bits == 4 and m.packed4 and not m.packed2
+    m.retier(torch.bfloat16)
+    assert not m.quantized and m.quant_bits == 0
+    with pytest.raises(ValueError):
+        m.retier("int3")
     assert EmbeddingMatrix(DIM, dtype="int2", device="cpu").tier_name == "int2+int8fine"
 
 
