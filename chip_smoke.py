@@ -26,24 +26,33 @@ Phases (any failure exits non-zero before the final line):
      hits held against an exact f32 top-10 over the host mirror;
   9. the int8 batch path, as phase 7;
  10. K5 (int2 coarse scores), K6 (exact top-kc select), K7 and K8 (int8
-     scans over the transposed companion) against their plain versions, bit
+     scans over the transposed companion) and K10 (coarse scores kept per
+     tile lane bin: the tiletop select) against their plain versions, bit
      for bit, at the int2 slice's shape (4,194,304 x 384);
- 11. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
+ 11. K10 against its plain version, bit for bit, near the int2 tier's
+     upper end (22.5M live rows of 25,165,824 x 384, generated on the card);
+ 12. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
      AppState whose auto rule picks the int2 tier (coarse pass + int8
      companion), its self-audit's verdict, the same 16 queries through the
      CLI, the composed device pipeline held against the composed plain one
      for every query, hits against an exact f32 top-10
      (``served_recall_at_10``), the fine phase's gather and dot timed;
- 12. the int2 batch path, as phase 7;
- 13. K9 (packed-int4 scan + top-k, flat and slab) against its plain version,
+ 13. the int2 batch path, as phase 7;
+ 14. the int2 slice's state with its coarse select pinned to tiletop (K10),
+     window and threshold in turn: 16 CLI queries each, the device pipeline
+     held against the plain one for every query, ``served_recall_at_10``
+     (gated at 0.99 for window and threshold, reported for tiletop, whose
+     lane bins drop rows), tiletop's candidate recall beside the exact
+     select's;
+ 15. K9 (packed-int4 scan + top-k, flat and slab) against its plain version,
      bit for bit, at the int4 tier's own size (25,165,824 x 384, past the
      int2 tier's 24M, generated on the card), with K7 and K8 timed on the
      same rows unpacked to int8 beside it;
- 14. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
+ 16. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
      slice's corpus, the same 16 queries through the CLI (flat K9), hits
      against the exact f32 top-10 (``served_recall_at_10``);
- 15. the int4 batch path, as phase 12 (slab K9);
- 16. the int2 tier with the int4 companion: that state retiered to int2
+ 17. the int4 batch path, as phase 13 (slab K9);
+ 18. the int2 tier with the int4 companion: that state retiered to int2
      under PERCEIVE_TPU_INT2_FINE=int4, its self-audit's verdict (redrawn
      sample by sample, then a second audit on the audit's next seeded
      sample), the 16 CLI queries (K5, K6 and flat K9), the composed device pipeline held against
@@ -84,6 +93,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "scan_int8t_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:835"),
     "scan_int4": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:519"),
     "scan_int4_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:618"),
+    "int2_tiletop": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1347"),
 }
 # the H100 SXM data sheet: device memory rate and dense tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -95,6 +105,8 @@ INT8_KB = 128  # the int8 slice's: k=10, x4 over-fetch, doubled for chunk dedupe
 INT4_KB = 256  # the int4 slices': k=10, x8 over-fetch, doubled for chunk dedupe
 INT2_KCS = (1024, 4096)  # coarse depths: the audit's shallowest, and the default
 INT4_KERNEL_ROWS = 25_165_824  # the int4 tier's own size: past 24M rows
+INT2_TOP_ROWS, INT2_TOP_HWM = 25_165_824, 22_500_000  # K10 near the int2 tier's upper end (24M rows)
+SELECTS = ("tiletop", "window", "threshold")  # the int2 selects pinned on the int2 slice's state
 SCAN_TOL = 1e-4  # bf16 scans: f32 sums of bf16 products in another order
 
 
@@ -566,10 +578,84 @@ def check_int2_kernels(card: str) -> dict:
         lib = "not timed (its (Q, N) int32 product would take 34 GB)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         log(f"{kid} time Q={nq} k={k} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    times["K10"] = check_tiletop(card, packed, s2, src, ns, allowed, queries)
+    k56 = times[("K5", 1)]["ms"] + times[("K6", 1, 4096)]["ms"]
+    log(f"K10 at Q=1 kc=4096 n_sweep={ns}: {times['K10']['ms']:.4f} ms against K5 + K6 (scores written, "
+        f"then the exact select) {k56:.4f} ms at the same shape  [{card}]")
     del packed, fine, mv, scores, tied
     torch.cuda.empty_cache()
     return {"K5": {"max_abs_err": 0.0, **times[("K5", 1)]}, "K6": {"max_abs_err": 0.0, **times[("K6", 1, 4096)]},
-            "K7": {"max_abs_err": 0.0, **times[("K7", 1)]}, "K8": {"max_abs_err": 0.0, **times[("K8", 512)]}}
+            "K7": {"max_abs_err": 0.0, **times[("K7", 1)]}, "K8": {"max_abs_err": 0.0, **times[("K8", 512)]},
+            "K10": {"max_abs_err": 0.0, **times["K10"]}}
+
+
+def check_tiletop(card: str, packed, s2, src, ns: int, allowed: dict, queries, kc: int = 4096,
+                  time_plain: bool = True) -> dict:
+    """K10 against its plain version, vals and rows bit for bit, at Q = 1
+    and Q = 8 under both filters over the sweep prefix ``ns`` (the rows
+    carry 5% tombstones); then timed at Q = 1 beside its plain version and
+    its bound.  No single PyTorch call unpacks 2-bit crumbs: library_ms is
+    null, and K5 + K6 at the same shape stand beside it."""
+    import torch
+
+    from perceive_tpu_torch.ops import int2
+
+    for nq in (1, 8):
+        qi8, qs = queries(nq)
+        tile = int2._pick_tile_int2(ns, nq, packed.shape[0])
+        for fname, al in allowed.items():
+            got = int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc)
+            want = int2.int2_tiletop_plain(packed, s2, src, qi8, qs, al, ns, kc=kc)
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            fills = int(torch.isneginf(got[0]).sum())
+            log(f"K10 Q={nq:<4d} n={packed.shape[1]} n_sweep={ns} tile={tile} width={got[0].shape[1]} "
+                f"filter={fname:<4s} -inf places {fills}: vals and rows {'bit-exact ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"K10 disagrees with its plain version (n={packed.shape[1]}, Q={nq}, {fname})")
+    qi8, qs = queries(1)
+    al = allowed["all"]
+    width = int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc)[0].shape[1]
+    t = {"ms": cuda_ms(lambda: int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc)),
+         "plain_ms": (cuda_ms(lambda: int2.int2_tiletop_plain(packed, s2, src, qi8, qs, al, ns, kc=kc), reps=3)
+                      if time_plain else math.nan),
+         "library_ms": None}
+    # packed bytes, scales and ids of the sweep read once, the query once,
+    # the (Q, T * M) (score, row) pairs written once; 2 * D int8 operations
+    # a row
+    t["bound_ms"], t["bound_by"] = bound(ns * (DIM // 4 + 8) + DIM + width * 8, 2.0 * ns * DIM, "int8")
+    log(f"K10 time Q=1 kc={kc} n_sweep={ns} width={width}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+        f"library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    return t
+
+
+def check_tiletop_top(card: str, dev) -> None:
+    """K10 at the int2 tier's upper end: random crumbs and scales for
+    INT2_TOP_ROWS rows generated on the card, source ids as corpus_rows
+    gives them (the sweep prefix of INT2_TOP_HWM live rows)."""
+    import torch
+
+    from perceive_tpu_torch.index.matrix import sweep_rows_for
+    from perceive_tpu_torch.ops import topk
+
+    n = INT2_TOP_ROWS
+    g = torch.Generator(device=dev).manual_seed(10)
+    packed = torch.empty((DIM // 4, n), dtype=torch.uint8, device=dev)
+    for lo in range(0, n, 1 << 22):
+        hi = min(n, lo + (1 << 22))
+        packed[:, lo:hi] = torch.randint(0, 256, (DIM // 4, hi - lo), generator=g, device=dev,
+                                         dtype=torch.int32).to(torch.uint8)
+    s2 = torch.rand((n,), generator=g, device=dev) * 0.015 + 0.005
+    src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((n,), generator=g, device=dev) < 0.05] = -1
+    src[INT2_TOP_HWM:] = -1
+    ns = sweep_rows_for(INT2_TOP_HWM, n)
+
+    def queries(nq):
+        return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
+
+    check_tiletop(card, packed, s2, src, ns, filters(dev), queries, time_plain=False)
+    del packed, s2, src
+    torch.cuda.empty_cache()
 
 
 def int4_matrix(g, dev, n: int):
@@ -915,10 +1001,11 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
             "vecs_random": vecs_random}
 
 
-def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str):
+def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str, gate_self: bool = True):
     """16 queries through the CLI after 2 warm-ups; checks that every query
     is answered and launched ``kernel``, the self-queries rank their
-    document first, and snippets come from their documents."""
+    document first (only reported where not ``gate_self``), and snippets
+    come from their documents."""
     from perceive_tpu_torch.cli import main as cli_main
 
     db_path, docs, queries, self_docs = ctx["db_path"], ctx["docs"], ctx["queries"], ctx["self_docs"]
@@ -954,7 +1041,7 @@ def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str):
     firsts = sum(results[i][0]["id"] == self_docs[i] + 1 for i in range(N_SELF_QUERIES))
     log(f"{tier} queries answered: {sum(bool(r) for r in results)}/16; self-queries ranked first: "
         f"{firsts}/{N_SELF_QUERIES}")
-    if firsts != N_SELF_QUERIES:
+    if firsts != N_SELF_QUERIES and gate_self:
         raise SystemExit("a stored document's own text did not rank it first")
     p50, p95 = (float(np.percentile(walls, p)) for p in (50, 95))
     log(f"{tier} query wall time (CLI search -n 10 --json, incl. highlight) p50 {p50:.2f} ms  "
@@ -1132,9 +1219,10 @@ def bf16_slice(card: str, ctx: dict, dev) -> dict:
     return state, {"launches": launches, "p50": p50, "p95": p95}
 
 
-def exact_top10(searcher, qvs, dev) -> list:
+def exact_top10(searcher, qvs, dev, with_rows: bool = False):
     """The exact f32 top-10 (chunk hits deduped) of each of the (Q, dim)
-    queries over the host mirror, in one pass over it."""
+    queries over the host mirror, in one pass over it; ``with_rows`` also
+    returns the (Q, 10) rows of highest exact score (chunks not deduped)."""
     import torch
 
     m = searcher.matrix
@@ -1146,7 +1234,8 @@ def exact_top10(searcher, qvs, dev) -> list:
         rows = torch.from_numpy(m.host_vectors_for(slice(lo, hi))).to(dev)
         scores[:, lo:hi] = qvs[:, : m.dim] @ rows.T
     vals, rows = torch.topk(scores.masked_fill(~live, float("-inf")), 256, dim=1)
-    return [searcher._decode_hits(v, r, 10) for v, r in zip(vals.cpu().numpy(), rows.cpu().numpy())]
+    hits = [searcher._decode_hits(v, r, 10) for v, r in zip(vals.cpu().numpy(), rows.cpu().numpy())]
+    return (hits, rows[:, :10].cpu().numpy()) if with_rows else hits
 
 
 def int8_slice(card: str, ctx: dict, dev) -> tuple:
@@ -1198,7 +1287,7 @@ def int8_slice(card: str, ctx: dict, dev) -> tuple:
 
 
 def int2_slice(card: str, ctx: dict, dev) -> tuple:
-    """Phase 11: fill SQLite to INT2_ROWS rows, a fresh AppState (auto tier
+    """Phase 12: fill SQLite to INT2_ROWS rows, a fresh AppState (auto tier
     -> int2 with its int8 companion) and its self-audit, 16 CLI queries
     (K5, K6 and K7 must all run), the composed device pipeline against the
     plain one for every query, hits against the exact f32 top-10."""
@@ -1244,16 +1333,19 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
             raise SystemExit(f"the int2 CLI path launched no {name} kernel (audit {searcher.coarse_audit})")
 
     t = check_int2_pipeline(card, searcher, ctx, dev, "int2")
-    ctx["exact"] = exact_top10(searcher, torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]]), dev)
+    ctx["exact"], ctx["exact_rows"] = exact_top10(
+        searcher, torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]]), dev, with_rows=True)
     recall = served_recall("int2", results, ctx["exact"])
     return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations,
                    "recall": recall, "pipeline_ms": t}
 
 
-def check_int2_pipeline(card: str, searcher, ctx: dict, dev, tier: str) -> dict:
-    """The composed device pipeline (K5 -> K6 -> fine phase over the
-    companion the int2 tier holds) equals the composed plain one for every
-    query, vals, rows and floor bit for bit; then its parts timed at Q=1."""
+def check_int2_pipeline(card: str, searcher, ctx: dict, dev, tier: str, select: str = "exact") -> dict:
+    """The composed device pipeline under ``select`` (exact: K5 -> K6 ->
+    fine phase over the companion the int2 tier holds; tiletop: K10 -> K6
+    -> fine phase; window, threshold: K5 -> glue) equals the composed plain
+    one for every query, vals, rows and floor bit for bit; then its parts
+    timed at Q=1."""
     import torch
 
     from perceive_tpu_torch.index.searcher import _k_bucket
@@ -1265,34 +1357,134 @@ def check_int2_pipeline(card: str, searcher, ctx: dict, dev, tier: str) -> dict:
     allowed = torch.from_numpy(searcher._allowed_arrays(None)[0]).to(dev)
     qvs = torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]])
     qp = torch.nn.functional.pad(qvs, (0, m.padded_dim - m.dim))
-    kw = dict(n_sweep=m.sweep_rows, fetch=m.coarse_fetch)
+    kw = dict(n_sweep=m.sweep_rows, fetch=m.coarse_fetch, select=select)
     for qi in range(len(ctx["queries"])):
         args = (packed2, scales2, fine, fscales, src, qp[qi : qi + 1], allowed, kb)
         got, want = int2.scan_int2_coarse_fine(*args, **kw), int2.scan_int2_coarse_fine_plain(*args, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise SystemExit(f"{tier} query {qi}: the device pipeline differs from the plain one")
     kc = int2.int2_coarse_depth(kb, m.sweep_rows, m.coarse_fetch)
-    log(f"{tier} device pipeline (K5 -> K6 -> fine phase over the {tuple(fine.shape)} {fine.dtype} companion, "
+    route = {"exact": "K5 -> K6 -> fine phase", "tiletop": "K10 -> K6 -> fine phase"}.get(select, f"K5 -> {select} glue")
+    log(f"{tier} device pipeline ({route} over the {tuple(fine.shape)} {fine.dtype} companion, "
         f"kb={kb}, kc={kc}) equals the plain pipeline for 16/16 queries: vals, rows and floor bit for bit")
 
     # where the pipeline's time goes, at Q = 1
     qi8, qscale = topk.quantize_queries(qp[:1])
-    coarse = int2.int2_scores(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows)
-    cvals, idx, _ = int2.select_topk(coarse, kc)
-    t = {"pipeline": cuda_ms(lambda: int2.scan_int2_coarse_fine(*args[:5], qp[:1], allowed, kb, **kw)),
-         "K5": cuda_ms(lambda: int2.int2_scores(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows)),
-         "K6": cuda_ms(lambda: int2.select_topk(coarse, kc)),
-         "gather": cuda_ms(lambda: fine.index_select(1, idx.reshape(-1).long())),
-         "fine phase": cuda_ms(lambda: int2.fine_phase(cvals, idx, fine, fscales, qi8, qscale, kb))}
-    log(f"{tier} pipeline at Q=1 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-        + f"  (the fine phase: gather of {kc} columns + int32-exact dot + select)  [{card}]")
+    t = {"pipeline": cuda_ms(lambda: int2.scan_int2_coarse_fine(*args[:5], qp[:1], allowed, kb, **kw))}
+    if select == "tiletop":
+        tvals, _ = int2.int2_tiletop(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows, kc=kc)
+        t["K10"] = cuda_ms(lambda: int2.int2_tiletop(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows,
+                                                     kc=kc))
+        t[f"K6 over {tvals.shape[1]}"] = cuda_ms(lambda: int2.select_topk(tvals, kc))
+    else:
+        t["K5"] = cuda_ms(lambda: int2.int2_scores(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows))
+    if select == "exact":
+        coarse = int2.int2_scores(packed2, scales2, src, qi8, qscale, allowed, m.sweep_rows)
+        cvals, idx, _ = int2.select_topk(coarse, kc)
+        t["K6"] = cuda_ms(lambda: int2.select_topk(coarse, kc))
+        t["gather"] = cuda_ms(lambda: fine.index_select(1, idx.reshape(-1).long()))
+        t["fine phase"] = cuda_ms(lambda: int2.fine_phase(cvals, idx, fine, fscales, qi8, qscale, kb))
+    log(f"{tier} pipeline at Q=1 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + f"  [{card}]")
     return t
 
 
-def served_recall(tier: str, results, exact) -> float:
+def doc_rows(searcher) -> None:
+    """Where the document windows sit in the matrix (SQLite's scan order
+    places them; the build query has no ORDER BY), and how they fall into
+    the tiletop select's tiles and lane bins at Q = 1."""
+    from perceive_tpu_torch.index.matrix import CHUNK_STRIDE
+    from perceive_tpu_torch.ops import int2
+
+    m = searcher.matrix
+    keys = m.item_ids[: m.rows]  # chunk keys: item id * CHUNK_STRIDE + chunk
+    rows = np.flatnonzero((keys >= CHUNK_STRIDE) & (keys < (N_DOCS + 1) * CHUNK_STRIDE))
+    tile = int2._pick_tile_int2(m.sweep_rows, 1, m.padded_dim // 4)
+    tiles = np.unique(rows // tile)
+    per_bin = np.bincount((rows % tile) % 128 + 128 * (rows // tile - tiles[0]), minlength=128 * len(tiles))
+    log(f"document windows: {len(rows)} rows, rows {rows.min()}-{rows.max()}; tiletop tile {tile} rows at Q=1: "
+        f"in tiles {tiles.tolist()[:8]}{' ...' if len(tiles) > 8 else ''}, {per_bin.max()} rows in the fullest of "
+        f"their lane bins, {np.median(per_bin[per_bin > 0]):.0f} in the median one")
+
+
+def candidate_recall(searcher, ctx: dict, dev, select: str) -> float:
+    """The share of each query's 10 rows of highest exact f32 score that
+    ``select`` keeps among its kc coarse candidates, over the 16 queries
+    (the exact select's share is the yardstick)."""
+    import torch
+
+    from perceive_tpu_torch.index.searcher import _k_bucket
+    from perceive_tpu_torch.ops import int2, topk
+
+    m = searcher.matrix
+    (packed2, _), src, (scales2, _) = m.device_view()
+    kb = _k_bucket(searcher._first_fetch(10), m.sweep_rows)
+    kc = int2.int2_coarse_depth(kb, m.sweep_rows, m.coarse_fetch)
+    allowed = torch.from_numpy(searcher._allowed_arrays(None)[0]).to(dev)
+    hit = 0
+    for qi, q in enumerate(ctx["queries"]):
+        qp = torch.nn.functional.pad(query_vector(ctx, q, dev), (0, m.padded_dim - m.dim))
+        qi8, qs = topk.quantize_queries(qp)
+        if select == "tiletop":
+            tvals, trows = int2.int2_tiletop(packed2, scales2, src, qi8, qs, allowed, m.sweep_rows, kc=kc)
+            cand = trows[0, int2.select_topk(tvals, kc)[1][0].long()]
+        else:
+            cand = int2.select_topk(int2.int2_scores(packed2, scales2, src, qi8, qs, allowed, m.sweep_rows), kc)[1][0]
+        hit += len(set(cand.tolist()) & set(ctx["exact_rows"][qi].tolist()))
+    return hit / ctx["exact_rows"].size
+
+
+def int2_selects(card: str, state, ctx: dict, dev) -> dict:
+    """Phase 14: the int2 slice's state with its coarse select pinned to
+    tiletop, window and threshold in turn (with a mutation_gen bump under
+    the matrix lock, as the self-audit sets it), 16 CLI queries each (K10
+    must launch on the tiletop route, K5 on the others), each query's device
+    pipeline held against the plain one bit for bit, and hits against the
+    exact f32 top-10.  Window and threshold keep the exact select's
+    candidates and more, so they gate served_recall_at_10 at 0.99; tiletop
+    loses rows crowded out of its lane bins, so it gates on equality with its
+    plain pipeline and reports its recall.  Back to "exact" at the end."""
+    searcher = state.searcher
+    m = searcher.matrix
+    if not m.coarse_trusted:
+        raise SystemExit("the int2 coarse pass is demoted: no select would serve")
+    doc_rows(searcher)
+    out = {}
+    try:
+        for select in SELECTS:
+            with m._lock:
+                m.coarse_select = select
+                m.mutation_gen += 1
+            tier = f"int2 {select}"
+            kernel = "int2_tiletop" if select == "tiletop" else "int2_scores"
+            reset_launch_counts()
+            esc0 = searcher.escalations
+            results, p50, p95 = cli_queries(card, state, ctx, tier, kernel, gate_self=select != "tiletop")
+            counts = launch_counts()
+            launches = {name: counts[name] for name in ("int2_scores", "int2_tiletop", "select_topk", "scan_int8t")}
+            escalations = searcher.escalations - esc0
+            log(f"{tier} CLI path: escalations {escalations}; launches {launches}")
+            if launches[kernel] == 0 or (select == "tiletop" and launches["int2_scores"]):
+                raise SystemExit(f"the {tier} CLI path did not run on {kernel} alone")
+            recall = served_recall(tier, results, ctx["exact"], gate=select != "tiletop")
+            t = check_int2_pipeline(card, searcher, ctx, dev, tier, select)
+            out[select] = {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations,
+                           "recall": recall, "pipeline_ms": t}
+            if select == "tiletop":
+                got, want = candidate_recall(searcher, ctx, dev, "tiletop"), candidate_recall(searcher, ctx, dev, "exact")
+                log(f"int2 candidate recall of the exact top-10 rows among the kc coarse candidates: tiletop "
+                    f"{got:.6f}, exact {want:.6f}")
+                out[select]["candidate_recall"] = got
+    finally:
+        with m._lock:
+            m.coarse_select = "exact"
+            m.mutation_gen += 1
+    return out
+
+
+def served_recall(tier: str, results, exact, gate: bool = True) -> float:
     """The share of the exact f32 top-10 ids the CLI served, over the 16
-    queries; fails under 0.99 or where a served score of one of them is off
-    by more than 1e-5."""
+    queries; fails (where ``gate``) under 0.99 or where a served score of
+    one of them is off by more than 1e-5."""
     hit = total = 0
     worst = 0.0
     for qi, want in enumerate(exact):
@@ -1303,13 +1495,13 @@ def served_recall(tier: str, results, exact) -> float:
     recall = hit / max(total, 1)
     log(f"{tier} served_recall_at_10 {recall:.6f} ({hit}/{total}) against the exact f32 top-10; "
         f"max score error {worst:.3g}")
-    if recall < 0.99 or worst > 1e-5:
+    if gate and (recall < 0.99 or worst > 1e-5):
         raise SystemExit(f"{tier} hits miss the exact f32 top-10 (recall {recall}, score error {worst})")
     return recall
 
 
 def int4_slice(card: str, ctx: dict, dev) -> tuple:
-    """Phase 14: a fresh AppState pinned to the int4 tier on the int2
+    """Phase 16: a fresh AppState pinned to the int4 tier on the int2
     slice's corpus, 16 CLI queries (flat K9 must run), hits against the
     exact f32 top-10."""
     from perceive_tpu_torch.cli import AppState
@@ -1432,7 +1624,7 @@ def write_audit_case(searcher, path: str, row: int, overlap: float, ref, served,
 
 
 def int2_int4_slice(card: str, state, ctx: dict, dev, audit_case: str = "") -> None:
-    """Phase 16: the int4 state retiered to int2 under
+    """Phase 18: the int4 state retiered to int2 under
     PERCEIVE_TPU_INT2_FINE=int4 (the companion takes the int4 tier's bytes;
     only the host mirror is re-read) and its self-audit; 16 CLI queries on
     the route the verdict gives (trusted: K5, K6 and flat K9 must run;
@@ -1523,8 +1715,10 @@ def main(argv=None) -> int:
         int8 = check_int8_scans(card)
     with phase("K11 against its plain version"):
         k11 = check_k11(card)
-    with phase("K5, K6, K7, K8 against their plain version"):
+    with phase("K5, K6, K7, K8, K10 against their plain version"):
         int2k = check_int2_kernels(card)
+    with phase(f"K10 against its plain version at {INT2_TOP_ROWS:,} x {DIM}"):
+        check_tiletop_top(card, dev)
     with phase("K9 (flat, slab) against its plain version at 25,165,824 x 384"):
         int4k = check_int4_kernels(card)
 
@@ -1561,6 +1755,9 @@ def main(argv=None) -> int:
             # one cold batch of each mix: the host rerank bounds them (PERF.md)
             int2_batch = batch_path(card, state, ctx, "int2", "scan_int8t_slab", "scan_int8t", reps=1)
             launches["scan_int8t_slab"] = int2_batch["launches"]["scan_int8t_slab"]
+        with phase("int2 pinned selects: tiletop, window, threshold, 16 CLI queries each"):
+            selects = int2_selects(card, state, ctx, dev)
+            launches["int2_tiletop"] = selects["tiletop"]["launches"]["int2_tiletop"]
         state.close()
         del state
         gc.collect()
@@ -1584,7 +1781,7 @@ def main(argv=None) -> int:
     measured = {"scan_topk": bf16["K1"], "scan_slab": bf16["K2"], "scan_int8": int8["K3"],
                 "scan_int8_slab": int8["K4"], "attention": k11, "int2_scores": int2k["K5"],
                 "select_topk": int2k["K6"], "scan_int8t": int2k["K7"], "scan_int8t_slab": int2k["K8"],
-                "scan_int4": int4k["flat"], "scan_int4_slab": int4k["slab"]}
+                "scan_int4": int4k["flat"], "scan_int4_slab": int4k["slab"], "int2_tiletop": int2k["K10"]}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": launches[name], "max_abs_err": measured[name]["max_abs_err"],

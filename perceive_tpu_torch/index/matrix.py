@@ -385,8 +385,10 @@ class EmbeddingMatrix:
         # int2 tier only, set by the searcher's corpus self-audit
         # (Searcher.audit_coarse): whether the coarse pass may serve queries
         # (False routes every query to the companion sweep), the coarse
-        # select (always "exact": the port has no approximate select), and
-        # the adaptive coarse depth (0 = ops.int2.INT2_COARSE_FETCH)
+        # select (ops.int2.SELECTS: "exact", the audit's verdict, or
+        # "tiletop", "window" or "threshold" pinned by a caller, with a
+        # mutation_gen bump under the lock, until the next audit resets
+        # it), and the adaptive coarse depth (0 = ops.int2.INT2_COARSE_FETCH)
         self.coarse_trusted = True
         self.coarse_select = "exact"
         self.coarse_fetch = 0

@@ -13,9 +13,10 @@ paths:
 Every sweep goes through ``ops.topk`` and ``ops.int2``: the CUDA kernels
 for a matrix on a CUDA device (K1/K2 at bf16 and f32, K3/K4 at int8, K9's
 flat and slab kernels at int4, by batch width; at int2 K5 -> K6 -> the fine
-phase for a single query, K7/K8 over the int8 companion, or K9 over the
-int4 one, for batches and escalations), their plain versions for one on
-the CPU.  The bf16 and f32 tiers score exactly as stored, so their sweep
+phase for a single query (K10 -> K6 under the tiletop select, K5 -> glue
+under window and threshold: ``matrix.coarse_select``), K7/K8 over the int8
+companion, or K9 over the int4 one, for batches and escalations), their
+plain versions for one on the CPU.  The bf16 and f32 tiers score exactly as stored, so their sweep
 is the answer.  The quantized tiers' scores are approximate: the sweep
 over-fetches RERANK_FACTOR times the candidates (RERANK_FACTOR_INT4 where
 the candidates are ranked by 4-bit scores), ``_rerank``
@@ -413,16 +414,20 @@ class Searcher:
                     sweep at 4x the first fetch, reranked in f32; and the
                     coarse-score rank of each reference row (K5);
           phase 2a  the adaptive coarse depth from those ranks;
+          phase 2b  the coarse select back to "exact": the JAX audit sets
+                    "approx" or "exact" here from its approximate select's
+                    bin-collision risk, and both run the exact select in
+                    the port, so a pinned select (tiletop, window,
+                    threshold) does not outlive an audit, as in JAX;
           phase 3   the mean and the worst top-k overlap of the production
                     coarse pipeline with the references; a flunk at a
                     shallowed depth is re-measured at the default depth.
 
         Sets ``matrix.coarse_trusted`` (False routes every query to the
-        companion) and ``matrix.coarse_fetch``.  The JAX audit's phase 2b
-        (its approximate select's bin-collision risk) and its approx ->
-        exact retry have no counterpart: the port's select is exact.
-        Returns the mean overlap, or None when not applicable or disabled
-        (PERCEIVE_TPU_COARSE_AUDIT=0)."""
+        companion), ``matrix.coarse_fetch`` and ``matrix.coarse_select``.
+        The JAX audit's approx -> exact retry has no counterpart: the
+        port's "approx" is the exact select.  Returns the mean overlap, or
+        None when not applicable or disabled (PERCEIVE_TPU_COARSE_AUDIT=0)."""
         m = self.matrix
         if not m.packed2 or len(m) == 0:
             return None
@@ -481,15 +486,15 @@ class Searcher:
                     rows_b[j, : len(refs[i])] = refs[i]
                 counts = self._audit_rank_counts(qb, rows_b)
                 rank_maxes += [float(np.max(counts[j][: len(refs[i])])) for j, i in enumerate(batch)]
-        # phase 2a: the adaptive depth
+        # phase 2a: the adaptive depth; phase 2b: the select
         fetch = self._pick_coarse_fetch(kb, rank_maxes)
         with m._lock:
-            changed = fetch != m.coarse_fetch
+            changed = fetch != m.coarse_fetch or m.coarse_select != "exact"
             if changed:
-                m.coarse_fetch = fetch
+                m.coarse_fetch, m.coarse_select = fetch, "exact"
                 m.mutation_gen += 1
         if changed:
-            print(f"int2 coarse self-audit: fetch={fetch or 'default'} (reference coarse rank max "
+            print(f"int2 coarse self-audit: select=exact fetch={fetch or 'default'} (reference coarse rank max "
                   f"{max(rank_maxes) if rank_maxes else float('nan'):.0f})", file=sys.stderr)
 
         # phase 3: end overlap of the production coarse pipeline
@@ -549,7 +554,8 @@ class Searcher:
             (packed2, fine), (scales2, fscales) = vectors, scales
             if use_coarse:
                 return int2_ops.scan_int2_coarse_fine(packed2, scales2, fine, fscales, source_ids, q, allowed,
-                                                      kb, n_sweep=n_sweep, fetch=self.matrix.coarse_fetch)
+                                                      kb, n_sweep=n_sweep, fetch=self.matrix.coarse_fetch,
+                                                      select=self.matrix.coarse_select)
             scan = topk.scan_topk_int8t if fine.dtype == torch.int8 else topk.scan_topk_int4
             return (*scan(fine, fscales, source_ids, q, allowed, kb, n_sweep), None)
         if self.matrix.packed4:

@@ -115,6 +115,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.perceive_scan_topk_int4_slab.restype = i
     lib.perceive_int2_scores.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p, p]
     lib.perceive_int2_scores.restype = i
+    lib.perceive_int2_tiletop.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
+    lib.perceive_int2_tiletop.restype = i
     lib.perceive_select_topk.argtypes = [p, i, i, i, p, p, p, p, p]
     lib.perceive_select_topk.restype = i
     lib.perceive_select_topk_workspace.argtypes = [i, i]

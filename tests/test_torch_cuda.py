@@ -12,7 +12,8 @@ Tolerances: bf16/f32 scan scores 1e-4 (f32 sums in another order); the int8
 scans (K3, K4, and K7, K8 over the transposed companion), the packed-int4
 scans (K9, flat and slab) and the int2 coarse scores (K5) none: scores and
 rows equal the plain version's bit for bit; the exact select (K6) returns the plain version's set, order and floor
-exactly; attention 1e-2 in bf16 against the f32 math on the same bf16
+exactly; the tiletop scores (K10) equal theirs bit for bit, vals and rows, and so do the tiletop, window
+and threshold pipelines; attention 1e-2 in bf16 against the f32 math on the same bf16
 inputs, 1e-5 in f32.
 """
 
@@ -335,3 +336,41 @@ def test_int2_pipeline_int4_companion_matches_plain(dev, nq, k, kc):
     want = int2.scan_int2_coarse_fine_plain(*args, k_coarse=kc)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nq,n,n_sweep,filt,kc,m_top,case", [
+    (1, 98304, 0, None, 2048, 0, "random"),  # 8 tiles of 12,288 rows, M = 512 by the depth rule
+    (2, 65536, 49152, [1], 0, 512, "dead_bins"),  # a sweep prefix of 4 x 12,288; lanes emptied by the filter
+    (8, 40960, 0, [0, 2], 1024, 0, "random"),  # 5 tiles of 8,192
+    (3, 36864, 0, None, 0, 384, "ties"),  # equal scores in a bin
+    (512, 16384, 0, None, 0, 128, "random"),  # 4,096-row tiles at Q = 512
+])
+def test_int2_tiletop_bit_exact(dev, nq, n, n_sweep, filt, kc, m_top, case):
+    packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, n, nq, nq + n, dup=case == "ties")
+    if case == "dead_bins":  # lanes 0-4 hold only source 2, which the filter drops
+        src[torch.arange(n, device=dev) % 128 < 5] = 2
+    allowed = _allowed(dev, filt)
+    before = int2.LAUNCHES_TILETOP
+    vk, rk = int2.int2_tiletop(packed, s2, src, qi8, qscale, allowed, n_sweep, kc=kc, m_top=m_top)
+    vp, rp = int2.int2_tiletop_plain(packed, s2, src, qi8, qscale, allowed, n_sweep, kc=kc, m_top=m_top)
+    torch.cuda.synchronize()
+    assert int2.LAUNCHES_TILETOP == before + 1
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    if case == "dead_bins":
+        assert bool(torch.isneginf(vk).any())
+
+
+@pytest.mark.parametrize("select", ["tiletop", "window", "threshold"])
+@pytest.mark.parametrize("nq,k,kc", [(1, 128, 512), (8, 64, 256)])
+def test_int2_pipeline_selects_match_plain(dev, select, nq, k, kc):
+    packed, s2, fine, s8, src, _, _ = _int2_inputs(dev, 98304, nq, kc + 3)
+    q = torch.randn((nq, 384), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    args = (packed, s2, fine, s8, src, q, _allowed(dev), k)
+    before = int2.launch_counts()
+    got = int2.scan_int2_coarse_fine(*args, k_coarse=kc, select=select)
+    want = int2.scan_int2_coarse_fine_plain(*args, k_coarse=kc, select=select)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    after = int2.launch_counts()
+    ran = {name for name in after if after[name] > before[name]}
+    assert ran == ({"int2_tiletop", "select_topk"} if select == "tiletop" else {"int2_scores"})
