@@ -13,7 +13,9 @@ Phases (any failure exits non-zero before the final line):
      version at 1M x 384 bf16;
   4. K3 and K4 (int8 scan + top-k, flat and slab) against their plain
      version, bit for bit, at 2M x 384 int8;
-  5. K11 (attention) against its plain version at the encoder's long buckets;
+  5. K11 (attention) against its plain version at every encoder bucket
+     (timed beside the short-bucket route) and on masks with whole padded
+     key tiles and one kept key;
   6. the bf16 slice: an all-MiniLM-L6-v2-width model with seeded random
      weights embeds a generated corpus into SQLite (filled to 1M rows),
      AppState builds the searcher on the card, and 16 queries run through
@@ -83,7 +85,7 @@ import numpy as np
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "scan_topk": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:966"),
-    "scan_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:927"),
+    "scan_slab": ("perceive_tpu_torch/csrc/scan_slab_bf16.cu", "perceive_tpu/ops/topk.py:927"),
     "scan_int8": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:273"),
     "scan_int8_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:234"),
     "attention": ("perceive_tpu_torch/csrc/attention.cu", "perceive_tpu/ops/attention.py:58"),
@@ -98,6 +100,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # the H100 SXM data sheet: device memory rate and dense tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+# special-function (exp2) rate: 132 SMs x 16 a clock at ~1.83 GHz, the
+# figure the FlashAttention-3 paper gives for the H100 SXM
+SFU_OPS_PER_S = 3.9e12
 DIM = 384
 KS = (16, 64, 128, 1024, 8192)
 BF16_KB = 32  # the bf16 slice's sweep depth: k=10, doubled for chunk dedupe
@@ -176,11 +181,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, ops: float, kind: str) -> tuple[float, str]:
-    """The least milliseconds the card could take: the larger of the bytes
-    over the memory rate and the operations over the peak for their type."""
+def bound(n_bytes: float, ops: float, kind: str, transcendentals: float = 0.0) -> tuple[float, str]:
+    """The least milliseconds the card could take: the largest of the bytes
+    over the memory rate, the operations over the peak for their type, and
+    the transcendental operations (exponentials) over the special-function
+    rate; the last two are both "operations"."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    t_ops = max(ops / PEAK_OPS_PER_S[kind], transcendentals / SFU_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -319,7 +326,7 @@ def check_bf16_scans(card: str) -> dict:
 
     for kid, fn, widths in (("K1", topk.scan_topk_flat, (1, 8, 64, 512)),
                             ("K2", topk.scan_topk_slab, (256, 512, 2048))):
-        ks = (16, 32, 1024, 8192) if kid == "K1" else KS  # 32: the bf16 slice's kb
+        ks = (16, BF16_KB, 1024, 8192) if kid == "K1" else tuple(sorted(KS + (BF16_KB,)))  # the slice's kb
         for nq in widths:
             q = queries(nq)
             for k in ks:
@@ -780,7 +787,14 @@ def check_int4_kernels(card: str) -> dict:
 # -- phase 5: K11 ------------------------------------------------------------
 
 
+K11_BUCKETS = (128, 256, 384, 512)  # the encoder's sequence buckets, timed at (64, S, 12, 32)
+
+
 def check_k11(card: str) -> dict:
+    """K11 (bf16 tensor-core path) against its plain version at 1e-2 on
+    every timed shape and on masks with whole padded key tiles and one kept
+    key; timed beside its plain version, SDPA and, at every encoder bucket,
+    the short-bucket route (``xla_attention_plain``)."""
     import torch
 
     from perceive_tpu_torch.ops import attention as attn
@@ -788,37 +802,61 @@ def check_k11(card: str) -> dict:
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(2)
     worst, times = 0.0, {}
-    for b, s, nh, dh in ((64, 384, 12, 32), (64, 512, 12, 32), (8, 512, 12, 64)):
+
+    def inputs(b, s, nh, dh):
         # unit-variance q and k (scores ~ N(0, 1)); v at half scale keeps
         # |out| near 1, where one bf16 rounding of the output is ~4e-3
-        q, k, v = (
-            (torch.randn((b, s, nh, dh), generator=g, device=dev) * sd).to(torch.bfloat16)
-            for sd in (1.0, 1.0, 0.5)
-        )
+        q, k, v = ((torch.randn((b, s, nh, dh), generator=g, device=dev) * sd).to(torch.bfloat16)
+                   for sd in (1.0, 1.0, 0.5))
         lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
         mask = (torch.arange(s, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+        return q, k, v, mask
+
+    def held(name, q, k, v, mask):
         got = attn.attention(q, k, v, mask)
         want = attn.attention_plain(q.float(), k.float(), v.float(), mask)
         torch.cuda.synchronize()
         err = float((got.float() - want).abs().max())
         status = "ok" if err <= 1e-2 else "FAIL"
-        log(f"K11 B={b} S={s} NH={nh} DH={dh} max_abs_err={err:.3g} (vs f32 plain; "
-            f"max |out| {float(want.abs().max()):.3g}) {status}")
+        log(f"K11 {name} max_abs_err={err:.3g} (vs f32 plain; max |out| {float(want.abs().max()):.3g}) {status}")
         if status != "ok":
-            raise SystemExit(f"K11 disagrees with its plain version at {(b, s, nh, dh)}")
-        worst = max(worst, err)
-        # the yardstick: PyTorch's fused attention with the additive mask
+            raise SystemExit(f"K11 disagrees with its plain version at {name}")
+        return err
+
+    shapes = [(64, s, 12, 32) for s in K11_BUCKETS] + [(8, 512, 12, 64)]
+    for b, s, nh, dh in shapes:
+        q, k, v, mask = inputs(b, s, nh, dh)
+        worst = max(worst, held(f"B={b} S={s} NH={nh} DH={dh}", q, k, v, mask))
+        if (b, s, dh) == (64, 512, 32):
+            # whole padded key tiles (rows of 1 to 64 tokens), one kept key, none kept
+            pos = torch.arange(s, device=dev)[None, :]
+            short = (pos < torch.randint(1, 65, (b, 1), generator=g, device=dev)).to(torch.int32)
+            one = (pos == torch.randint(0, s, (b, 1), generator=g, device=dev)).to(torch.int32)
+            one[0] = 0
+            worst = max(worst, held(f"B={b} S={s} short rows", q, k, v, short))
+            worst = max(worst, held(f"B={b} S={s} one kept key (row 0: none)", q, k, v, one))
+        # the yardsticks: PyTorch's fused attention with the additive mask,
+        # and the encoder's short-bucket route
         add = ((1.0 - mask.to(torch.bfloat16)) * -1e9).to(torch.bfloat16)[:, None, None, :]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         t = {"ms": cuda_ms(lambda: attn.attention(q, k, v, mask)),
              "plain_ms": cuda_ms(lambda: attn.attention_plain(q, k, v, mask)),
-             "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add))}
-        # q, k, v read and the output written once; q.k and p.v at 2 ops a product
-        t["bound_ms"], t["bound_by"] = bound(4 * b * s * nh * dh * 2 + b * s * 4, 4.0 * b * nh * s * s * dh, "bf16")
+             "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add)),
+             "short_route_ms": cuda_ms(lambda: attn.xla_attention_plain(q, k, v, mask))}
+        # q and the mask read and the output written once, the K and V rows
+        # of kept keys read once; q.k and p.v at 2 ops a product and one
+        # exponential for each (query, kept key) pair: masked keys add
+        # exactly nothing, so the function needs none of their work
+        live = int(mask.sum())
+        t["bound_ms"], t["bound_by"] = bound(2 * (b * s + live) * nh * dh * 2 + b * s * 4,
+                                             4.0 * nh * s * live * dh, "bf16", transcendentals=float(nh * s * live))
         times[(b, s, nh, dh)] = t
         log(f"K11 time B={b} S={s} NH={nh} DH={dh}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
-            f"library {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
-    return {"max_abs_err": worst, **times[(64, 512, 12, 32)]}
+            f"library {t['library_ms']:.4f} ms  short-bucket route {t['short_route_ms']:.4f} ms  "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    out = dict(times[(64, 512, 12, 32)])
+    del out["short_route_ms"]
+    return {"max_abs_err": worst, **out}
 
 
 # -- phases 6-9: the slices ------------------------------------------------------

@@ -1,23 +1,39 @@
-// Fused multi-head attention for the encoder's long sequence buckets.
+// Fused multi-head attention for the encoder's long sequence buckets (K11).
 //
 // Replaces the TPU kernel perceive_tpu/ops/attention.py `fused_attention`
 // (`_attn_kernel`), which the JAX encoder routes buckets of 384 tokens and
-// up to.
+// up to.  Function: s = q.k^T / sqrt(DH) + (1 - mask) * -1e9 in f32, m the
+// row max, p = exp(s - m), l = sum p in f32, out = (bf16(p) . v) / l.
 //
-// What bounds it on the H100: the (S, S) scores of a head, which must stay
-// on chip (512 x 512 f32 is 1 MB per head, far past a block's shared
-// memory), and the K/V rows every query of the head reads.
+// What bounds it on the H100: at the main path's (64, 512, 12, 32) bf16 the
+// exponentials.  B * NH * S^2 = 201M of them take 0.052 ms at the card's
+// ~3.9e12 special-function operations a second (132 SMs x 16 a clock),
+// more than the 0.030 ms the bytes take; q.k and p.v are 0.9 GFLOP each,
+// 0.001 ms on the tensor cores.
 //
-// Design.  One block per (tile of 64 queries, head, batch row).  The head's
-// K and V (S <= 512 rows) sit in dynamic shared memory, K rows padded by one
-// 32-bit word so the lanes of a warp, each on its own key, hit distinct
-// banks.  Each warp takes one query at a time: every lane scores the keys
-// lane, lane+32, ... in registers (S/32 <= 16 of them), so a query's score
-// row never leaves the chip; max and sum run as warp shuffles (a plain
-// two-pass softmax in f32, no online rescaling).  The probabilities go to a
-// per-warp shared row, rounded to v's dtype as the TPU kernel rounds them,
-// and each lane then accumulates its output dims over all keys in f32.  The
-// f32 sum is divided by l after the product, as on the TPU.
+// Design of the bf16 path (`attention_tc`).  One block of 4 warps per (tile
+// of 64 queries, head, batch row); each warp owns 16 query rows, whose
+// fragments it loads once from shared memory with ldmatrix.  K and V stream
+// through a ring of shared-memory stages (3; 2 at DH = 128) in tiles of 64
+// keys, filled by cp.async and waited on with cp.async.wait_group, rows
+// padded by 16 bytes so ldmatrix hits 32 distinct banks.  q.k^T and p.v run
+// on the tensor cores (mma.sync m16n8k16 bf16 -> f32); the C fragment of
+// q.k^T becomes the A fragment of p.v in registers, so p never touches
+// shared memory.  The softmax keeps the TPU kernel's rounding with two
+// sweeps over the key tiles: the first computes q.k^T and the row max
+// only, the second recomputes q.k^T, forms p = exp(s - m) relative to the
+// true row max, sums l from the unrounded f32 p and multiplies bf16(p) by
+// v (no online rescaling).  Scores are kept times log2 e (folded into the
+// scale and the mask bias), so each p is one ex2.approx, as __expf would
+// compute it, without the multiply.  Key tiles whose mask is all 0 are skipped when
+// the batch row keeps any key: there exp(-1e9 + s - m) is 0.0 in f32, so
+// they add nothing to l or to the output (a row that keeps no key runs
+// every tile).  Keys past S score -inf and their V rows are zero-filled.
+//
+// f32 inputs take the first version's SIMT body (`attention_kernel`): one
+// block per (64 queries, head, batch row) holding the head's K and V in
+// shared memory, each warp scoring one query at a time with f32 FMAs.  No
+// main-path call uses it (the encoder computes in bf16 on the card).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,20 +60,6 @@ template <> struct Elem<float> {
   __device__ __forceinline__ static float load(const float* p) { return *p; }
   __device__ __forceinline__ static float round(float v) { return v; }
   __device__ __forceinline__ static float from(float v) { return v; }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  __device__ __forceinline__ static float2 pair(const uint32_t* w, int i) {
-    const uint32_t u = w[i];
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-  }
-  __device__ __forceinline__ static float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ __forceinline__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-  __device__ __forceinline__ static __nv_bfloat16 from(float v) { return __float2bfloat16(v); }
 };
 
 // 32-bit words in one K row of shared memory (row plus one pad word)
@@ -212,15 +214,289 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* mask,
   return cudaGetLastError();
 }
 
+// ---- the bf16 path: tensor cores --------------------------------------------
+
+constexpr int kTcThreads = 128;  // 4 warps, 16 query rows each
+constexpr int kTcQueries = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kKeyTile = 64;
+constexpr int kMaxKeyTiles = kMaxSeq / kKeyTile;
+
+// bytes of one padded shared-memory row of DH bf16 values
+__host__ __device__ constexpr int tc_pitch(int dh) { return 2 * dh + 16; }
+__host__ __device__ constexpr int tc_stages(int dh) { return dh >= 128 ? 2 : 3; }
+
+__host__ __device__ constexpr size_t tc_smem_bytes(int dh) {
+  return static_cast<size_t>(kTcQueries) * tc_pitch(dh)                       // Q
+         + static_cast<size_t>(tc_stages(dh)) * 2 * kKeyTile * tc_pitch(dh)   // K, V ring
+         + kMaxSeq * sizeof(float)                                            // mask bias
+         + (2 * kMaxKeyTiles + 1) * sizeof(int);                              // live tiles
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment coordinates (m16n8k16): lane = 4g + t; a C fragment holds
+// (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in c[2..3].
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads) attention_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
+    __nv_bfloat16* __restrict__ out, int S, int NH, float scale) {
+  constexpr int P = tc_pitch(DH);
+  constexpr int kChunks = DH / 8;  // 16-byte chunks of a row
+  constexpr int kSteps = DH / 16;  // k-steps of q.k^T
+  constexpr int kDimTiles = DH / 8;  // n-tiles of p.v
+  constexpr int kStages = tc_stages(DH);
+  constexpr int kStageBytes = 2 * kKeyTile * P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sq = smem;                                    // [64][P]
+  unsigned char* ring = sq + kTcQueries * P;                   // [kStages][K, V][64][P]
+  float* bias = reinterpret_cast<float*>(ring + kStages * kStageBytes);  // [kMaxSeq]
+  int* live = reinterpret_cast<int*>(bias + kMaxSeq);          // [kMaxKeyTiles]
+  int* tiles = live + kMaxKeyTiles;                            // [kMaxKeyTiles]
+  int* n_live = tiles + kMaxKeyTiles;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTcQueries;
+  const size_t row_stride = static_cast<size_t>(NH) * DH;
+  const size_t head0 = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * DH;
+  const int n_tiles = (S + kKeyTile - 1) / kKeyTile;
+  const float scale2 = scale * kLog2e;  // scores in base 2: exp(s - m) = 2^(s log2 e - m log2 e)
+
+  // the queries: cp.async group 0
+  for (int c = tid; c < kTcQueries * kChunks; c += kTcThreads) {
+    const int r = c / kChunks, ch = c - r * kChunks;
+    const bool ok = q0 + r < S;
+    cp_async16(sq + r * P + ch * 16, q + (ok ? head0 + (q0 + r) * row_stride + ch * 8 : 0), ok);
+  }
+  cp_async_commit();
+
+  if (tid < kMaxKeyTiles) live[tid] = 0;
+  __syncthreads();
+  for (int j = tid; j < n_tiles * kKeyTile; j += kTcThreads) {
+    float bj = -INFINITY;  // the mask bias, times log2 e as the scores are
+    if (j < S) {
+      const int m = mask[static_cast<size_t>(b) * S + j];
+      bj = (1.0f - static_cast<float>(m)) * kNeg * kLog2e;
+      if (m != 0) live[j / kKeyTile] = 1;
+    }
+    bias[j] = bj;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int i = 0; i < n_tiles; ++i)
+      if (live[i]) tiles[n++] = i;
+    if (n == 0)  // no kept key: every key counts alike, run every tile
+      for (; n < n_tiles; ++n) tiles[n] = n;
+    *n_live = n;
+  }
+  __syncthreads();
+  const int nl = *n_live;
+  const int n_steps = 2 * nl;  // sweep 1: K of each live tile; sweep 2: K and V
+
+  // step i fills ring stage i % kStages; every step commits one group (maybe empty)
+  auto load_step = [&](int i) {
+    if (i < n_steps) {
+      const bool with_v = i >= nl;
+      const int key0 = tiles[with_v ? i - nl : i] * kKeyTile;
+      unsigned char* dk = ring + (i % kStages) * kStageBytes;
+      unsigned char* dv = dk + kKeyTile * P;
+      for (int c = tid; c < kKeyTile * kChunks; c += kTcThreads) {
+        const int r = c / kChunks, ch = c - r * kChunks;
+        const bool ok = key0 + r < S;
+        const size_t off = ok ? head0 + (key0 + r) * row_stride + ch * 8 : 0;
+        cp_async16(dk + r * P + ch * 16, k + off, ok);
+        if (with_v) cp_async16(dv + r * P + ch * 16, v + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_step(i);
+
+  uint32_t qf[kSteps][4];
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
+  float o[kDimTiles][4];
+#pragma unroll
+  for (int d = 0; d < kDimTiles; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<kStages - 2>();  // step i (and the queries) landed
+    __syncthreads();               // ... for every thread; stage (i - 1) is free
+    load_step(i + kStages - 1);
+    if (i == 0) {
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks)
+        ldmatrix_x4(qf[ks], sq + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                (ks * 16 + (lane >> 4) * 8) * 2);
+    }
+    const bool sweep2 = i >= nl;
+    const int key0 = tiles[sweep2 ? i - nl : i] * kKeyTile;
+    const unsigned char* dk = ring + (i % kStages) * kStageBytes;
+
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, dk + (np * 16 + (lane & 7) + (lane >> 4) * 8) * P +
+                            (ks * 16 + ((lane >> 3) & 1) * 8) * 2);
+        mma_bf16(sc[2 * np], qf[ks], bf[0], bf[1]);
+        mma_bf16(sc[2 * np + 1], qf[ks], bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = fmaf(sc[n][e], scale2, bias[key0 + n * 8 + 2 * t + (e & 1)]);
+
+    if (!sweep2) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        m_row[0] = fmaxf(m_row[0], fmaxf(sc[n][0], sc[n][1]));
+        m_row[1] = fmaxf(m_row[1], fmaxf(sc[n][2], sc[n][3]));
+      }
+      if (i == nl - 1) {  // the row max over all keys, across the quad
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 1));
+          m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 2));
+        }
+      }
+      continue;
+    }
+    // p = exp(s - m): l from the f32 p, the product from bf16(p)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = ex2(sc[n][e] - m_row[e >> 1]);
+      l_row[0] += p[0] + p[1];
+      l_row[1] += p[2] + p[3];
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+    const unsigned char* dv = dk + kKeyTile * P;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < kDimTiles / 2; ++dp) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, dv + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                  (dp * 16 + (lane >> 4) * 8) * 2);
+        mma_bf16(o[2 * dp], pa[kk], bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], pa[kk], bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = out + head0 + static_cast<size_t>(row) * row_stride;
+#pragma unroll
+    for (int d = 0; d < kDimTiles; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[d][2 * r] / l_row[r], o[d][2 * r + 1] / l_row[r]);
+  }
+}
+
+template <int DH>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* mask, void* out, int B,
+                      int S, int NH, float scale, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(DH);
+  cudaError_t err = cudaFuncSetAttribute(attention_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kTcQueries - 1) / kTcQueries, NH, B);
+  attention_tc<DH><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(out), S, NH, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask, void* out, int B,
+                        int S, int NH, int DH, float scale, cudaStream_t s) {
+  switch (DH) {
+    case 16: return launch_tc<16>(q, k, v, mask, out, B, S, NH, scale, s);
+    case 32: return launch_tc<32>(q, k, v, mask, out, B, S, NH, scale, s);
+    case 64: return launch_tc<64>(q, k, v, mask, out, B, S, NH, scale, s);
+    case 128: return launch_tc<128>(q, k, v, mask, out, B, S, NH, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one block needs, or 0 when the shape is not taken.
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32 (any even DH <= 128), 1 = bfloat16 (DH 16, 32, 64 or
+// 128; q, k, v 16-byte aligned).
 size_t perceive_attention_smem(int dtype, int S, int DH) {
   if (S < 1 || S > kMaxSeq || DH < 2 || DH > kMaxHeadDim || DH % 2) return 0;
-  const size_t bytes = dtype == 0 ? smem_bytes<float>(S, DH) : smem_bytes<__nv_bfloat16>(S, DH);
+  if (dtype == 1) return (DH == 16 || DH == 32 || DH == 64 || DH == 128) ? tc_smem_bytes(DH) : 0;
+  if (dtype != 0) return 0;
+  const size_t bytes = smem_bytes<float>(S, DH);
   return bytes <= kSmemLimit ? bytes : 0;
 }
 
@@ -230,9 +506,10 @@ int perceive_attention(const void* q, const void* k, const void* v, const int* m
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch<float>(q, k, v, mask, out, B, S, NH, DH, scale, s));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(q, k, v, mask, out, B, S, NH, DH, scale, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+       reinterpret_cast<uintptr_t>(out)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bf16(q, k, v, mask, out, B, S, NH, DH, scale, s));
 }
 
 }  // extern "C"

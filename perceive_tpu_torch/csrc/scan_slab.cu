@@ -1,28 +1,28 @@
-// Exact scan with top-k selection for batches of queries: K2 (bf16 rows),
-// K4 (int8 rows), K8 (the int2 tier's int8 companion, stored transposed)
-// and K9's slab kernel (the packed-int4 matrix, stored transposed), one
-// templated kernel with four instantiations.
+// Exact scan with top-k selection for batches of queries over the int8
+// tiers: K4 (int8 rows), K8 (the int2 tier's int8 companion, stored
+// transposed) and K9's slab kernel (the packed-int4 matrix, stored
+// transposed), one templated kernel with three instantiations.  (The bf16
+// batch scan has a kernel of its own for Hopper: scan_slab_bf16.cu.)
 //
-// Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_slabbed`
-// (`_scan_kernel_slabbed`), `pallas_topk_int8_slabbed`
-// (`_scan_kernel_int8_slabbed`), `pallas_topk_int8t_slabbed`
-// (`_scan_kernel_int8t_slabbed`) and `pallas_topk_int4_slabbed`
-// (`_scan_kernel_int4_slabbed`): the same scans as K1, K3, K7 and K9's flat
-// kernel, for sweeps of at least 256 queries, where each row tile is read
-// once for many queries.  K8 reads the (D, N) layout, whose bytes are
-// contiguous along the rows: it transposes each 4 x 4 byte micro-tile while
-// staging it (__byte_perm), so the shared-memory tile and the fragment
-// loads are K4's.  K9 reads the (D/2, N) packed layout the same way and
-// decodes each staged byte-row r into two int8 dims, r (low nibble less 8)
-// and r + D/2 (high nibble, sign-extended): a slice of 64 byte-rows fills
-// the 128-byte k-slice with dims r.. (first half) and r + D/2.. (second
-// half), and the query tile is staged in the same dim order.  It reads half
-// of K8's bytes a row and does more integer work while staging.
+// Replaces the TPU kernels perceive_tpu/ops/topk.py
+// `pallas_topk_int8_slabbed` (`_scan_kernel_int8_slabbed`),
+// `pallas_topk_int8t_slabbed` (`_scan_kernel_int8t_slabbed`) and
+// `pallas_topk_int4_slabbed` (`_scan_kernel_int4_slabbed`): the same scans
+// as K3, K7 and K9's flat kernel, for sweeps of at least 256 queries, where
+// each row tile is read once for many queries.  K8 reads the (D, N) layout,
+// whose bytes are contiguous along the rows: it transposes each 4 x 4 byte
+// micro-tile while staging it (__byte_perm), so the shared-memory tile and
+// the fragment loads are K4's.  K9 reads the (D/2, N) packed layout the
+// same way and decodes each staged byte-row r into two int8 dims, r (low
+// nibble less 8) and r + D/2 (high nibble, sign-extended): a slice of 64
+// byte-rows fills the 128-byte k-slice with dims r.. (first half) and
+// r + D/2.. (second half), and the query tile is staged in the same dim
+// order.  It reads half of K8's bytes a row and does more integer work
+// while staging.
 //
-// What bounds them on the H100: operations.  At Q = 512 a 1M x 384 bf16
-// sweep is 4.0e11 flop (0.41 ms at 989 TFLOP/s) against 0.77 GB (0.23 ms at
-// 3.35 TB/s); a 2M x 384 int8 sweep 8.2e11 ops (0.41 ms at 1,979 TOP/s)
-// against 0.82 GB.  So the scores must come from the tensor cores, and the
+// What bounds them on the H100: operations.  At Q = 512 a 2M x 384 int8
+// sweep is 8.2e11 ops (0.41 ms at 1,979 TOP/s) against 0.82 GB (0.24 ms at
+// 3.35 TB/s).  So the scores must come from the tensor cores, and the
 // matrix must be read from device memory about once, not once per query
 // tile.
 //
@@ -32,17 +32,13 @@
 // The block walks its rows in chunks of 128: for each 128-byte slice of the
 // row width, the chunk's rows and the query tile are staged in shared memory
 // (pitch 144 bytes, so fragment reads hit 32 distinct banks), and each of
-// the 8 warps computes a 32-query x 32-row tile with mma.sync:
-//   K2  m16n8k16 bf16 x bf16 -> f32,
-//   K4  m16n8k32 s8 x s8 -> s32 (exact), then f32(acc) * row scale * query
-//       scale, rounded in that order, so scores equal the plain version's
-//       bit for bit.
-// Both types put the same bytes in the same fragment registers (a k-step is
-// 32 bytes of a row), so one body serves both.  The epilogue masks rows and
-// writes the 64 x 512 score tile to shared memory; then one warp per query
-// keeps its best min(k, 512) keys, and K1's pass 2 finishes
-// (topk_common.cuh).  What is simple and slow here: no cp.async or TMA
-// pipeline (two barriers per slice), and one block per SM.
+// the 8 warps computes a 32-query x 32-row tile with mma.sync m16n8k32 s8 x
+// s8 -> s32 (exact), then f32(acc) * row scale * query scale, rounded in
+// that order, so scores equal the plain version's bit for bit.  The
+// epilogue masks rows and writes the 64 x 512 score tile to shared memory;
+// then one warp per query keeps its best min(k, 512) keys, and K1's pass 2
+// finishes (topk_common.cuh).  What is simple and slow here: no cp.async
+// or TMA pipeline (two barriers per slice), and one block per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,21 +58,9 @@ constexpr size_t kSlabSmem =
     static_cast<size_t>(kSlabQ) * kScPitch * sizeof(float) +
     static_cast<size_t>(kChunk + kSlabQ) * kSlicePitch;
 
-enum { kBf16 = 1, kInt8 = 2 };
+enum { kInt8 = 2 };  // the dtype code of perceive_scan_topk_slab
 
 template <int kDtype> struct Mma;
-
-template <> struct Mma<kBf16> {
-  typedef float Acc;
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ __forceinline__ static float score(float acc, float, float) { return acc; }
-};
 
 template <> struct Mma<kInt8> {
   typedef int Acc;
@@ -96,7 +80,7 @@ __device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// How the matrix is laid out: (N, row_bytes) rows (K2, K4), the transposed
+// How the matrix is laid out: (N, row_bytes) rows (K4), the transposed
 // (D, ld) int8 companion (K8), or the transposed (D/2, ld) packed int4 (K9).
 enum { kRowMajor = 0, kTransposed = 1, kPacked4 = 2 };
 
@@ -278,34 +262,19 @@ cudaError_t launch_slab(const unsigned char* matrix, int ld, const float* scales
 
 extern "C" {
 
-// K2 (dtype 1: bf16 matrix and queries; scales and qscale unused) and K4
-// (dtype 2: int8 matrix with (N,) f32 row scales, int8 queries with (Q,)
-// f32 scales).  Rows must be a multiple of 128 bytes.  Workspace: as
-// perceive_scan_topk_workspace.
+// K4 (dtype 2: int8 matrix with (N,) f32 row scales, int8 queries with
+// (Q,) f32 scales; no other dtype).  Rows must be a multiple of 128 bytes.
+// Workspace: as perceive_scan_topk_workspace.
 int perceive_scan_topk_slab(const void* matrix, int dtype, const float* scales, const int* src,
                             const void* q, const float* qscale, const int* allowed,
                             int n_filter, int nq, int d, int n_sweep, int k, float* vals,
                             int* rows, void* workspace, void* stream) {
-  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || n_blocks(n_sweep) > 65535)
+  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || n_blocks(n_sweep) > 65535 || dtype != kInt8 ||
+      d % kSlice || scales == nullptr || qscale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned char* m = static_cast<const unsigned char*>(matrix);
-  const unsigned char* qq = static_cast<const unsigned char*>(q);
-  cudaError_t err;
-  if (dtype == kBf16) {
-    const int row_bytes = 2 * d;
-    if (row_bytes % kSlice) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_slab<kBf16, kRowMajor>(m, 0, nullptr, src, qq, nullptr, allowed, n_filter, nq, row_bytes,
-                             n_sweep, k, vals, rows, workspace, s);
-  } else if (dtype == kInt8) {
-    if (d % kSlice || scales == nullptr || qscale == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_slab<kInt8, kRowMajor>(m, 0, scales, src, qq, qscale, allowed, n_filter, nq, d, n_sweep, k,
-                             vals, rows, workspace, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_slab<kInt8, kRowMajor>(
+      static_cast<const unsigned char*>(matrix), 0, scales, src, static_cast<const unsigned char*>(q), qscale,
+      allowed, n_filter, nq, d, n_sweep, k, vals, rows, workspace, static_cast<cudaStream_t>(stream)));
 }
 
 // K8: K4 over the int2 tier's transposed (d, ld) int8 companion (ld, its

@@ -2,8 +2,10 @@
 
 Port of perceive_tpu/ops/attention.py (``fused_attention``).  ``attention``
 is the entry point: on CUDA tensors it launches the hand-written kernel in
-``csrc/attention.cu``; on CPU tensors it runs ``attention_plain``, the
-kernel's math in plain PyTorch.  A failed launch raises.
+``csrc/attention.cu`` (bf16: tensor cores, head dims 16, 32, 64 and 128;
+f32: a SIMT body, any even head dim up to 128); on CPU tensors it runs
+``attention_plain``, the kernel's math in plain PyTorch.  A failed launch
+raises.
 
 Two plain versions live here on purpose, one per JAX path:
   * ``attention_plain`` mirrors the Pallas kernel's rounding: p is cast to
@@ -94,6 +96,8 @@ def _attention_cuda(q, k, v, mask):
             raise ValueError(f"attention: {name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("attention: q must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention: bf16 q, k and v must be 16-byte aligned")
     b, s, nh, dh = q.shape
     lib = _cuda.library()
     dtype_code = 1 if q.dtype == torch.bfloat16 else 0

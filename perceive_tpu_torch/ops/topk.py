@@ -5,7 +5,7 @@ Port of perceive_tpu/ops/topk.py's scans.  Eight hand-written CUDA kernels,
 each beside its plain PyTorch version and a launch counter:
 
     K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_topk.cu
-    K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab.cu
+    K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab_bf16.cu
     K3  scan_topk_int8_flat    int8, Q < 256                csrc/scan_topk.cu
     K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab.cu
     K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_topk.cu
@@ -49,11 +49,12 @@ from . import _cuda
 ALLOW_ALL = -2  # sentinel in allowed[0]: disable source filtering
 MAX_FILTER = 16
 QUERY_SLAB = 128  # the slab kernels take sweeps of whole slabs
-SLAB_QUERIES = 64  # queries per block of the slab kernels
+SLAB_QUERIES = 64  # query chunks of the slab kernels align to this (K4/K8/K9 blocks hold 64)
 # queries per sweep; larger batches run as consecutive sweeps
 MAX_QUERY_SLAB = 2048
 # workspace budget per launch (the kernels keep up to min(k, 512)
-# candidates per 512-row block and query); query chunks shrink to fit
+# candidates per 512-row block and query, K2 one list per row range and
+# query); query chunks shrink to fit
 _WORKSPACE_BYTES = 1 << 30
 # K9's: the int4 tier holds past 24M rows, where a query's candidates
 # take 25 MB at k = 64 (50 MB at k = 128), so 1 GiB would hold fewer than
@@ -340,16 +341,63 @@ def _arg(t):
     return t.data_ptr() if isinstance(t, torch.Tensor) else t
 
 
+def query_chunks(nq: int, ws_bytes, q_align: int, budget: int) -> list[tuple[int, int]]:
+    """[start, end) query chunks of at most MAX_QUERY_SLAB queries whose
+    workspace ``ws_bytes(n)`` stays within ``budget``: the chunk is the
+    budget over one query's bytes (which no larger launch exceeds per
+    query), rounded down to a multiple of ``q_align`` where it holds one."""
+    chunk = max(1, min(MAX_QUERY_SLAB, budget // ws_bytes(1)))
+    if chunk >= q_align:
+        chunk -= chunk % q_align
+    return [(s, min(nq, s + chunk)) for s in range(0, nq, chunk)]
+
+
+# K2's launch plan (csrc/scan_slab_bf16.cu, kSortK and kSortCap): rows a
+# tile; each (query, range) keeps a running list in the workspace at every
+# k, of 64 keys (compacted by a sort) up to k = 32 and of 2k keys past it
+SLAB_BF16_ROWS = 128
+SLAB_BF16_SORT_K = 32
+SLAB_BF16_SORT_CAP = 64
+
+
+def slab_bf16_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
+    """K2's launch of nq queries: (workspace bytes, (queries a block, row
+    ranges, rows a range, list capacity)).  A block holds 128 queries (two
+    warpgroups) up to d = 384 and 64 past it, so the query tile fits in
+    shared memory beside the ring and the lists; (query tiles) x (ranges)
+    comes to about ``sms`` blocks, each range at least one row tile and,
+    past k = 32, at least 4k rows (its list of 2k keys then compacts
+    rarely).  Each (query, range) leaves ``cap`` keys for pass 2."""
+    qrows = 128 if d <= 384 else 64
+    cap = SLAB_BF16_SORT_CAP if k <= SLAB_BF16_SORT_K else -(-2 * k // 32) * 32
+    qtiles = -(-nq // qrows)
+    tiles = -(-n_sweep // SLAB_BF16_ROWS)
+    ranges = max(1, sms // qtiles)
+    if k > SLAB_BF16_SORT_K:
+        ranges = min(ranges, max(1, n_sweep // (4 * k)))
+    ranges = min(ranges, tiles)
+    per = -(-tiles // ranges)
+    ranges = -(-tiles // per)
+    return nq * ranges * cap * 8, (qrows, ranges, per * SLAB_BF16_ROWS, cap)
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_sweep: int,
             lead: tuple, per_query: tuple, q_align: int, row_align: int,
-            budget: int = _WORKSPACE_BYTES):
+            budget: int = _WORKSPACE_BYTES, plan=None):
     """Shared body of the CUDA wrappers: check placement and shapes, size
     the workspace within ``budget`` bytes, and call the C entry ``entry``
     once per query chunk as
-    ``entry(*lead, source_ids, q, *per_query, allowed, ...)``; ``lead`` and
-    ``per_query`` hold tensors, ints or None (a null pointer), and the
-    tensors of ``per_query`` are cut into the same query chunks as ``q``.
-    Returns (vals, rows, launches)."""
+    ``entry(*lead, source_ids, q, *per_query, allowed, ..., k, *extra, ...)``;
+    ``lead`` and ``per_query`` hold tensors, ints or None (a null pointer),
+    and the tensors of ``per_query`` are cut into the same query chunks as
+    ``q``.  ``plan(n, d, n_sweep, k)`` gives a launch of n queries its
+    workspace bytes and ``extra`` ints; without it the workspace is n times
+    ``perceive_scan_topk_workspace``'s bytes for one query and ``extra`` is
+    empty.  Returns (vals, rows, launches)."""
     dev = matrix.device
     tensors = [("source_ids", source_ids), ("q", q), ("allowed", allowed)]
     tensors += [("argument", t) for t in (*lead, *per_query) if isinstance(t, torch.Tensor)]
@@ -377,19 +425,20 @@ def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_swe
     q = q.contiguous()
     per_query = tuple(t.contiguous() if isinstance(t, torch.Tensor) else t for t in per_query)
     allowed = allowed.contiguous()
-    per_q_bytes = lib.perceive_scan_topk_workspace(1, ns, k)
-    chunk = max(1, min(MAX_QUERY_SLAB, budget // per_q_bytes))
-    if chunk >= q_align:
-        chunk -= chunk % q_align
-    ws = torch.empty(min(chunk, nq) * per_q_bytes, dtype=torch.uint8, device=dev)
+    if plan is None:
+        per_q = lib.perceive_scan_topk_workspace(1, ns, k)
+
+        def plan(n, *_):
+            return n * per_q, ()
+    chunks = query_chunks(nq, lambda n: plan(n, d, ns, k)[0], q_align, budget)
+    ws = torch.empty(max(plan(e - s, d, ns, k)[0] for s, e in chunks), dtype=torch.uint8, device=dev)
     stream = _cuda.stream_of(matrix)
     fn = getattr(lib, entry)
     launches = 0
-    for s in range(0, nq, chunk):
-        e = min(nq, s + chunk)
+    for s, e in chunks:
         code = fn(*map(_arg, lead), source_ids.data_ptr(), q[s:e].data_ptr(),
                   *(_arg(t[s:e] if isinstance(t, torch.Tensor) else t) for t in per_query),
-                  allowed.data_ptr(), allowed.shape[0], e - s, d, ns, k,
+                  allowed.data_ptr(), allowed.shape[0], e - s, d, ns, k, *plan(e - s, d, ns, k)[1],
                   vals[s:].data_ptr(), rows[s:].data_ptr(), ws.data_ptr(), stream)
         _cuda.check(code, what)
         launches += 1
@@ -417,15 +466,17 @@ def scan_topk_flat(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
 
 
 def scan_topk_slab(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
-    """K2: the same function as K1 for batches, over a bf16 matrix; tensor
-    cores score a 64-query by 512-row tile per block."""
+    """K2: the same function as K1 for batches, over a bf16 matrix: about
+    one block per SM walks a row range for a resident query tile (wgmma,
+    TMA), keeping each query's running top k behind a threshold."""
     global LAUNCHES_SLAB
     _check(matrix, source_ids, q, allowed, k, (torch.bfloat16,))
     if _device_of(matrix, "scan_topk_slab") == "cpu":
         return scan_topk_plain(matrix, source_ids, q, allowed, k, n_sweep)
-    vals, rows, n = _launch("perceive_scan_topk_slab", "scan_topk_slab", matrix, source_ids,
+    vals, rows, n = _launch("perceive_scan_slab_bf16", "scan_topk_slab", matrix, source_ids,
                             q.to(torch.bfloat16), allowed, k, n_sweep,
-                            (matrix, 1, None), (None,), SLAB_QUERIES, 128)
+                            (matrix,), (), SLAB_QUERIES, 128,
+                            plan=lambda n, d, ns, kk: slab_bf16_plan(n, d, ns, kk, _sm_count(matrix.device)))
     LAUNCHES_SLAB += n
     return vals, rows
 

@@ -85,3 +85,32 @@ def test_attention_shape_checks():
     x = torch.zeros(2, 8, 2, 4)
     with pytest.raises(ValueError):
         attn.attention(x, x, x, torch.ones(2, 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("s", [100, 256, 512])
+def test_dead_key_tiles_add_nothing(s):
+    """The CUDA kernel skips 64-key tiles whose mask is all 0 when the row
+    keeps a key: exp(-1e9 + s - m) is 0.0 in f32, so attention_plain over
+    the live tiles' keys alone equals the full call to 1e-6 (f32).  A row
+    that keeps no key keeps every tile."""
+    b, nh, dh = 4, 3, 32
+    q, k, v, _ = _inputs(b, s, nh, dh, seed=s + 5)
+    rng = np.random.default_rng(s)
+    mask = (rng.random((b, s)) < 0.4).astype(np.int32)
+    tiles = (s + 63) // 64
+    for row in range(1, b):  # rows 1..3 lose whole tiles; row 0 keeps nothing
+        dead = rng.choice(tiles, size=max(1, tiles // 2), replace=False)
+        for tile in dead:
+            mask[row, tile * 64 : (tile + 1) * 64] = 0
+        kept = [j for j in range(s) if j // 64 not in dead]
+        mask[row, rng.choice(kept)] = 1  # at least one kept key, in a live tile
+    mask[0] = 0
+    q, k, v, m = (torch.from_numpy(x) for x in (q, k, v, mask))
+    full = attn.attention_plain(q, k, v, m)
+    for row in range(b):
+        live = [t for t in range(tiles) if m[row, t * 64 : (t + 1) * 64].any()] or list(range(tiles))
+        keys = torch.cat([torch.arange(t * 64, min(s, (t + 1) * 64)) for t in live])
+        part = attn.attention_plain(q[row : row + 1], k[row : row + 1, keys], v[row : row + 1, keys], m[row : row + 1, keys])
+        np.testing.assert_allclose(part.numpy(), full[row : row + 1].numpy(), atol=1e-6, rtol=0)
+        if row:
+            assert len(live) < tiles

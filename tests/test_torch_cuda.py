@@ -14,7 +14,12 @@ scans (K9, flat and slab) and the int2 coarse scores (K5) none: scores and
 rows equal the plain version's bit for bit; the exact select (K6) returns the plain version's set, order and floor
 exactly; the tiletop scores (K10) equal theirs bit for bit, vals and rows, and so do the tiletop, window
 and threshold pipelines; attention 1e-2 in bf16 against the f32 math on the same bf16
-inputs, 1e-5 in f32.
+inputs, 1e-5 in f32.  The redesigned kernels have cases of their own: K2
+(``test_scan_slab_bf16_*``: every sweep width and depth, scores that ascend
+along the sweep, all-equal scores, a filter that keeps ~1% of the rows, a
+sweep that ends inside a row tile) and K11's bf16 path
+(``test_attention_bf16_tensor_cores``: S 100, 384 and 512, DH 16, 32 and
+64, masks with whole padded key tiles, one kept key, or none).
 """
 
 import pytest
@@ -144,6 +149,121 @@ def test_scan_topk_slab_matches_plain(dev, nq, k, filt, n_sweep):
         near = (vp[:, 1:] - vp[:, :-1]).abs() <= 2e-4
         near = torch.nn.functional.pad(near, (1, 0)) | torch.nn.functional.pad(near, (0, 1))
         assert bool((~diff | near).all())
+
+
+def _assert_scan_close(got, want):
+    """Scores within 1e-4 of the plain version's; rows equal except where
+    the plain score lies within 2e-4 of a neighbour's or within 1e-4 of the
+    last matching score (the band chip_smoke.compare_topk allows: f32 sums
+    in another order may swap near ties, also across the k-th place)."""
+    (vk, rk), (vp, rp) = got, want
+    fin = torch.isfinite(vp)
+    assert torch.equal(torch.isfinite(vk), fin)
+    torch.testing.assert_close(vk, vp, atol=1e-4, rtol=0)
+    assert bool((rk[~fin] == -1).all())
+    diff = rk != rp
+    if diff.any():
+        near = (vp[:, 1:] - vp[:, :-1]).abs() <= 2e-4
+        near = torch.nn.functional.pad(near, (1, 0)) | torch.nn.functional.pad(near, (0, 1))
+        last = (fin.sum(dim=1, keepdim=True) - 1).clamp(min=0)
+        near |= (vp - vp.gather(1, last)).abs() <= 1e-4
+        assert bool((~diff | near).all()), f"{int((diff & ~near).sum())} rows outside the tie band"
+
+
+def _bf16_rows(dev, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.randn((n, 384), generator=g, device=dev)
+    src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((n,), generator=g, device=dev) < 0.2] = -1
+    return (m / m.norm(dim=1, keepdim=True)).to(torch.bfloat16), src, g
+
+
+@pytest.mark.parametrize("nq", [256, 384, 2048])
+@pytest.mark.parametrize("k", [1, 10, 32, 512, 8192])
+def test_scan_slab_bf16_widths_and_depths(dev, nq, k):
+    """K2 (csrc/scan_slab_bf16.cu) at every sweep width and depth: 384
+    queries go through scan_topk, which pads them to a slab multiple."""
+    m, src, g = _bf16_rows(dev, 32768, nq + k)
+    q = torch.randn((nq, 384), generator=g, device=dev)
+    allowed = _allowed(dev, [0, 2] if k == 10 else None)
+    before = topk.LAUNCHES_SLAB
+    if nq == 384:
+        got = topk.scan_topk(m, src, q, allowed, k)
+    else:
+        got = topk.scan_topk_slab(m, src, q, allowed, k)
+    want = topk.scan_topk_plain(m, src, q, allowed, k)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES_SLAB > before
+    _assert_scan_close(got, want)
+
+
+@pytest.mark.parametrize("case", ["ascending", "all_equal", "filter_drops_99", "ragged_sweep"])
+@pytest.mark.parametrize("k", [10, 32, 512])
+def test_scan_slab_bf16_adversarial(dev, case, k):
+    """K2's running thresholds on orders that defeat them: scores that
+    ascend along the sweep (every tile raises tau), all-equal scores (the
+    tie rule: lower rows first), a filter that keeps ~1% of the rows, and a
+    sweep that ends inside a row tile."""
+    n, nq = 65536, 256
+    m, src, g = _bf16_rows(dev, n, 7 + k)
+    q = torch.randn((nq, 384), generator=g, device=dev)
+    allowed, n_sweep = _allowed(dev), 0
+    if case == "ascending":
+        u = torch.randn((384,), generator=g, device=dev)
+        u = u / u.norm()
+        m = (torch.linspace(0.01, 1.0, n, device=dev)[:, None] * u[None, :]).to(torch.bfloat16)
+        q = u[None, :] + 0.05 * torch.randn((nq, 384), generator=g, device=dev)
+        src = torch.zeros_like(src)
+    elif case == "all_equal":
+        m = torch.randint(-3, 4, (1, 384), generator=g, device=dev).to(torch.bfloat16).repeat(n, 1).contiguous()
+        q = torch.randint(-3, 4, (nq, 384), generator=g, device=dev).float()
+    elif case == "filter_drops_99":
+        src = torch.where(torch.rand((n,), generator=g, device=dev) < 0.01, 0, 5).to(torch.int32)
+        allowed = _allowed(dev, [0])
+    else:
+        n_sweep = 20_000 + 37
+    got = topk.scan_topk_slab(m, src, q, allowed, k, n_sweep)
+    want = topk.scan_topk_plain(m, src, q, allowed, k, n_sweep)
+    torch.cuda.synchronize()
+    _assert_scan_close(got, want)
+    if case == "all_equal":
+        assert torch.equal(got[1], want[1])
+        first_rows = torch.nonzero(src >= 0).flatten()[:k].to(torch.int32)
+        assert bool((got[1] == first_rows[None, :]).all())
+    if case == "ragged_sweep":
+        assert bool((got[1] < n_sweep).all())
+
+
+@pytest.mark.parametrize("s", [100, 384, 512])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("masks", ["padded", "one_key", "holes"])
+def test_attention_bf16_tensor_cores(dev, s, dh, masks):
+    """K11's bf16 path (mma.sync, cp.async ring, masked key tiles skipped)
+    against the f32 math on the same bf16 inputs, 1e-2: "padded" rows keep
+    a prefix (some under 64 tokens, so whole key tiles are padding),
+    "one_key" rows keep one token, "holes" keeps random tokens but none in
+    key tiles 0 and 2; in each, batch row 0 keeps no token at all (every
+    key tile then counts)."""
+    b, nh = 4, 3
+    g = torch.Generator(device=dev).manual_seed(s * dh + len(masks))
+    q, k, v = ((torch.randn((b, s, nh, dh), generator=g, device=dev) * sd).to(torch.bfloat16) for sd in (1.0, 1.0, 0.5))
+    pos = torch.arange(s, device=dev)[None, :]
+    if masks == "padded":
+        lens = torch.tensor([0, 1, min(s, 40), s], device=dev)[:, None]
+        mask = pos < lens
+    elif masks == "one_key":
+        mask = pos == torch.randint(0, s, (b, 1), generator=g, device=dev)
+    else:
+        mask = torch.rand((b, s), generator=g, device=dev) < 0.3
+        mask &= ~((pos // 64 == 0) | (pos // 64 == 2))
+    mask = mask.to(torch.int32)
+    mask[0] = 0
+    before = attn.LAUNCHES
+    got = attn.attention(q, k, v, mask)
+    want = attn.attention_plain(q.float(), k.float(), v.float(), mask)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES == before + 1
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=0)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -146,3 +146,69 @@ def test_wrapper_checks():
         topk.scan_topk(m, src.long(), torch.zeros(1, 128), al, 4)
     with pytest.raises(ValueError):
         topk.scan_topk(m, src, torch.zeros(1, 64), al, 4)
+
+
+@pytest.mark.parametrize("nq", [256, 384, 512, 1024, 2048])
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 512, 8192])
+@pytest.mark.parametrize("n_sweep", [958_464, 20_037, 128, 1])
+def test_slab_bf16_plan_sizes_the_workspace(nq, k, n_sweep):
+    """K2's launch plan: whole 128-row tiles cover the sweep in non-empty
+    ranges, about one block per SM, lists of 64 keys up to k = 32 and more
+    than k past it, and the workspace is what the kernel writes: a list per
+    (query, range)."""
+    sms = 132
+    ws, (qrows, ranges, rows_per_range, cap) = topk.slab_bf16_plan(nq, 384, n_sweep, k, sms)
+    assert qrows == 128
+    assert cap == 64 if k <= 32 else cap >= 2 * k and cap % 32 == 0
+    assert rows_per_range % 128 == 0 and rows_per_range >= 128
+    assert ranges * rows_per_range >= n_sweep > (ranges - 1) * rows_per_range
+    assert -(-nq // qrows) * ranges <= max(sms, -(-nq // qrows))
+    if k > 32 and n_sweep >= 4 * k:
+        assert rows_per_range >= 4 * k
+    assert ws == nq * ranges * cap * 8
+    # the wrapper's query chunks keep every launch's workspace within budget
+    chunks = topk.query_chunks(nq, lambda n: topk.slab_bf16_plan(n, 384, n_sweep, k, sms)[0],
+                               topk.SLAB_QUERIES, topk._WORKSPACE_BYTES)
+    assert chunks[0][0] == 0 and chunks[-1][1] == nq
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    for s, e in chunks:
+        assert topk.slab_bf16_plan(e - s, 384, n_sweep, k, sms)[0] <= topk._WORKSPACE_BYTES
+        assert e == nq or (e - s) % topk.SLAB_QUERIES == 0
+
+
+def test_slab_bf16_plan_wide_rows_take_64_queries():
+    """Past d = 384 a block holds 64 queries, so the query tile still fits
+    in shared memory beside the ring."""
+    _, (qrows, *_) = topk.slab_bf16_plan(512, 1024, 100_000, 32, 132)
+    assert qrows == 64
+
+
+@pytest.mark.parametrize("nq,want", [
+    (1, ["flat"]), (255, ["flat"]), (256, ["slab"]), (300, ["slab"]), (384, ["slab"]),
+    (2048, ["slab"]), (2049, ["slab", "flat"]), (2048 + 300, ["slab", "slab"]),
+])
+@pytest.mark.parametrize("k", [1, 32, 8192])
+def test_scan_topk_routes_as_before(monkeypatch, nq, k, want):
+    """scan_topk routes each sweep of at most MAX_QUERY_SLAB queries to K2
+    when it holds at least 2 * QUERY_SLAB queries (padded to a multiple of
+    QUERY_SLAB) over a bf16 matrix, else to K1; an f32 matrix always takes
+    K1."""
+    calls = []
+
+    def record(name):
+        def fn(matrix, source_ids, q, allowed, k, n_sweep=0):
+            calls.append((name, q.shape[0]))
+            return (torch.zeros((q.shape[0], k)), torch.zeros((q.shape[0], k), dtype=torch.int32))
+        return fn
+
+    monkeypatch.setattr(topk, "scan_topk_slab", record("slab"))
+    monkeypatch.setattr(topk, "scan_topk_flat", record("flat"))
+    m = torch.zeros((16, 128), dtype=torch.bfloat16)
+    src = torch.zeros(16, dtype=torch.int32)
+    al = torch.from_numpy(_allowed())
+    vals, rows = topk.scan_topk(m, src, torch.zeros((nq, 128)), al, k)
+    assert [c[0] for c in calls] == want and vals.shape == (nq, k)
+    assert all(n % topk.QUERY_SLAB == 0 for name, n in calls if name == "slab")
+    calls.clear()
+    topk.scan_topk(m.float(), src, torch.zeros((nq, 128)), al, k)
+    assert {c[0] for c in calls} == {"flat"}
