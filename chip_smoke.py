@@ -10,7 +10,7 @@ Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
   2. build the CUDA kernels from perceive_tpu_torch/csrc;
   3. K1 and K2 (bf16 scan + top-k, flat and slab) against their plain
-     version at 1M x 384 bf16;
+     version at 1M x 384 bf16, K1 also over the same rows in f32;
   4. K3 and K4 (int8 scan + top-k, flat and slab) against their plain
      version, bit for bit, at 2M x 384 int8;
   5. K11 (attention) against its plain version at every encoder bucket
@@ -49,7 +49,9 @@ Phases (any failure exits non-zero before the final line):
  15. K9 (packed-int4 scan + top-k, flat and slab) against its plain version,
      bit for bit, at the int4 tier's own size (25,165,824 x 384, past the
      int2 tier's 24M, generated on the card), with K7 and K8 timed on the
-     same rows unpacked to int8 beside it;
+     same rows unpacked to int8 beside it, a sweep of 2,048 queries in one
+     slab launch; then K9's slab kernel bit for bit and timed at 34,603,008
+     rows;
  16. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
      slice's corpus, the same 16 queries through the CLI (flat K9), hits
      against the exact f32 top-10 (``served_recall_at_10``);
@@ -84,7 +86,7 @@ import time
 import numpy as np
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "scan_topk": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:966"),
+    "scan_topk": ("perceive_tpu_torch/csrc/scan_flat_bf16.cu", "perceive_tpu/ops/topk.py:966"),
     "scan_slab": ("perceive_tpu_torch/csrc/scan_slab_bf16.cu", "perceive_tpu/ops/topk.py:927"),
     "scan_int8": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:273"),
     "scan_int8_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:234"),
@@ -94,7 +96,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "scan_int8t": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:753"),
     "scan_int8t_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:835"),
     "scan_int4": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:519"),
-    "scan_int4_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:618"),
+    "scan_int4_slab": ("perceive_tpu_torch/csrc/scan_slab_int4.cu", "perceive_tpu/ops/topk.py:618"),
     "int2_tiletop": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1347"),
 }
 # the H100 SXM data sheet: device memory rate and dense tensor-core peaks
@@ -110,6 +112,7 @@ INT8_KB = 128  # the int8 slice's: k=10, x4 over-fetch, doubled for chunk dedupe
 INT4_KB = 256  # the int4 slices': k=10, x8 over-fetch, doubled for chunk dedupe
 INT2_KCS = (1024, 4096)  # coarse depths: the audit's shallowest, and the default
 INT4_KERNEL_ROWS = 25_165_824  # the int4 tier's own size: past 24M rows
+INT4_WIDE_ROWS = 34_603_008  # past 33,553,920 rows, where K9's first slab kernel ran out of grid
 INT2_TOP_ROWS, INT2_TOP_HWM = 25_165_824, 22_500_000  # K10 near the int2 tier's upper end (24M rows)
 SELECTS = ("tiletop", "window", "threshold")  # the int2 selects pinned on the int2 slice's state
 SCAN_TOL = 1e-4  # bf16 scans: f32 sums of bf16 products in another order
@@ -305,7 +308,8 @@ def torch_equal(got, want) -> bool:
 
 
 def check_bf16_scans(card: str) -> dict:
-    """K1 (flat) and K2 (slab) at 1,048,576 x 384 bf16."""
+    """K1 (flat) and K2 (slab) at 1,048,576 x 384 bf16, K1 also over the
+    same rows in f32 (its CUDA-core path at every width)."""
     import torch
 
     from perceive_tpu_torch.ops import topk
@@ -335,6 +339,15 @@ def check_bf16_scans(card: str) -> dict:
                     want = topk.scan_topk_plain(m, src, q, al, k, ns)
                     err = check_case(f"{kid} Q={nq:<4d} k={k:<5d} filter={fname:<4s}", got, want, SCAN_TOL)
                     worst[kid] = max(worst[kid], err)
+    m32 = m.float()
+    for nq in (1, 64):
+        q = queries(nq)
+        for fname, al in allowed.items():
+            got = topk.scan_topk_flat(m32, src, q, al, BF16_KB, ns)
+            want = topk.scan_topk_plain(m32, src, q, al, BF16_KB, ns)
+            err = check_case(f"K1 Q={nq:<4d} k={BF16_KB:<5d} filter={fname:<4s} f32", got, want, SCAN_TOL)
+            worst["K1"] = max(worst["K1"], err)
+    del m32
     before = topk.LAUNCHES_SLAB
     topk.scan_topk(m, src, queries(300), allowed["all"], 16, ns)  # padded to 384: K2's route
     if topk.LAUNCHES_SLAB != before + 1:
@@ -361,8 +374,8 @@ def check_bf16_scans(card: str) -> dict:
         return torch.topk(torch.matmul(q.to(torch.bfloat16), mv.T).masked_fill(~keep, float("-inf")), k)
 
     times = {}
-    for kid, fn, nq, k in (("K1", topk.scan_topk_flat, 1, 16), ("K1", topk.scan_topk_flat, 64, 16),
-                           ("K1", topk.scan_topk_flat, 1, BF16_KB), ("K1", topk.scan_topk_flat, 512, BF16_KB),
+    for kid, fn, nq, k in (("K1", topk.scan_topk_flat, 1, BF16_KB), ("K1", topk.scan_topk_flat, 16, BF16_KB),
+                           ("K1", topk.scan_topk_flat, 64, BF16_KB),
                            ("K2", topk.scan_topk_slab, 512, BF16_KB), ("K2", topk.scan_topk_slab, 2048, BF16_KB)):
         q = queries(nq)
         t = {"ms": cuda_ms(lambda: fn(m, src, q, allowed["all"], k, ns)),
@@ -694,7 +707,8 @@ def int4_matrix(g, dev, n: int):
 def check_int4_kernels(card: str) -> dict:
     """K9, flat and slab, at 25,165,824 x 384 packed int4, bit for bit; K7
     and K8 over the same rows unpacked to int8 return the same answers and
-    are timed beside it."""
+    are timed beside it; a sweep of 2,048 queries is one slab launch.  Then
+    K9's slab kernel bit for bit and timed at 34,603,008 rows."""
     import torch
 
     from perceive_tpu_torch.index.matrix import sweep_rows_for
@@ -757,7 +771,11 @@ def check_int4_kernels(card: str) -> dict:
                               ("K9-slab", slab, topk.scan_topk_int8t_slab, 2048)):
         qi8, qs = queries(nq)
         k, al = INT4_KB, allowed["all"]
-        if not torch_equal(fn(packed, scales, src, qi8, qs, al, k), yard(m8, scales, src, qi8, qs, al, k)):
+        before = topk.LAUNCHES_INT4_SLAB
+        got = fn(packed, scales, src, qi8, qs, al, k)
+        if kid == "K9-slab" and topk.LAUNCHES_INT4_SLAB != before + 1:
+            raise SystemExit(f"K9's slab kernel took {topk.LAUNCHES_INT4_SLAB - before} launches for {nq} queries")
+        if not torch_equal(got, yard(m8, scales, src, qi8, qs, al, k)):
             raise SystemExit(f"{kid} Q={nq}: the int8 kernel over the unpacked rows answers differently")
         # a sweep of 2,048 queries takes seconds: one cold run each, and
         # the plain version (several seconds more) is timed at the record's
@@ -778,7 +796,24 @@ def check_int4_kernels(card: str) -> dict:
         log(f"{kid} time Q={nq} k={k} n_sweep={n}: kernel {t['ms']:.4f} ms{' (one cold run)' if wide else ''}  "
             f"plain {plain_txt}  library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  "
             f"{'K7' if kid == 'K9-flat' else 'K8'} on the rows unpacked to int8 {t['int8_ms']:.4f} ms  [{card}]")
+    log(f"K9-slab: {N_BATCH} queries over {n:,} rows at k={INT4_KB} took one launch  ok")
     del packed, scales, src, m8
+    torch.cuda.empty_cache()
+
+    # past 33,553,920 rows, where the first slab kernel's grid ran out
+    n = INT4_WIDE_ROWS
+    packed, scales, src = int4_matrix(g, dev, n)
+    qi8, qs = queries(512)
+    for fname in ("all", "2src"):
+        got = slab(packed, scales, src, qi8, qs, allowed[fname], INT4_KB)
+        want = plain(packed, scales, src, qi8, qs, allowed[fname], INT4_KB)
+        check_case(f"K9-slab Q=512  k={INT4_KB:<5d} filter={fname:<4s} n_sweep={n}", got, want, 0.0)
+    ms = cuda_ms(lambda: slab(packed, scales, src, qi8, qs, allowed["all"], INT4_KB), reps=1, warmup=0)
+    live = int((src >= 0).sum())
+    b, by = bound(live * (DIM // 2 + 4) + 4 * n + 512 * DIM + 512 * INT4_KB * 8, 2.0 * 512 * live * DIM, "int8")
+    log(f"K9-slab time Q=512 k={INT4_KB} n_sweep={n}: kernel {ms:.4f} ms (one cold run)  "
+        f"bound {b:.4f} ms ({by})  [{card}]")
+    del packed, scales, src
     torch.cuda.empty_cache()
     return {"flat": {"max_abs_err": 0.0, **times[("K9-flat", 1)]},
             "slab": {"max_abs_err": 0.0, **times[("K9-slab", 512)]}}
@@ -1757,7 +1792,7 @@ def main(argv=None) -> int:
         int2k = check_int2_kernels(card)
     with phase(f"K10 against its plain version at {INT2_TOP_ROWS:,} x {DIM}"):
         check_tiletop_top(card, dev)
-    with phase("K9 (flat, slab) against its plain version at 25,165,824 x 384"):
+    with phase("K9 (flat, slab) against its plain version at 25,165,824 x 384, slab at 34,603,008"):
         int4k = check_int4_kernels(card)
 
     # every main path runs with the launch counts set to 0 just before it

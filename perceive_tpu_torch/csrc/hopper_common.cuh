@@ -1,0 +1,502 @@
+// Shared parts of the Hopper scan kernels (scan_slab_bf16.cu: K2;
+// scan_flat_bf16.cu: K1; scan_slab_int4.cu: K9's slab kernel): mbarriers,
+// TMA loads and tensor maps (encoded on the host through
+// cudaGetDriverEntryPoint, so nothing links libcuda), wgmma descriptors,
+// and the running per-(query, row range) candidate lists that replace a
+// select per row block.
+//
+// A list lives in the workspace, cand[q][range][cap] (it stays in L2).  A
+// query's running threshold tau is the k-th best key of its list when the
+// list was last compacted (0 before that): a key that does not beat tau is
+// out of the range's top k.  A list holds 64 keys for k <= 32 (compacted by
+// a 64-key sort in registers) and cap >= 2k past that (compacted by a
+// bitwise search for the k-th key); at the end each block leaves its lists
+// as they stand, zero-filled to cap, and list_pass2 selects over ranges x
+// cap keys a query.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the entry point comes through the runtime
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "topk_common.cuh"
+
+namespace {
+
+constexpr int kSortK = 32;     // k up to this: lists of kSortCap keys, sorted in registers
+constexpr int kSortCap = 64;
+constexpr size_t kSmemMax = 232448;  // per-block opt-in maximum on sm_90
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Initialises the mbarriers (thread 0) and makes them visible to TMA.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy
+// (wgmma operands written by ordinary stores).
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Barrier `id` (1..15) over the first `count` threads of the block (a
+// multiple of 32): the consumer warps, without the producer.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// box (c0 = innermost coordinate, c1 = outer) of a 2-d tensor map -> shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 1-d box (c0 = first element) of a tensor map -> shared memory
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, int c0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// Byte offset of byte `b` of row `r` in a tile of 128-byte rows with the
+// 128-byte swizzle (as TMA writes it and wgmma reads it): the 16-byte chunk
+// index is XORed with the row's place in its 8-row group.  The tile must be
+// 1024-byte aligned.
+__device__ __forceinline__ int swz128(int r, int b) { return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15); }
+
+// wgmma operand descriptor: a K-major tile of 128-byte rows, 128-byte
+// swizzle, 8-row groups 1024 bytes apart.  Advancing along k by 32 bytes
+// (16 bf16, 32 int8) adds 2.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  uint64_t desc = (smem_u32(p) & 0x3FFFFu) >> 4;
+  desc |= 1ull << 16;                              // leading byte offset (unused when swizzled)
+  desc |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset
+  desc |= 1ull << 62;                              // 128-byte swizzle
+  return desc;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// The bits of this thread's rows 8j + 2t + e of a 128-row tile (bit 2j +
+// e): the row lies before `rows` and its source id (ids[r]) is live and,
+// with a filter (n_filter > 0), allowed.  Four ballots, one per t: lane 2j
+// + e tests row 8j + 2t' + e for each t'.
+__device__ __forceinline__ uint32_t tile_valid(const int* ids, int rows, const int* allow, int n_filter, int t) {
+  const int lane = threadIdx.x & 31;
+  uint32_t v = 0;
+#pragma unroll
+  for (int tt = 0; tt < 4; ++tt) {
+    const int r = 8 * (lane >> 1) + 2 * tt + (lane & 1);
+    const int id = ids[r];
+    bool ok = r < rows && id >= 0;
+    if (n_filter > 0) {
+      bool hit = false;
+      for (int f = 0; f < n_filter; ++f) hit |= id == allow[f];
+      ok = ok && hit;
+    }
+    const uint32_t b = __ballot_sync(0xffffffffu, ok);
+    if (tt == t) v = b;
+  }
+  return v;
+}
+
+// One warp keeps the best k of the n keys list[0, n) (unique, non-zero,
+// n > k): a bitwise search finds the k-th largest key T (stopping early
+// once exactly k keys lie at or above the bits fixed so far), then the
+// keys >= T move to list[0, k) in their order.  Returns T: every key below
+// it is out of the list's top k.  The list lives in the workspace (L2), and
+// the search reads it once a bit, so each lane keeps kBatch loads in
+// flight: one L2 round trip a pass up to n = 512 (k = 256).
+__device__ u64 warp_keep_top(u64* list, int n, int k) {
+  constexpr int kBatch = 16;
+  const int lane = threadIdx.x & 31;
+  auto load = [&](int i0, u64 (&v)[kBatch]) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + 32 * u + lane;
+      v[u] = i < n ? list[i] : 0ull;
+    }
+  };
+  u64 t = 0;
+  for (int bit = 63; bit >= 0; --bit) {
+    const u64 c = t | (1ull << bit);
+    int cnt = 0;
+    for (int i0 = 0; i0 < n; i0 += 32 * kBatch) {
+      u64 v[kBatch];
+      load(i0, v);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) cnt += v[u] >= c;
+    }
+    cnt = warp_sum_i(cnt);
+    if (cnt >= k) {
+      t = c;
+      if (cnt == k) break;
+    }
+  }
+  // keys move down only: a batch is read whole before any of it is written
+  const unsigned lower = (1u << lane) - 1u;
+  int base = 0;
+  for (int i0 = 0; i0 < n; i0 += 32 * kBatch) {
+    u64 v[kBatch];
+    load(i0, v);
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const bool take = v[u] >= t;  // 0 past n
+      const unsigned takes = __ballot_sync(0xffffffffu, take);
+      if (take) list[base + __popc(takes & lower)] = v[u];
+      base += __popc(takes);
+    }
+    __syncwarp();
+  }
+  return t;
+}
+
+__device__ __forceinline__ u64 shfl_xor_u64(u64 v, int m) {
+  const uint32_t lo = __shfl_xor_sync(0xffffffffu, static_cast<uint32_t>(v), m);
+  const uint32_t hi = __shfl_xor_sync(0xffffffffu, static_cast<uint32_t>(v >> 32), m);
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+// One bitonic step between lanes `stride` apart: the lower lane keeps the
+// larger key where keep_max_low, else the smaller.
+__device__ __forceinline__ u64 bitonic_step(u64 x, int stride, bool keep_max_low) {
+  const u64 y = shfl_xor_u64(x, stride);
+  const bool low = (threadIdx.x & stride) == 0;
+  return (low == keep_max_low) ? (x > y ? x : y) : (x < y ? x : y);
+}
+
+// Bitonic sort of the warp's 64 keys, best first: element e is register
+// e / 32 of lane e % 32.
+__device__ __forceinline__ void warp_sort64(u64& x0, u64& x1) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // size 64: element lane against lane + 32, best first
+        const u64 a = x0 > x1 ? x0 : x1, b = x0 > x1 ? x1 : x0;
+        x0 = a;
+        x1 = b;
+        continue;
+      }
+      x0 = bitonic_step(x0, stride, ((lane & size) == 0));
+      x1 = bitonic_step(x1, stride, (((32 + lane) & size) == 0));
+    }
+  }
+}
+
+// One warp keeps the best k of a full list of kSortCap keys (k <= kSortK)
+// at list[0, k), best first, and returns the k-th key.
+__device__ u64 warp_keep_top64(u64* list, int k) {
+  const int lane = threadIdx.x & 31;
+  u64 x0 = list[lane], x1 = list[32 + lane];
+  warp_sort64(x0, x1);
+  const u64 thr = __shfl_sync(0xffffffffu, x0, k - 1);
+  __syncwarp();
+  if (lane < k) list[lane] = x0;
+  return thr;
+}
+
+// One warp compacts a full list of cap keys to its best k; returns the new tau.
+__device__ __forceinline__ u64 warp_compact(u64* list, int cap, int k) {
+  return cap == kSortCap ? warp_keep_top64(list, k) : warp_keep_top(list, cap, k);
+}
+
+// The epilogue of a wgmma tile of 16 queries (a warp) x 128 rows: acc[4j +
+// 2h + e] is the score of query (h ? qb : qa) and tile row 8j + 2t + e,
+// valid that row's bit (2j + e).  A score screens against the float of
+// tau's score bits (queries past qn screen at +inf), then its key must beat
+// tau; a key that does is appended to its list (a shared-memory atomic on
+// cnt gives the slot), each lane taking its candidates by predicated
+// selects so that no lane diverges into another's; when a list fills, the
+// warp keeps its top k and raises tau.  list_of(query) is the query's list.
+template <class ListOf>
+__device__ __forceinline__ void append_tile(const float (&acc)[64], uint32_t valid, int row0, int qa, int qb,
+                                            int qn, int wq0, u64* tau, int* cnt, const ListOf& list_of, int k,
+                                            int cap) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  u64* list_a = list_of(qa);
+  u64* list_b = list_of(qb);
+  u64 ta = tau[qa], tb = tau[qb];
+  const float fa = qa >= qn ? INFINITY : ta ? order_float(static_cast<uint32_t>(ta >> 32)) : -INFINITY;
+  const float fb = qb >= qn ? INFINITY : tb ? order_float(static_cast<uint32_t>(tb >> 32)) : -INFINITY;
+  uint32_t ma = 0, mb = 0;  // rows (bit 2j + e) whose score passes the screen, per query
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ma |= static_cast<uint32_t>(acc[4 * j + e] >= fa) << (2 * j + e);
+      mb |= static_cast<uint32_t>(acc[4 * j + 2 + e] >= fb) << (2 * j + e);
+    }
+  ma &= valid;
+  mb &= valid;
+  // each lane appends its candidates, lowest j first; a group's four
+  // scores come out of acc by predicated selects.  Keys that find their
+  // list full are left in (ma, mb) for after the compaction.
+  while (true) {
+    uint32_t ra = 0, rb = 0;
+    uint32_t groups = (ma | mb | ((ma | mb) >> 1)) & 0x55555555u;
+    while (__any_sync(0xffffffffu, groups != 0)) {
+      if (groups == 0) continue;
+      const int j = (__ffs(groups) - 1) >> 1;
+      groups &= groups - 1;
+      float x[4];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+        if (jj == j) {
+          x[0] = acc[4 * jj];
+          x[1] = acc[4 * jj + 1];
+          x[2] = acc[4 * jj + 2];
+          x[3] = acc[4 * jj + 3];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t bit = 1u << (2 * j + e);
+          if (((h ? mb : ma) & bit) == 0) continue;
+          const u64 key = make_key(float_order(x[2 * h + e] + 0.0f), row0 + 8 * j + 2 * t + e);
+          if (key <= (h ? tb : ta)) continue;
+          const int slot = atomicAdd(cnt + (h ? qb : qa), 1);
+          if (slot < cap)
+            (h ? list_b : list_a)[slot] = key;
+          else
+            (h ? rb : ra) |= bit;
+        }
+    }
+    // the warp's full lists (those that turned a key away) keep their top k
+    uint32_t full_q = (ra ? 1u << g : 0u) | (rb ? 1u << (g + 8) : 0u);
+    full_q = __reduce_or_sync(0xffffffffu, full_q);
+    if (full_q == 0) break;
+    __syncwarp();
+    while (full_q) {
+      const int qq = wq0 + __ffs(full_q) - 1;
+      full_q &= full_q - 1;
+      const u64 thr = warp_compact(list_of(qq), cap, k);
+      if (lane == 0) {
+        tau[qq] = thr;
+        cnt[qq] = k;
+      }
+      __syncwarp();
+    }
+    ta = tau[qa];
+    tb = tau[qb];
+    ma = ra;
+    mb = rb;
+  }
+}
+
+// Each of the warp's 16 queries' lists as it stands, zero-filled to cap keys.
+template <class ListOf>
+__device__ __forceinline__ void finish_lists(int wq0, int qn, const int* cnt, const ListOf& list_of, int cap) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  for (int i = 0; i < 16; ++i) {
+    const int qq = wq0 + i;
+    if (qq >= qn) break;
+    u64* list = list_of(qq);
+    for (int j = min(cnt[qq], cap) + lane; j < cap; j += 32) list[j] = 0ull;
+  }
+}
+
+// Pass 2 of the list-keeping kernels: one block a query selects the top k
+// of its ranges x cap keys (topk_common.cuh's radix select) and sorts them
+// best first.  Where they fit beside the sort buffer, the keys are first
+// copied into shared memory with 16-byte loads, so the select's passes
+// (one a byte of the key, until the k-th key is found) read shared memory
+// rather than L2; else they read the workspace.
+__global__ void __launch_bounds__(kThreads) list_pass2(const u64* __restrict__ cand, int ncand, int k, int sort_n,
+                                                       bool staged, float* __restrict__ vals,
+                                                       int* __restrict__ rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* buf = reinterpret_cast<u64*>(smem);  // [sort_n], sort_n = pow2 >= k
+  __shared__ SelectScratch ss;
+  const int tid = threadIdx.x;
+  const u64* src = cand + static_cast<size_t>(blockIdx.x) * ncand;
+  const u64* keys = src;
+  if (staged) {  // ncand is even (cap is a multiple of 32): whole 16-byte pairs, 8 in flight a thread
+    constexpr int kInFlight = 8;
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(buf + ((sort_n + 1) & ~1));
+    const ulonglong2* from = reinterpret_cast<const ulonglong2*>(src);
+    const int pairs = ncand / 2;
+    for (int i0 = 0; i0 < pairs; i0 += kInFlight * kThreads) {
+      ulonglong2 v[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int i = i0 + u * kThreads + tid;
+        if (i < pairs) v[u] = from[i];
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int i = i0 + u * kThreads + tid;
+        if (i < pairs) dst[i] = v[u];
+      }
+    }
+    __syncthreads();
+    keys = reinterpret_cast<const u64*>(dst);
+  }
+  const GlobalKeys key{keys};  // a generic pointer: shared memory or the workspace
+
+  const u64 thr = select_threshold(key, ncand, k, ss);
+  const int got = select_collect(key, ncand, thr, buf, ss);
+  for (int i = got + tid; i < sort_n; i += kThreads) buf[i] = 0ull;
+  __syncthreads();
+  for (int size = 2; size <= sort_n; size <<= 1) {  // bitonic sort, descending
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < sort_n / 2; i += kThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const u64 a = buf[lo], b = buf[hi];
+        if ((a < b) == up) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  float* ov = vals + static_cast<size_t>(blockIdx.x) * k;
+  int* orow = rows + static_cast<size_t>(blockIdx.x) * k;
+  for (int i = tid; i < k; i += kThreads) {
+    const u64 kv = buf[i];
+    ov[i] = kv ? order_float(static_cast<uint32_t>(kv >> 32)) : -INFINITY;
+    orow[i] = kv ? static_cast<int>(0xffffffffu - static_cast<uint32_t>(kv & 0xffffffffull)) : -1;
+  }
+}
+
+// -- host side ------------------------------------------------------------------
+
+// Lets `kernel` take all the shared memory a block may have (kSmemMax, its
+// static share included) on the current device: set once a device and
+// process, not at every launch (a text query's scan launches in well under
+// a millisecond, and its host time counts).  The smem of each launch still
+// sets its occupancy.
+template <auto kernel>
+cudaError_t allow_smem() {
+  static int done[64] = {0};  // by device; a race sets the attribute twice, harmlessly
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemMax - attr.sharedSizeBytes));
+  if (err == cudaSuccess && dev < 64) done[dev] = 1;
+  return err;
+}
+
+// Launches list_pass2 over nq queries' ncand keys each.
+inline cudaError_t launch_list_pass2(const u64* cand, int nq, int ncand, int k, float* vals, int* rows,
+                                     cudaStream_t stream) {
+  const int sort_n = pow2_at_least(k);
+  const size_t sort_bytes = static_cast<size_t>(sort_n) * sizeof(u64);
+  const size_t staged_bytes = static_cast<size_t>(((sort_n + 1) & ~1) + ncand) * sizeof(u64);
+  const bool staged = staged_bytes + sizeof(SelectScratch) + 1024 <= kSmemMax;
+  const size_t smem = staged ? staged_bytes : sort_bytes;
+  const cudaError_t err = allow_smem<list_pass2>();
+  if (err != cudaSuccess) return err;
+  list_pass2<<<nq, kThreads, smem, stream>>>(cand, ncand, k, sort_n, staged, vals, rows);
+  return cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-d (outer, inner) tensor whose outer index advances `stride` bytes,
+// read in (box_outer x box_inner)-element boxes; past (outer, inner) the
+// box reads zeros.
+bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t inner, uint64_t outer,
+                 uint64_t stride, uint32_t box_inner, uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (n,) vector of 4-byte elements (source ids, scales) read in boxes of
+// `box` elements; past n, zeros.
+bool make_map_1d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int n, int box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {4};  // unused at rank 1
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t elem[1] = {1};
+  return fn(map, type, 1, const_cast<void*>(ptr), dims, strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The checks every list-based launch plan shares: cap fits k, the ranges
+// cover the sweep in whole tiles of `tile` rows, and fit a grid dimension.
+inline bool list_plan_ok(int n_sweep, int k, int ranges, int rows_per_range, int cap, int tile) {
+  return (k <= kSortK ? cap == kSortCap : cap > k) && ranges >= 1 && ranges <= 65535 &&
+         rows_per_range >= tile && rows_per_range % tile == 0 &&
+         static_cast<long long>(ranges) * rows_per_range >= n_sweep;
+}
+
+}  // namespace
+
+// The bf16 wgmma pass 1 (scan_slab_bf16.cu): K2's, and K1's for bf16 sweeps
+// wider than FLAT_CORE_QUERIES.  Leaves each (query, range) list in cand.
+cudaError_t scan_bf16_wgmma_lists(const void* matrix, const int* src, const void* q, const int* allowed,
+                                  int n_filter, int nq, int d, int n_sweep, int k, int qrows, int ranges,
+                                  int rows_per_range, int cap, unsigned long long* cand, cudaStream_t s);

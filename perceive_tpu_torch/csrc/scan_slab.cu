@@ -1,24 +1,17 @@
 // Exact scan with top-k selection for batches of queries over the int8
-// tiers: K4 (int8 rows), K8 (the int2 tier's int8 companion, stored
-// transposed) and K9's slab kernel (the packed-int4 matrix, stored
-// transposed), one templated kernel with three instantiations.  (The bf16
-// batch scan has a kernel of its own for Hopper: scan_slab_bf16.cu.)
+// tiers: K4 (int8 rows) and K8 (the int2 tier's int8 companion, stored
+// transposed), one templated kernel with two instantiations.  (The bf16
+// and packed-int4 batch scans have kernels of their own for Hopper:
+// scan_slab_bf16.cu and scan_slab_int4.cu.)
 //
 // Replaces the TPU kernels perceive_tpu/ops/topk.py
-// `pallas_topk_int8_slabbed` (`_scan_kernel_int8_slabbed`),
-// `pallas_topk_int8t_slabbed` (`_scan_kernel_int8t_slabbed`) and
-// `pallas_topk_int4_slabbed` (`_scan_kernel_int4_slabbed`): the same scans
-// as K3, K7 and K9's flat kernel, for sweeps of at least 256 queries, where
-// each row tile is read once for many queries.  K8 reads the (D, N) layout,
-// whose bytes are contiguous along the rows: it transposes each 4 x 4 byte
-// micro-tile while staging it (__byte_perm), so the shared-memory tile and
-// the fragment loads are K4's.  K9 reads the (D/2, N) packed layout the
-// same way and decodes each staged byte-row r into two int8 dims, r (low
-// nibble less 8) and r + D/2 (high nibble, sign-extended): a slice of 64
-// byte-rows fills the 128-byte k-slice with dims r.. (first half) and
-// r + D/2.. (second half), and the query tile is staged in the same dim
-// order.  It reads half of K8's bytes a row and does more integer work
-// while staging.
+// `pallas_topk_int8_slabbed` (`_scan_kernel_int8_slabbed`) and
+// `pallas_topk_int8t_slabbed` (`_scan_kernel_int8t_slabbed`): the same scans
+// as K3 and K7, for sweeps of at least 256 queries, where each row tile is
+// read once for many queries.  K8 reads the (D, N) layout, whose bytes are
+// contiguous along the rows: it transposes each 4 x 4 byte micro-tile while
+// staging it (__byte_perm), so the shared-memory tile and the fragment
+// loads are K4's.
 //
 // What bounds them on the H100: operations.  At Q = 512 a 2M x 384 int8
 // sweep is 8.2e11 ops (0.41 ms at 1,979 TOP/s) against 0.82 GB (0.24 ms at
@@ -80,9 +73,9 @@ __device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// How the matrix is laid out: (N, row_bytes) rows (K4), the transposed
-// (D, ld) int8 companion (K8), or the transposed (D/2, ld) packed int4 (K9).
-enum { kRowMajor = 0, kTransposed = 1, kPacked4 = 2 };
+// How the matrix is laid out: (N, row_bytes) rows (K4) or the transposed
+// (D, ld) int8 companion (K8).
+enum { kRowMajor = 0, kTransposed = 1 };
 
 // Grid (query tiles, row blocks); workspace cand[q][block][kc].
 template <int kDtype, int kLayout>
@@ -129,30 +122,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_slab(
 
     for (int sl = 0; sl < nslice; ++sl) {
       __syncthreads();  // every warp is done with the previous slice
-      if (kLayout == kPacked4) {
-        // (d/2, ld) layout: 4 byte-rows x 4 rows a micro-tile, transposed
-        // as K8's, then each row's word splits into its low-nibble dims
-        // (k = 0..63 of the slice) and its high-nibble dims (k = 64..127)
-        for (int i = tid; i < (kChunk / 4) * (kSlice / 8); i += kThreads) {
-          const int w = i >> 5, l = i & 31;
-          const int rg = (w & 3) * 8 + (l & 7), dg = (w >> 2) * 4 + (l >> 3);
-          const int r = 4 * rg, kk = 4 * dg;
-          uint32_t rw[4] = {0x08080808u, 0x08080808u, 0x08080808u, 0x08080808u};  // decode to 0
-          if (c0 + r < rn) {
-            const unsigned char* p =
-                matrix + static_cast<size_t>(sl * (kSlice / 2) + kk) * ld + row0 + c0 + r;
-            transpose4x4(ld32(p), ld32(p + ld), ld32(p + 2 * static_cast<size_t>(ld)),
-                         ld32(p + 3 * static_cast<size_t>(ld)), rw);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            unsigned char* dst = rs + (r + j) * kSlicePitch + kk;
-            *reinterpret_cast<uint32_t*>(dst) = __vsub4(rw[j] & 0x0f0f0f0fu, 0x08080808u);
-            *reinterpret_cast<uint32_t*>(dst + kSlice / 2) =
-                __vsub4(((rw[j] >> 4) & 0x0f0f0f0fu) ^ 0x08080808u, 0x08080808u);
-          }
-        }
-      } else if (kLayout == kTransposed) {
+      if (kLayout == kTransposed) {
         // (d, ld) layout: 4 dims x 4 rows a micro-tile, loaded as 4 words
         // (lanes: 8 row groups x 4 dim groups, so a load fills 32-byte
         // sectors) and transposed into 4 rows of 4 k-contiguous bytes
@@ -181,11 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_slab(
       }
       for (int i = tid; i < kSlabQ * (kSlice / 16); i += kThreads) {
         const int r = i >> 3, c = i & 7;
-        // the query bytes of the slice's k order: at K9, dims
-        // sl * 64 + 0..63, then d/2 + sl * 64 + 0..63 (row_bytes = d)
-        const size_t off = kLayout == kPacked4
-                               ? (c < 4 ? 0 : row_bytes / 2) + sl * (kSlice / 2) + (c & 3) * 16
-                               : static_cast<size_t>(sl) * kSlice + c * 16;
+        const size_t off = static_cast<size_t>(sl) * kSlice + c * 16;
         uint4 v = zero;
         if (r < qn)
           v = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * row_bytes + off);
@@ -289,23 +255,6 @@ int perceive_scan_topk_int8t_slab(const void* m8t, int ld, const float* scales, 
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_slab<kInt8, kTransposed>(
       static_cast<const unsigned char*>(m8t), ld, scales, src, static_cast<const unsigned char*>(q),
-      qscale, allowed, n_filter, nq, d, n_sweep, k, vals, rows, workspace,
-      static_cast<cudaStream_t>(stream)));
-}
-
-// K9's slab kernel: K4 over the transposed (d/2, ld) packed-int4 matrix
-// (ld, its capacity, a multiple of 4); d (the queries' width) a multiple
-// of 128.
-int perceive_scan_topk_int4_slab(const void* m4t, int ld, const float* scales, const int* src,
-                                 const void* q, const float* qscale, const int* allowed,
-                                 int n_filter, int nq, int d, int n_sweep, int k, float* vals,
-                                 int* rows, void* workspace, void* stream) {
-  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || n_blocks(n_sweep) > 65535 || d % kSlice ||
-      ld % 4 || n_sweep > ld || scales == nullptr || qscale == nullptr ||
-      reinterpret_cast<uintptr_t>(m4t) % 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_slab<kInt8, kPacked4>(
-      static_cast<const unsigned char*>(m4t), ld, scales, src, static_cast<const unsigned char*>(q),
       qscale, allowed, n_filter, nq, d, n_sweep, k, vals, rows, workspace,
       static_cast<cudaStream_t>(stream)));
 }

@@ -1,10 +1,10 @@
 // Exact scan with top-k selection over the device embedding matrix, for
-// fewer than 256 queries: K1 (bf16/f32 rows), K3 (int8 rows), K7 (the
-// int2 tier's int8 companion, stored transposed) and K9 (the packed-int4
-// tier, and the int2 tier's int4 companion, stored transposed).
+// fewer than 256 queries: K3 (int8 rows), K7 (the int2 tier's int8
+// companion, stored transposed) and K9 (the packed-int4 tier, and the int2
+// tier's int4 companion, stored transposed).  (The bf16/f32 scan, K1, has
+// a kernel of its own for Hopper: scan_flat_bf16.cu.)
 //
-// Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_unsorted`
-// (`_scan_kernel` + `_merge_tile_topk`, the bf16/f32 exact tier),
+// Replaces the TPU kernels perceive_tpu/ops/topk.py
 // `pallas_topk_int8_unsorted` (`_scan_kernel_int8`, the int8 tier),
 // `pallas_topk_int8t_unsorted` (`_scan_kernel_int8t`, the (D, N) int8
 // companion that int2 batches and escalations sweep) and
@@ -12,7 +12,7 @@
 // int4 matrix).
 //
 // What bounds them on the H100: device-memory bytes.  One sweep of a
-// 1M x 384 bf16 matrix reads 768 MB, of a 2M x 384 int8 matrix 805 MB, of a
+// 2M x 384 int8 matrix reads 805 MB, of a
 // 25M x 384 packed-int4 matrix 4.8 GB; a query costs 2*D operations per D
 // stored bytes or less, far below the card's operation/byte balance, so
 // the scan is a streaming read.
@@ -28,7 +28,6 @@
 //           get no score, and one warp per query keeps the block's best
 //           min(k, kRows) candidates (a 32-step threshold search over the
 //           scores in registers, topk_common.cuh).
-//             K1: bf16/f32 values widen to f32, products accumulate in f32.
 //             K3: 16 int8 values per load, __dp4a into an exact int32
 //                 accumulator, then score = f32(acc) * row scale * query
 //                 scale, rounded in that order (no fast math), so the
@@ -37,7 +36,6 @@
 //   pass 2  one block per query radix-selects the top k of all candidates,
 //           bitonic-sorts them in shared memory and writes (score, row).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,103 +44,6 @@
 namespace {
 
 constexpr int kQueryTile = 16;    // queries per pass-1 block
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T> struct Vec;
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* x) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  }
-  __device__ __forceinline__ static float to_float(float v) { return v; }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* x) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-};
-
-// K1 pass 1: grid (row blocks, query tiles).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) scan_pass1(
-    const T* __restrict__ matrix, const int* __restrict__ src, const T* __restrict__ q,
-    const int* __restrict__ allowed, int n_filter, int nq, int d, int n_sweep, int kc,
-    int qt, u64* __restrict__ cand) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [qt][d]
-  float* sc = qs + qt * d;                     // [qt][kRows]
-  __shared__ int allow[kMaxFilter];
-
-  constexpr int V = Vec<T>::N;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int blk = blockIdx.x;
-  const int q0 = blockIdx.y * qt;
-  const int qn = min(qt, nq - q0);
-  const int row0 = blk * kRows;
-  const int rn = min(kRows, n_sweep - row0);
-
-  for (int i = tid; i < qn * d; i += kThreads)
-    qs[i] = Vec<T>::to_float(q[static_cast<size_t>(q0) * d + i]);
-  if (tid < kMaxFilter) allow[tid] = tid < n_filter ? allowed[tid] : -9;
-  __syncthreads();
-  const int nvec = d / V;
-
-  for (int r = warp; r < rn; r += kWarps) {
-    const int row = row0 + r;
-    if (!row_allowed(src[row], allow, n_filter)) {  // warp-uniform: one warp owns the row
-      if (lane < qn) sc[lane * kRows + r] = -INFINITY;
-      continue;
-    }
-    float acc[kQueryTile];
-#pragma unroll
-    for (int i = 0; i < kQueryTile; ++i) acc[i] = 0.f;
-    const T* mrow = matrix + static_cast<size_t>(row) * d;
-    for (int c = lane; c < nvec; c += 32) {
-      float x[V];
-      Vec<T>::load(mrow + c * V, x);
-#pragma unroll
-      for (int i = 0; i < kQueryTile; ++i) {
-        if (i < qn) {
-          const float4* qq = reinterpret_cast<const float4*>(qs + i * d + c * V);
-#pragma unroll
-          for (int e = 0; e < V / 4; ++e) {
-            const float4 w = qq[e];
-            acc[i] = fmaf(x[4 * e], w.x, acc[i]);
-            acc[i] = fmaf(x[4 * e + 1], w.y, acc[i]);
-            acc[i] = fmaf(x[4 * e + 2], w.z, acc[i]);
-            acc[i] = fmaf(x[4 * e + 3], w.w, acc[i]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kQueryTile; ++i) {
-      if (i < qn) {
-        const float v = warp_sum(acc[i]);
-        if (lane == 0) sc[i * kRows + r] = v;
-      }
-    }
-  }
-  __syncthreads();
-  write_candidates(sc, kRows, qn, q0, rn, row0, blk, gridDim.x, kc, cand);
-}
 
 // K3 pass 1: grid (row blocks, query tiles); d a multiple of 16.
 __global__ void __launch_bounds__(kThreads) scan_pass1_int8(
@@ -342,27 +243,6 @@ cudaError_t launch_int8t(const int8_t* m, int ld, const float* scales, const int
   return launch_pass2(cand, nq, nblk * kc, k, vals, rows, stream);
 }
 
-template <typename T>
-cudaError_t launch(const void* matrix, const int* src, const void* q, const int* allowed,
-                   int n_filter, int nq, int d, int n_sweep, int k, float* vals, int* rows,
-                   void* workspace, cudaStream_t stream) {
-  const int nblk = n_blocks(n_sweep);
-  const int kc = cand_per_block(k);
-  const int qt = nq < kQueryTile ? nq : kQueryTile;  // queries per block
-  const size_t smem1 = static_cast<size_t>(qt) * (d + kRows) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scan_pass1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem1));
-  if (err != cudaSuccess) return err;
-  u64* cand = static_cast<u64*>(workspace);
-  const dim3 grid1(nblk, (nq + qt - 1) / qt);
-  scan_pass1<T><<<grid1, kThreads, smem1, stream>>>(
-      static_cast<const T*>(matrix), src, static_cast<const T*>(q), allowed, n_filter, nq, d,
-      n_sweep, kc, qt, cand);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_pass2(cand, nq, nblk * kc, k, vals, rows, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -374,27 +254,6 @@ size_t perceive_scan_topk_workspace(int nq, int n_sweep, int k) {
 
 int perceive_scan_topk_max_k() { return kMaxK; }
 int perceive_scan_topk_max_dim() { return kMaxDim; }
-
-// K1.  dtype: 0 = float32, 1 = bfloat16 (matrix and queries alike).
-int perceive_scan_topk(const void* matrix, int dtype, const int* src, const void* q,
-                       const int* allowed, int n_filter, int nq, int d, int n_sweep, int k,
-                       float* vals, int* rows, void* workspace, void* stream) {
-  if (!common_args_ok(nq, n_sweep, k, d, n_filter)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    if (d % Vec<float>::N) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch<float>(matrix, src, q, allowed, n_filter, nq, d, n_sweep, k, vals, rows,
-                        workspace, s);
-  } else if (dtype == 1) {
-    if (d % Vec<__nv_bfloat16>::N) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch<__nv_bfloat16>(matrix, src, q, allowed, n_filter, nq, d, n_sweep, k, vals,
-                                rows, workspace, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
-}
 
 // K3: int8 matrix with (N,) f32 row scales, int8 queries with (Q,) f32
 // scales.

@@ -99,8 +99,8 @@ def _build(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
-    lib.perceive_scan_topk.argtypes = [p, i, p, p, p, i, i, i, i, i, p, p, p, p]
-    lib.perceive_scan_topk.restype = i
+    lib.perceive_scan_flat_bf16.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_flat_bf16.restype = i
     lib.perceive_scan_topk_int8.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_topk_int8.restype = i
     lib.perceive_scan_topk_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
@@ -113,8 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.perceive_scan_topk_int8t_slab.restype = i
     lib.perceive_scan_topk_int4.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_topk_int4.restype = i
-    lib.perceive_scan_topk_int4_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
-    lib.perceive_scan_topk_int4_slab.restype = i
+    lib.perceive_scan_slab_int4.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_slab_int4.restype = i
     lib.perceive_int2_scores.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p, p]
     lib.perceive_int2_scores.restype = i
     lib.perceive_int2_tiletop.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
@@ -160,7 +160,10 @@ def check(code: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The current stream of a CUDA tensor's device, as the C side takes it."""
+    """The current stream of a CUDA tensor's device, as the C side takes it
+    (the raw handle, without building a ``torch.cuda.Stream``: a text
+    query's scan launches in well under a millisecond)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    index = t.device.index
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if index is None else index)

@@ -4,14 +4,14 @@ and packed-int4 tiers and over the int2 tier's int8 or int4 companion.
 Port of perceive_tpu/ops/topk.py's scans.  Eight hand-written CUDA kernels,
 each beside its plain PyTorch version and a launch counter:
 
-    K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_topk.cu
+    K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_flat_bf16.cu
     K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab_bf16.cu
     K3  scan_topk_int8_flat    int8, Q < 256                csrc/scan_topk.cu
     K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab.cu
     K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_topk.cu
     K8  scan_topk_int8t_slab   int8 (D, N) transposed, Q >= 256  csrc/scan_slab.cu
     K9  scan_topk_int4_flat    packed int4 (D/2, N), Q < 256     csrc/scan_topk.cu
-    K9  scan_topk_int4_slab    packed int4 (D/2, N), Q >= 256    csrc/scan_slab.cu
+    K9  scan_topk_int4_slab    packed int4 (D/2, N), Q >= 256    csrc/scan_slab_int4.cu
 
 The int2 tier's coarse pass (K5, K6) is ops/int2.py.
 
@@ -41,6 +41,8 @@ Semantics, shared by all:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -49,16 +51,15 @@ from . import _cuda
 ALLOW_ALL = -2  # sentinel in allowed[0]: disable source filtering
 MAX_FILTER = 16
 QUERY_SLAB = 128  # the slab kernels take sweeps of whole slabs
-SLAB_QUERIES = 64  # query chunks of the slab kernels align to this (K4/K8/K9 blocks hold 64)
+SLAB_QUERIES = 64  # query chunks of the slab kernels align to this (K4/K8 blocks hold 64)
 # queries per sweep; larger batches run as consecutive sweeps
 MAX_QUERY_SLAB = 2048
-# workspace budget per launch (the kernels keep up to min(k, 512)
-# candidates per 512-row block and query, K2 one list per row range and
-# query); query chunks shrink to fit
+# workspace budget per launch (K3, K4, K7, K8 and K9's flat kernel keep up
+# to min(k, 512) candidates per 512-row block and query; K1, K2 and K9's
+# slab kernel one list per row range and query); query chunks shrink to fit
 _WORKSPACE_BYTES = 1 << 30
-# K9's: the int4 tier holds past 24M rows, where a query's candidates
-# take 25 MB at k = 64 (50 MB at k = 128), so 1 GiB would hold fewer than
-# one slab block of 64 queries; 4 GiB keeps whole blocks up to k = 128
+# K9's flat kernel's: the int4 tier holds past 24M rows, where a query's
+# block candidates take 25 MB at k = 64 (50 MB at k = 128)
 _WORKSPACE_BYTES_INT4 = 4 << 30
 # the plain versions' (Q, N) temporaries are bounded by this many bytes
 _PLAIN_BYTES = 1 << 30
@@ -343,46 +344,90 @@ def _arg(t):
 
 def query_chunks(nq: int, ws_bytes, q_align: int, budget: int) -> list[tuple[int, int]]:
     """[start, end) query chunks of at most MAX_QUERY_SLAB queries whose
-    workspace ``ws_bytes(n)`` stays within ``budget``: the chunk is the
-    budget over one query's bytes (which no larger launch exceeds per
-    query), rounded down to a multiple of ``q_align`` where it holds one."""
-    chunk = max(1, min(MAX_QUERY_SLAB, budget // ws_bytes(1)))
-    if chunk >= q_align:
-        chunk -= chunk % q_align
+    workspace ``ws_bytes(n)`` stays within ``budget``: one chunk where the
+    whole sweep's fits, else the budget over one query's bytes (which no
+    larger launch exceeds per query), rounded down to a multiple of
+    ``q_align`` where it holds one."""
+    chunk = min(MAX_QUERY_SLAB, max(nq, 1))
+    if ws_bytes(chunk) > budget:
+        chunk = max(1, min(chunk, budget // ws_bytes(1)))
+        if chunk >= q_align:
+            chunk -= chunk % q_align
     return [(s, min(nq, s + chunk)) for s in range(0, nq, chunk)]
 
 
-# K2's launch plan (csrc/scan_slab_bf16.cu, kSortK and kSortCap): rows a
-# tile; each (query, range) keeps a running list in the workspace at every
-# k, of 64 keys (compacted by a sort) up to k = 32 and of 2k keys past it
+# The launch plans of K1, K2 and K9's slab kernel (csrc/hopper_common.cuh,
+# kSortK and kSortCap): rows a tile; each (query, range) keeps a running
+# list in the workspace at every k, of 64 keys (compacted by a sort) up to
+# k = 32 and of 2k keys past it
 SLAB_BF16_ROWS = 128
 SLAB_BF16_SORT_K = 32
 SLAB_BF16_SORT_CAP = 64
+# K1 scores sweeps of up to this many queries on the CUDA cores (and every
+# f32 sweep); wider bf16 sweeps take K2's tensor-core pass 1
+FLAT_CORE_QUERIES = 8
+
+
+def _list_plan(nq: int, qt: int, n_sweep: int, k: int, blocks: int):
+    """(workspace bytes, (qt, row ranges, rows a range, list capacity)) of
+    a list-keeping launch of nq queries, qt a block: (query tiles) x
+    (ranges) comes to about ``blocks``, each range at least one row tile
+    and, past k = 32, at least 4k rows (its list of 2k keys then compacts
+    rarely).  Each (query, range) leaves ``cap`` keys for pass 2."""
+    cap = SLAB_BF16_SORT_CAP if k <= SLAB_BF16_SORT_K else -(-2 * k // 32) * 32
+    qtiles = -(-nq // qt)
+    tiles = -(-n_sweep // SLAB_BF16_ROWS)
+    ranges = max(1, blocks // qtiles)
+    if k > SLAB_BF16_SORT_K:
+        ranges = min(ranges, max(1, n_sweep // (4 * k)))
+    ranges = min(ranges, tiles)
+    per = -(-tiles // ranges)
+    ranges = -(-tiles // per)
+    return nq * ranges * cap * 8, (qt, ranges, per * SLAB_BF16_ROWS, cap)
 
 
 def slab_bf16_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
     """K2's launch of nq queries: (workspace bytes, (queries a block, row
     ranges, rows a range, list capacity)).  A block holds 128 queries (two
     warpgroups) up to d = 384 and 64 past it, so the query tile fits in
-    shared memory beside the ring and the lists; (query tiles) x (ranges)
-    comes to about ``sms`` blocks, each range at least one row tile and,
-    past k = 32, at least 4k rows (its list of 2k keys then compacts
-    rarely).  Each (query, range) leaves ``cap`` keys for pass 2."""
-    qrows = 128 if d <= 384 else 64
-    cap = SLAB_BF16_SORT_CAP if k <= SLAB_BF16_SORT_K else -(-2 * k // 32) * 32
-    qtiles = -(-nq // qrows)
-    tiles = -(-n_sweep // SLAB_BF16_ROWS)
-    ranges = max(1, sms // qtiles)
-    if k > SLAB_BF16_SORT_K:
-        ranges = min(ranges, max(1, n_sweep // (4 * k)))
-    ranges = min(ranges, tiles)
-    per = -(-tiles // ranges)
-    ranges = -(-tiles // per)
-    return nq * ranges * cap * 8, (qrows, ranges, per * SLAB_BF16_ROWS, cap)
+    shared memory beside the ring; about one block per SM."""
+    return _list_plan(nq, 128 if d <= 384 else 64, n_sweep, k, sms)
+
+
+def flat_bf16_plan(nq: int, d: int, n_sweep: int, k: int, sms: int, f32: bool = False):
+    """K1's launch of nq < 256 queries, as ``slab_bf16_plan``.  Up to
+    FLAT_CORE_QUERIES queries (at f32, or where d is no multiple of 64,
+    always) a block holds the power of two at or above nq, at most 16, on
+    the CUDA cores, two blocks an SM; past that K2's tensor-core pass 1
+    takes a tile of 64 queries (128 past 64 queries where d <= 384, as K2),
+    one block an SM, so a sweep of up to 64 queries reads each row once."""
+    if f32 or nq <= FLAT_CORE_QUERIES or d % 64:
+        return _list_plan(nq, min(16, 1 << max(0, nq - 1).bit_length()), n_sweep, k, 2 * sms)
+    return _list_plan(nq, 64 if nq <= 64 or d > 384 else 128, n_sweep, k, sms)
+
+
+def slab_int4_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
+    """K9's slab launch, as ``slab_bf16_plan``: a block holds 128 queries
+    at every d (its ring stages are 8 KiB); no launch dimension grows with
+    the rows.  At Q = 2,048 and k = 256 the workspace is ~67 MB at any row
+    count, so a sweep is one launch within _WORKSPACE_BYTES."""
+    return _list_plan(nq, 128, n_sweep, k, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count_of(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_limits() -> tuple[int, int]:
+    """The scan kernels' largest k and dim (csrc/topk_common.cuh)."""
+    lib = _cuda.library()
+    return lib.perceive_scan_topk_max_k(), lib.perceive_scan_topk_max_dim()
 
 
 def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_sweep: int,
@@ -405,18 +450,19 @@ def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_swe
         if t.device != dev:
             raise ValueError(f"{what}: {name} on {t.device}, matrix on {dev}")
     lib = _cuda.library()
+    max_k, max_dim = _kernel_limits()
     n, d = source_ids.shape[0], q.shape[1]  # (N, D) matrices and (D, N) alike
-    if k > lib.perceive_scan_topk_max_k():
-        raise ValueError(f"k={k} exceeds the kernel's {lib.perceive_scan_topk_max_k()}")
+    if k > max_k:
+        raise ValueError(f"k={k} exceeds the kernel's {max_k}")
     row_bytes = d * matrix.element_size()
-    if row_bytes % row_align or d > lib.perceive_scan_topk_max_dim():
+    if row_bytes % row_align or d > max_dim:
         raise ValueError(f"{what}: rows of {row_bytes} bytes must be a multiple of {row_align} "
-                         f"and dim <= {lib.perceive_scan_topk_max_dim()}")
+                         f"and dim <= {max_dim}")
     if not (matrix.is_contiguous() and source_ids.is_contiguous()) or matrix.data_ptr() % 16:
         raise ValueError(f"{what} needs a contiguous, 16-byte aligned matrix")
     nq = q.shape[0]
-    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    rows = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    out = torch.empty((2, nq, k), dtype=torch.int32, device=dev)  # one allocation for both results
+    vals, rows = out[0].view(torch.float32), out[1]
     ns = _sweep_n(n, n_sweep)
     if nq == 0:
         return vals, rows, 0
@@ -431,14 +477,15 @@ def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_swe
         def plan(n, *_):
             return n * per_q, ()
     chunks = query_chunks(nq, lambda n: plan(n, d, ns, k)[0], q_align, budget)
-    ws = torch.empty(max(plan(e - s, d, ns, k)[0] for s, e in chunks), dtype=torch.uint8, device=dev)
+    plans = [plan(e - s, d, ns, k) for s, e in chunks]
+    ws = torch.empty(max(p[0] for p in plans), dtype=torch.uint8, device=dev)
     stream = _cuda.stream_of(matrix)
     fn = getattr(lib, entry)
     launches = 0
-    for s, e in chunks:
+    for (s, e), (_, extra) in zip(chunks, plans):
         code = fn(*map(_arg, lead), source_ids.data_ptr(), q[s:e].data_ptr(),
                   *(_arg(t[s:e] if isinstance(t, torch.Tensor) else t) for t in per_query),
-                  allowed.data_ptr(), allowed.shape[0], e - s, d, ns, k, *plan(e - s, d, ns, k)[1],
+                  allowed.data_ptr(), allowed.shape[0], e - s, d, ns, k, *extra,
                   vals[s:].data_ptr(), rows[s:].data_ptr(), ws.data_ptr(), stream)
         _cuda.check(code, what)
         launches += 1
@@ -452,15 +499,17 @@ def _device_of(matrix, what: str) -> str:
 
 
 def scan_topk_flat(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
-    """K1: exact top-k of ``q @ matrix.T`` over a bf16 or f32 matrix, any Q."""
+    """K1: exact top-k of ``q @ matrix.T`` over a bf16 or f32 matrix, any Q:
+    persistent blocks over row ranges (TMA ring, running thresholds), CUDA
+    cores or tensor cores by width (``flat_bf16_plan``)."""
     global LAUNCHES
     _check(matrix, source_ids, q, allowed, k, (torch.bfloat16, torch.float32))
     if _device_of(matrix, "scan_topk_flat") == "cpu":
         return scan_topk_plain(matrix, source_ids, q, allowed, k, n_sweep)
-    dtype_code = 1 if matrix.dtype == torch.bfloat16 else 0
-    vals, rows, n = _launch("perceive_scan_topk", "scan_topk_flat", matrix, source_ids,
-                            q.to(matrix.dtype), allowed, k, n_sweep,
-                            (matrix, dtype_code), (), 1, 16)
+    f32 = matrix.dtype == torch.float32
+    vals, rows, n = _launch("perceive_scan_flat_bf16", "scan_topk_flat", matrix, source_ids,
+                            q.to(matrix.dtype), allowed, k, n_sweep, (matrix, 0 if f32 else 1), (), 1, 16,
+                            plan=lambda n, d, ns, kk: flat_bf16_plan(n, d, ns, kk, _sm_count(matrix.device), f32))
     LAUNCHES += n
     return vals, rows
 
@@ -509,18 +558,20 @@ def scan_topk_int8_slab(matrix, scales, source_ids, qi8, qscale, allowed, k: int
 
 
 def _cols_scan(what: str, entry: str, int4: bool, mat, scales, source_ids, qi8, qscale, allowed, k: int,
-               n_sweep: int, q_align: int) -> tuple:
+               n_sweep: int, q_align: int, row_align: int = 0, budget: int = 0, plan=None) -> tuple:
     """Shared body of the K7, K8 and K9 wrappers over a column-major matrix
     (int8 (D, N), or packed int4 (D/2, N) where ``int4``): check, then the
-    plain version for a CPU matrix, else the kernel.  Returns (vals, rows,
-    launches)."""
+    plain version for a CPU matrix, else the kernel (``_launch``; by
+    default rows of a multiple of 32 bytes at int4 and 16 at int8, budget
+    _WORKSPACE_BYTES_INT4 at int4).  Returns (vals, rows, launches)."""
     _check_cols(mat, scales, source_ids, qi8, allowed, k, torch.uint8 if int4 else torch.int8, 2 if int4 else 1)
     _check_qi8(qi8, qscale)
     if _device_of(mat, what) == "cpu":
         plain = scan_topk_int4_plain if int4 else scan_topk_int8t_plain
         return (*plain(mat, scales, source_ids, qi8, qscale, allowed, k, n_sweep), 0)
     return _launch(entry, what, mat, source_ids, qi8, allowed, k, n_sweep, (mat, mat.shape[1], scales),
-                   (qscale,), q_align, 32 if int4 else 16, _WORKSPACE_BYTES_INT4 if int4 else _WORKSPACE_BYTES)
+                   (qscale,), q_align, row_align or (32 if int4 else 16),
+                   budget or (_WORKSPACE_BYTES_INT4 if int4 else _WORKSPACE_BYTES), plan)
 
 
 def scan_topk_int8t_flat(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
@@ -554,11 +605,18 @@ def scan_topk_int4_flat(packed, scales, source_ids, qi8, qscale, allowed, k: int
 
 
 def scan_topk_int4_slab(packed, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
-    """K9, slab: the flat kernel's function for batches; K4's tensor-core
-    kernel, decoding the packed tiles while staging them."""
+    """K9, slab: the flat kernel's function for batches.  About one block
+    per SM walks a row range for a resident tile of 128 queries: TMA ring
+    of packed boxes, nibbles decoded into wgmma operands, running
+    thresholds (``slab_int4_plan``).  The kernel reads the matrix by TMA,
+    whose strides are multiples of 16 bytes: N must be one (the matrix's
+    capacity is a multiple of ROW_ALIGN)."""
     global LAUNCHES_INT4_SLAB
-    vals, rows, n = _cols_scan("scan_topk_int4_slab", "perceive_scan_topk_int4_slab", True, packed, scales,
-                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES)
+    if packed.device.type == "cuda" and packed.dim() == 2 and packed.shape[1] % 16:
+        raise ValueError(f"scan_topk_int4_slab: N must be a multiple of 16, got {packed.shape[1]}")
+    vals, rows, n = _cols_scan("scan_topk_int4_slab", "perceive_scan_slab_int4", True, packed, scales,
+                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES, 128, _WORKSPACE_BYTES,
+                               lambda n, d, ns, kk: slab_int4_plan(n, d, ns, kk, _sm_count(packed.device)))
     LAUNCHES_INT4_SLAB += n
     return vals, rows
 

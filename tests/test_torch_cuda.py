@@ -17,7 +17,11 @@ and threshold pipelines; attention 1e-2 in bf16 against the f32 math on the same
 inputs, 1e-5 in f32.  The redesigned kernels have cases of their own: K2
 (``test_scan_slab_bf16_*``: every sweep width and depth, scores that ascend
 along the sweep, all-equal scores, a filter that keeps ~1% of the rows, a
-sweep that ends inside a row tile) and K11's bf16 path
+sweep that ends inside a row tile), K1 (``test_scan_flat_bf16_*``: bf16
+and f32, widths on the CUDA cores and on the tensor cores, every depth, the
+same adversarial orders, the tie rule), K9's slab kernel
+(``test_scan_slab_int4_*``: bit for bit at every width, the same
+adversarial orders) and K11's bf16 path
 (``test_attention_bf16_tensor_cores``: S 100, 384 and 512, DH 16, 32 and
 64, masks with whole padded key tiles, one kept key, or none).
 """
@@ -494,3 +498,151 @@ def test_int2_pipeline_selects_match_plain(dev, select, nq, k, kc):
     after = int2.launch_counts()
     ran = {name for name in after if after[name] > before[name]}
     assert ran == ({"int2_tiletop", "select_topk"} if select == "tiletop" else {"int2_scores"})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq", [1, 5, 16, 40, 200])
+@pytest.mark.parametrize("k", [1, 32, 600, 8192])
+def test_scan_flat_bf16_widths_and_depths(dev, dtype, nq, k):
+    """K1 (csrc/scan_flat_bf16.cu) at widths on the CUDA cores (1, 5, 16)
+    and on the tensor cores (40, 200 at bf16), every depth, with a source
+    filter and a sweep that ends inside a row tile on half the cases."""
+    m, src, g = _bf16_rows(dev, 32768, nq + k)
+    m = m.to(dtype)
+    q = torch.randn((nq, 384), generator=g, device=dev)
+    ragged = (nq + k) % 2 == 1
+    allowed = _allowed(dev, [0, 2] if ragged else None)
+    n_sweep = 20_000 + 37 if ragged else 0
+    before = topk.LAUNCHES
+    got = topk.scan_topk_flat(m, src, q, allowed, k, n_sweep)
+    want = topk.scan_topk_plain(m, src, q, allowed, k, n_sweep)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES == before + 1
+    _assert_scan_close(got, want)
+    if ragged:
+        assert bool((got[1] < n_sweep).all())
+
+
+def _adversarial_bf16(dev, case, n, nq, seed):
+    """(matrix, src, q, allowed, n_sweep) for the orders that defeat running
+    thresholds: ascending scores, all-equal scores, a filter keeping ~1% of
+    the rows, a sweep ending inside a row tile."""
+    m, src, g = _bf16_rows(dev, n, seed)
+    q = torch.randn((nq, 384), generator=g, device=dev)
+    allowed, n_sweep = _allowed(dev), 0
+    if case == "ascending":
+        u = torch.randn((384,), generator=g, device=dev)
+        u = u / u.norm()
+        m = (torch.linspace(0.01, 1.0, n, device=dev)[:, None] * u[None, :]).to(torch.bfloat16)
+        q = u[None, :] + 0.05 * torch.randn((nq, 384), generator=g, device=dev)
+        src = torch.zeros_like(src)
+    elif case == "all_equal":
+        m = torch.randint(-3, 4, (1, 384), generator=g, device=dev).to(torch.bfloat16).repeat(n, 1).contiguous()
+        q = torch.randint(-3, 4, (nq, 384), generator=g, device=dev).float()
+    elif case == "filter_drops_99":
+        src = torch.where(torch.rand((n,), generator=g, device=dev) < 0.01, 0, 5).to(torch.int32)
+        allowed = _allowed(dev, [0])
+    else:
+        n_sweep = 20_000 + 37
+    return m, src, q, allowed, n_sweep
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq", [1, 40])
+@pytest.mark.parametrize("case", ["ascending", "all_equal", "filter_drops_99", "ragged_sweep"])
+@pytest.mark.parametrize("k", [10, 32, 512])
+def test_scan_flat_bf16_adversarial(dev, dtype, nq, case, k):
+    """K1's running thresholds on the orders of
+    ``test_scan_slab_bf16_adversarial``; all-equal scores must come out as
+    the first live rows, lowest first (the tie rule)."""
+    m, src, q, allowed, n_sweep = _adversarial_bf16(dev, case, 65536, nq, 11 + k)
+    m = m.to(dtype)
+    got = topk.scan_topk_flat(m, src, q, allowed, k, n_sweep)
+    want = topk.scan_topk_plain(m, src, q, allowed, k, n_sweep)
+    torch.cuda.synchronize()
+    _assert_scan_close(got, want)
+    if case == "all_equal":
+        assert torch.equal(got[1], want[1])
+        first_rows = torch.nonzero(src >= 0).flatten()[:k].to(torch.int32)
+        assert bool((got[1] == first_rows[None, :]).all())
+    if case == "ragged_sweep":
+        assert bool((got[1] < n_sweep).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq", [4, 64])
+def test_scan_flat_bf16_ties_lower_row_first(dev, dtype, nq):
+    """Duplicated rows score equal bits in any summation order (small
+    integers); K1 returns the plain version's rows, lower row first."""
+    g = torch.Generator(device=dev).manual_seed(nq)
+    base = torch.randint(-3, 4, (8, 384), generator=g, device=dev).to(dtype)
+    m = base.repeat(512, 1).contiguous()
+    src = torch.zeros((m.shape[0],), dtype=torch.int32, device=dev)
+    src[5::7] = -1
+    q = torch.randint(-3, 4, (nq, 384), generator=g, device=dev).float()
+    got = topk.scan_topk_flat(m, src, q, _allowed(dev), 64)
+    want = topk.scan_topk_plain(m, src, q, _allowed(dev), 64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    vk, rk = got
+    same = vk[:, 1:] == vk[:, :-1]
+    assert bool(same.any()) and bool((rk[:, 1:][same] > rk[:, :-1][same]).all())
+
+
+@pytest.mark.parametrize("nq", [256, 512, 2048])
+@pytest.mark.parametrize("k,filt,n_sweep", [(1, None, 0), (32, [1], 20037), (256, None, 0), (1024, [0, 2], 0),
+                                            (8192, None, 0)])
+def test_scan_slab_int4_widths_bit_exact(dev, nq, k, filt, n_sweep):
+    """K9's slab kernel (csrc/scan_slab_int4.cu) bit for bit at every
+    sweep width and depth: one launch."""
+    packed, scales, src, qi8, qscale = _int4_inputs(dev, 32768, nq, nq + k)
+    before = topk.LAUNCHES_INT4_SLAB
+    vk, rk = topk.scan_topk_int4_slab(packed, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    vp, rp = topk.scan_topk_int4_plain(packed, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES_INT4_SLAB == before + 1
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("case", ["ascending", "all_equal", "filter_drops_99", "ragged_sweep"])
+@pytest.mark.parametrize("k", [10, 32, 512])
+def test_scan_slab_int4_adversarial(dev, case, k):
+    """K9's slab kernel on the orders that defeat running thresholds, bit
+    for bit: one packed column whose row scales ascend along the sweep
+    (queries near its decoded values), every column equal (the tie rule:
+    the first live rows, lowest first), a filter keeping ~1% of the rows, a
+    sweep ending inside a row tile."""
+    n, nq = 65536, 256
+    packed, scales, src, qi8, qscale = _int4_inputs(dev, n, nq, 13 + k)
+    allowed, n_sweep = _allowed(dev), 0
+    g = torch.Generator(device=dev).manual_seed(k)
+    if case in ("ascending", "all_equal"):
+        packed = packed[:, :1].repeat(1, n).contiguous()
+        values = topk.unpack_int4(packed[:, :1]).float().T
+        qi8, qscale = topk.quantize_queries(values + 0.5 * torch.randn((nq, 384), generator=g, device=dev))
+        if case == "ascending":
+            scales = torch.linspace(0.5, 1.5, n, device=dev)
+            src = torch.zeros_like(src)
+        else:
+            scales = torch.ones_like(scales)
+    elif case == "filter_drops_99":
+        src = torch.where(torch.rand((n,), generator=g, device=dev) < 0.01, 0, 5).to(torch.int32)
+        allowed = _allowed(dev, [0])
+    else:
+        n_sweep = 20_000 + 37
+    got = topk.scan_topk_int4_slab(packed, scales, src, qi8, qscale, allowed, k, n_sweep)
+    want = topk.scan_topk_int4_plain(packed, scales, src, qi8, qscale, allowed, k, n_sweep)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "all_equal":
+        first_rows = torch.nonzero(src >= 0).flatten()[:k].to(torch.int32)
+        assert bool((got[1] == first_rows[None, :]).all())
+    if case == "ragged_sweep":
+        assert bool((got[1] < n_sweep).all())
+
+
+def test_scan_slab_int4_refuses_unaligned_columns(dev):
+    """The slab kernel reads the packed matrix by TMA: a column count that
+    is not a multiple of 16 raises instead of launching."""
+    packed, scales, src, qi8, qscale = _int4_inputs(dev, 4100, 256, 3)
+    with pytest.raises(ValueError):
+        topk.scan_topk_int4_slab(packed, scales, src, qi8, qscale, _allowed(dev), 16)

@@ -212,3 +212,76 @@ def test_scan_topk_routes_as_before(monkeypatch, nq, k, want):
     calls.clear()
     topk.scan_topk(m.float(), src, torch.zeros((nq, 128)), al, k)
     assert {c[0] for c in calls} == {"flat"}
+
+
+PLAN_KS = [1, 32, 256, 1024, 8192]
+PLAN_ROWS = [20_480, 958_464, 25_165_824, 34_603_008, 100_000_000]
+
+
+def _check_list_plan(nq, n_sweep, k, sms, plan, q_align):
+    """What every list-keeping launch plan must give: whole 128-row tiles
+    covering the sweep in non-empty ranges, lists of 64 keys up to k = 32
+    and of more than k past it, a workspace that is one list per (query,
+    range), launch dimensions within 65,535 (query tiles x ranges, and pass
+    2's one block a query), and query chunks whose workspaces fit the
+    budget.  Returns the chunks."""
+    ws, (qt, ranges, rows_per_range, cap) = plan(nq)
+    assert cap == 64 if k <= 32 else cap >= 2 * k and cap % 32 == 0
+    assert rows_per_range % 128 == 0 and rows_per_range >= 128
+    assert ranges * rows_per_range >= n_sweep > (ranges - 1) * rows_per_range
+    assert ws == nq * ranges * cap * 8
+    assert max(-(-nq // qt), ranges, nq) <= 65_535
+    if k > 32 and n_sweep >= 4 * k:
+        assert rows_per_range >= 4 * k
+    chunks = topk.query_chunks(nq, lambda n: plan(n)[0], q_align, topk._WORKSPACE_BYTES)
+    assert chunks[0][0] == 0 and chunks[-1][1] == nq
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    for s, e in chunks:
+        assert plan(e - s)[0] <= topk._WORKSPACE_BYTES
+    return chunks
+
+
+@pytest.mark.parametrize("nq", [1, 16, 255])
+@pytest.mark.parametrize("k", PLAN_KS)
+@pytest.mark.parametrize("n_sweep", PLAN_ROWS)
+@pytest.mark.parametrize("f32", [False, True])
+def test_flat_bf16_plan_sizes_the_workspace(nq, k, n_sweep, f32):
+    """K1's launch plan: up to FLAT_CORE_QUERIES queries (and at f32) a
+    power-of-two tile of at most 16 on the CUDA cores, about two blocks an
+    SM; wider bf16 sweeps K2's tensor-core tiles of 64 or 128, about one
+    block an SM; the checks every list plan shares."""
+    sms = 132
+    plan = lambda n: topk.flat_bf16_plan(n, 384, n_sweep, k, sms, f32)  # noqa: E731
+    _, (qt, ranges, _, _) = plan(nq)
+    if f32 or nq <= topk.FLAT_CORE_QUERIES:
+        assert qt == min(16, 1 << (nq - 1).bit_length()) and -(-nq // qt) * ranges <= max(2 * sms, -(-nq // qt))
+    else:
+        assert qt == (64 if nq <= 64 else 128) and -(-nq // qt) * ranges <= sms
+    _check_list_plan(nq, n_sweep, k, sms, plan, 1)
+
+
+@pytest.mark.parametrize("nq", [256, 512, 2048])
+@pytest.mark.parametrize("k", PLAN_KS)
+@pytest.mark.parametrize("n_sweep", PLAN_ROWS)
+def test_slab_int4_plan_sizes_the_workspace(nq, k, n_sweep):
+    """K9's slab plan: tiles of 128 queries, about one block an SM, no
+    launch dimension that grows with the rows (the first slab kernel's grid
+    stopped at 33,553,920 rows), and a sweep of 2,048 queries in one launch
+    within the 1 GiB budget up to k = 1,024."""
+    sms = 132
+    plan = lambda n: topk.slab_int4_plan(n, 384, n_sweep, k, sms)  # noqa: E731
+    _, (qt, ranges, _, _) = plan(nq)
+    assert qt == 128 and -(-nq // qt) * ranges <= sms
+    chunks = _check_list_plan(nq, n_sweep, k, sms, plan, topk.SLAB_QUERIES)
+    if k <= 1024:
+        assert chunks == [(0, nq)]
+
+
+@pytest.mark.parametrize("d,nq,want", [(384, 8, 8), (384, 9, 64), (384, 64, 64), (384, 65, 128),
+                                       (768, 200, 64), (200, 40, 16)])
+def test_flat_bf16_plan_tiles_by_width(d, nq, want):
+    """K1 takes the CUDA cores up to FLAT_CORE_QUERIES queries and where d
+    is no multiple of 64 (K2's boxes are 64 dims), K2's tiles of 64 queries
+    past that, and 128 past 64 queries where d <= 384."""
+    _, (qt, *_) = topk.flat_bf16_plan(nq, d, 958_464, 32, 132)
+    assert qt == want
