@@ -12,7 +12,8 @@ Phases (any failure exits non-zero before the final line):
   3. K1 and K2 (bf16 scan + top-k, flat and slab) against their plain
      version at 1M x 384 bf16, K1 also over the same rows in f32;
   4. K3 and K4 (int8 scan + top-k, flat and slab) against their plain
-     version, bit for bit, at 2M x 384 int8;
+     version, bit for bit, at 2M x 384 int8, and a sweep of 2,048 queries
+     in one K4 launch;
   5. K11 (attention) against its plain version at every encoder bucket
      (timed beside the short-bucket route) and on masks with whole padded
      key tiles and one kept key;
@@ -30,7 +31,8 @@ Phases (any failure exits non-zero before the final line):
  10. K5 (int2 coarse scores), K6 (exact top-kc select), K7 and K8 (int8
      scans over the transposed companion) and K10 (coarse scores kept per
      tile lane bin: the tiletop select) against their plain versions, bit
-     for bit, at the int2 slice's shape (4,194,304 x 384);
+     for bit, at the int2 slice's shape (4,194,304 x 384), and a sweep of
+     2,048 queries in one K8 launch;
  11. K10 against its plain version, bit for bit, near the int2 tier's
      upper end (22.5M live rows of 25,165,824 x 384, generated on the card);
  12. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
@@ -51,7 +53,9 @@ Phases (any failure exits non-zero before the final line):
      int2 tier's 24M, generated on the card), with K7 and K8 timed on the
      same rows unpacked to int8 beside it, a sweep of 2,048 queries in one
      slab launch; then K9's slab kernel bit for bit and timed at 34,603,008
-     rows;
+     rows, and on the same rows unpacked to the companion's (D, N) int8
+     layout and transposed to (N, D) rows, K8 and K4: the three agree bit
+     for bit (and with the plain version on a filter), each timed once;
  16. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
      slice's corpus, the same 16 queries through the CLI (flat K9), hits
      against the exact f32 top-10 (``served_recall_at_10``);
@@ -87,16 +91,16 @@ import numpy as np
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "scan_topk": ("perceive_tpu_torch/csrc/scan_flat_bf16.cu", "perceive_tpu/ops/topk.py:966"),
-    "scan_slab": ("perceive_tpu_torch/csrc/scan_slab_bf16.cu", "perceive_tpu/ops/topk.py:927"),
+    "scan_slab": ("perceive_tpu_torch/csrc/scan_slab_rows.cu", "perceive_tpu/ops/topk.py:927"),
     "scan_int8": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:273"),
-    "scan_int8_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:234"),
+    "scan_int8_slab": ("perceive_tpu_torch/csrc/scan_slab_rows.cu", "perceive_tpu/ops/topk.py:234"),
     "attention": ("perceive_tpu_torch/csrc/attention.cu", "perceive_tpu/ops/attention.py:58"),
     "int2_scores": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1222"),
     "select_topk": ("perceive_tpu_torch/csrc/select_topk.cu", "perceive_tpu/ops/topk.py:1748"),
     "scan_int8t": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:753"),
-    "scan_int8t_slab": ("perceive_tpu_torch/csrc/scan_slab.cu", "perceive_tpu/ops/topk.py:835"),
+    "scan_int8t_slab": ("perceive_tpu_torch/csrc/scan_slab_cols.cu", "perceive_tpu/ops/topk.py:835"),
     "scan_int4": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:519"),
-    "scan_int4_slab": ("perceive_tpu_torch/csrc/scan_slab_int4.cu", "perceive_tpu/ops/topk.py:618"),
+    "scan_int4_slab": ("perceive_tpu_torch/csrc/scan_slab_cols.cu", "perceive_tpu/ops/topk.py:618"),
     "int2_tiletop": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1347"),
 }
 # the H100 SXM data sheet: device memory rate and dense tensor-core peaks
@@ -290,6 +294,28 @@ def corpus_rows(g, dev, n: int, hwm: int):
     return chunks(), src, ns
 
 
+def one_launch(kid: str, counter: str, run, ns: int) -> None:
+    """Fails unless ``run`` (a sweep of N_BATCH queries at INT8_KB) takes
+    exactly one launch of the kernel counted by topk's ``counter``."""
+    from perceive_tpu_torch.ops import topk
+
+    before = getattr(topk, counter)
+    run()
+    took = getattr(topk, counter) - before
+    if took != 1:
+        raise SystemExit(f"{kid} took {took} launches for {N_BATCH} queries over {ns:,} rows at k={INT8_KB}")
+    log(f"{kid}: {N_BATCH} queries over {ns:,} rows at k={INT8_KB} took one launch  ok")
+
+
+def depth_times(card: str, kid: str, run, nq: int, ns: int) -> None:
+    """Logs ``run(k)``'s time at k = 1, 16, INT8_KB and 1,024: the running
+    lists' appends and compactions grow with k, the stream and the products
+    do not, so the spread is what the epilogue costs at each depth."""
+    ms = {k: cuda_ms(lambda: run(k)) for k in (1, 16, INT8_KB, 1024)}
+    log(f"{kid} time by depth Q={nq} n_sweep={ns}: " + "  ".join(f"k={k} {t:.4f} ms" for k, t in ms.items())
+        + f"  [{card}]")
+
+
 def check_case(name: str, got, want, tol: float) -> float:
     err, bad = compare_topk(*got, *want, tol)
     exact = tol == 0.0
@@ -467,6 +493,10 @@ def check_int8_scans(card: str) -> dict:
         lib = "not timed (its (Q, N) int32 product would take 16 GB)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         log(f"{kid} time Q={nq} k={k} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    one_launch("K4", "LAUNCHES_INT8_SLAB", lambda: topk.scan_topk_int8_slab(
+        m, scales, src, *queries(N_BATCH), allowed["all"], INT8_KB, ns), ns)
+    qi8, qs = queries(512)
+    depth_times(card, "K4", lambda k: topk.scan_topk_int8_slab(m, scales, src, qi8, qs, allowed["all"], k, ns), 512, ns)
     del m, mv, scales
     torch.cuda.empty_cache()
     return {"K3": {"max_abs_err": 0.0, **times[("K3", 1)]}, "K4": {"max_abs_err": 0.0, **times[("K4", 512)]}}
@@ -544,7 +574,7 @@ def check_int2_kernels(card: str) -> dict:
     log("K6 dense ties and an all -inf row: bit-exact, lower row first  ok")
 
     for kid, fn, widths, ks in (("K7", topk.scan_topk_int8t_flat, (1, 8, 32), KS),
-                                ("K8", topk.scan_topk_int8t_slab, (512, 2048), (16, 128, 1024))):
+                                ("K8", topk.scan_topk_int8t_slab, (512, 2048), KS)):
         for nq in widths:
             qi8, qs = queries(nq)
             for k in ks:
@@ -552,6 +582,19 @@ def check_int2_kernels(card: str) -> dict:
                     got = fn(fine, s8, src, qi8, qs, al, k, ns)
                     want = topk.scan_topk_int8t_plain(fine, s8, src, qi8, qs, al, k, ns)
                     check_case(f"{kid} Q={nq:<4d} k={k:<5d} filter={fname:<4s}", got, want, 0.0)
+    # ties: every column 8 times over, so equal scores are everywhere
+    tn = 262_144
+    tf, tsc, tsrc = fine[:, : tn // 8].repeat(1, 8).contiguous(), s8[: tn // 8].repeat(8), src[: tn // 8].repeat(8)
+    for kid, fn, nq in (("K7", topk.scan_topk_int8t_flat, 8), ("K8", topk.scan_topk_int8t_slab, 256)):
+        qi8, qs = queries(nq)
+        got = fn(tf, tsc, tsrc, qi8, qs, allowed["all"], 64)
+        v, r = got
+        same = (v[:, 1:] == v[:, :-1]) & torch.isfinite(v[:, 1:])
+        if not (torch_equal(got, topk.scan_topk_int8t_plain(tf, tsc, tsrc, qi8, qs, allowed["all"], 64))
+                and bool(same.any()) and bool((r[:, 1:][same] > r[:, :-1][same]).all())):
+            raise SystemExit(f"{kid} tie order differs from the plain version")
+    log("K7, K8 duplicated columns: bit-exact, equal scores order by the lower row  ok")
+    del tf, tsc, tsrc
 
     live = int((src[:ns] >= 0).sum())
     keep = src[:ns] >= 0
@@ -598,6 +641,10 @@ def check_int2_kernels(card: str) -> dict:
         lib = "not timed (its (Q, N) int32 product would take 34 GB)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         log(f"{kid} time Q={nq} k={k} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    one_launch("K8", "LAUNCHES_INT8T_SLAB", lambda: topk.scan_topk_int8t_slab(
+        fine, s8, src, *queries(N_BATCH), allowed["all"], INT8_KB, ns), ns)
+    qi8, qs = queries(512)
+    depth_times(card, "K8", lambda k: topk.scan_topk_int8t_slab(fine, s8, src, qi8, qs, allowed["all"], k, ns), 512, ns)
     times["K10"] = check_tiletop(card, packed, s2, src, ns, allowed, queries)
     k56 = times[("K5", 1)]["ms"] + times[("K6", 1, 4096)]["ms"]
     log(f"K10 at Q=1 kc=4096 n_sweep={ns}: {times['K10']['ms']:.4f} ms against K5 + K6 (scores written, "
@@ -813,10 +860,56 @@ def check_int4_kernels(card: str) -> dict:
     b, by = bound(live * (DIM // 2 + 4) + 4 * n + 512 * DIM + 512 * INT4_KB * 8, 2.0 * 512 * live * DIM, "int8")
     log(f"K9-slab time Q=512 k={INT4_KB} n_sweep={n}: kernel {ms:.4f} ms (one cold run)  "
         f"bound {b:.4f} ms ({by})  [{card}]")
+    check_wide_int8(card, packed, scales, src, queries, allowed)
     del packed, scales, src
     torch.cuda.empty_cache()
     return {"flat": {"max_abs_err": 0.0, **times[("K9-flat", 1)]},
             "slab": {"max_abs_err": 0.0, **times[("K9-slab", 512)]}}
+
+
+def check_wide_int8(card: str, packed, scales, src, queries, allowed: dict) -> None:
+    """K4 and K8 past 33,553,920 rows, where their first kernels' grid ran
+    out: the packed rows of K9's wide check unpacked to the int2 tier's
+    (D, N) int8 companion layout (K8) and transposed to (N, D) int8 rows
+    (K4), with the same scales.  At Q = 256 and INT8_KB, under both
+    filters, K4, K8 and K9's slab kernel give the same answers bit for bit,
+    and the plain version's on the 2-source filter (K9's plain version:
+    the int8 ones would hold the matrix in f32, 53 GB); one cold run of
+    each is timed beside its bound."""
+    import torch
+
+    from perceive_tpu_torch.ops import topk
+
+    n, dev, step = packed.shape[1], packed.device, 1 << 20
+    m8 = torch.empty((DIM, n), dtype=torch.int8, device=dev)
+    for lo in range(0, n, step):
+        m8[:, lo : lo + step] = topk.unpack_int4(packed[:, lo : lo + step])
+    rows = torch.empty((n, DIM), dtype=torch.int8, device=dev)
+    for lo in range(0, n, step):
+        rows[lo : lo + step] = m8[:, lo : lo + step].T
+    kernels = (("K9-slab", topk.scan_topk_int4_slab, packed), ("K8", topk.scan_topk_int8t_slab, m8),
+               ("K4", topk.scan_topk_int8_slab, rows))
+    qi8, qs = queries(256)
+    k = INT8_KB
+    for fname, al in allowed.items():
+        got = {kid: fn(mat, scales, src, qi8, qs, al, k) for kid, fn, mat in kernels}
+        if not (torch_equal(got["K8"], got["K9-slab"]) and torch_equal(got["K4"], got["K9-slab"])):
+            raise SystemExit(f"K4, K8 and K9's slab kernel disagree at {n:,} rows (filter {fname})")
+        log(f"K4, K8, K9-slab Q=256  k={k:<5d} filter={fname:<4s} n_sweep={n}: the same answers, bit-exact ok")
+        if fname == "2src":
+            want = topk.scan_topk_int4_plain(packed, scales, src, qi8, qs, al, k)
+            check_case(f"K4 (= K8 = K9-slab) Q=256  k={k:<5d} filter={fname:<4s} n_sweep={n}", got["K4"], want, 0.0)
+    live = int((src >= 0).sum())
+    for kid, fn, mat in kernels:
+        ms = cuda_ms(lambda: fn(mat, scales, src, qi8, qs, allowed["all"], k), reps=1, warmup=0)
+        if kid == "K9-slab":
+            b, by = bound(live * (DIM // 2 + 4) + 4 * n + 256 * DIM + 256 * k * 8, 2.0 * 256 * live * DIM, "int8")
+        else:
+            b, by = scan_bound(live, n, 256, k, 1, "int8")
+        log(f"{kid} time Q=256 k={k} n_sweep={n}: kernel {ms:.4f} ms (one cold run)  "
+            f"bound {b:.4f} ms ({by})  [{card}]")
+    del m8, rows
+    torch.cuda.empty_cache()
 
 
 # -- phase 5: K11 ------------------------------------------------------------

@@ -1,9 +1,10 @@
-// Shared parts of the Hopper scan kernels (scan_slab_bf16.cu: K2;
-// scan_flat_bf16.cu: K1; scan_slab_int4.cu: K9's slab kernel): mbarriers,
-// TMA loads and tensor maps (encoded on the host through
-// cudaGetDriverEntryPoint, so nothing links libcuda), wgmma descriptors,
-// and the running per-(query, row range) candidate lists that replace a
-// select per row block.
+// Shared parts of the Hopper scan kernels (scan_flat_bf16.cu: K1;
+// scan_slab_rows.cu: K2 and K4; scan_slab_cols.cu: K8 and K9's slab
+// kernel): mbarriers, TMA loads and tensor maps (encoded on the host
+// through cudaGetDriverEntryPoint, so nothing links libcuda), wgmma
+// descriptors and the s8 product, the int8 epilogue's scaling, and the
+// running per-(query, row range) candidate lists that replace a select per
+// row block.
 //
 // A list lives in the workspace, cand[q][range][cap] (it stays in L2).  A
 // query's running threshold tau is the k-th best key of its list when the
@@ -108,6 +109,28 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
   return desc;
 }
 
+// d[64] += A(64 x 32, shared, descriptor da) . B(128 x 32, shared, db)^T,
+// int8 x int8 -> int32 (exact); scale_d == 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
@@ -133,6 +156,22 @@ __device__ __forceinline__ uint32_t tile_valid(const int* ids, int rows, const i
     if (tt == t) v = b;
   }
   return v;
+}
+
+// The scores of an s8 wgmma tile: acc[4j + 2h + e] is the int32 dot of
+// query (h ? b : a) and tile row 8j + 2t + e, srow the tile's row scales;
+// f32(dot) * row scale * query scale, rounded in that order (__fmul_rn),
+// bit for bit with the plain versions.
+__device__ __forceinline__ void scale_tile(const int (&acc)[64], const float* srow, float sa, float sb, int t,
+                                           float (&sc)[64]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float s = srow[8 * j + 2 * t + e];
+      sc[4 * j + e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]), s), sa);
+      sc[4 * j + 2 + e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 + e]), s), sb);
+    }
 }
 
 // One warp keeps the best k of the n keys list[0, n) (unique, non-zero,
@@ -495,7 +534,7 @@ inline bool list_plan_ok(int n_sweep, int k, int ranges, int rows_per_range, int
 
 }  // namespace
 
-// The bf16 wgmma pass 1 (scan_slab_bf16.cu): K2's, and K1's for bf16 sweeps
+// The bf16 wgmma pass 1 (scan_slab_rows.cu): K2's, and K1's for bf16 sweeps
 // wider than FLAT_CORE_QUERIES.  Leaves each (query, range) list in cand.
 cudaError_t scan_bf16_wgmma_lists(const void* matrix, const int* src, const void* q, const int* allowed,
                                   int n_filter, int nq, int d, int n_sweep, int k, int qrows, int ranges,

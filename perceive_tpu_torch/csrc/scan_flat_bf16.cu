@@ -34,7 +34,7 @@
 //     query, so appends take ballots and compactions no barrier.  At Q = 1
 //     almost no row passes tau after the first tiles;
 //   * on the tensor cores (bf16, more queries, d a multiple of 64), K2's
-//     pass 1 (scan_slab_bf16.cu: wgmma m64n128k16 with the query tile
+//     pass 1 (scan_slab_rows.cu: wgmma m64n128k16 with the query tile
 //     resident) with a tile of 64 queries, or 128 past 64 queries, so that
 //     a sweep of up to 64 queries reads each row once;
 //   * pass 2 (hopper_common.cuh `list_pass2`) selects over ranges x cap keys a

@@ -1,50 +1,55 @@
-// K9's slab kernel: exact scan with top-k selection over the packed-int4
-// matrix for batches of queries (sweeps of at least 256), a kernel of its
-// own for Hopper.
+// The batch scans over column-major (transposed) matrices, one kernel for
+// Hopper templated on its decode stage: K9's slab kernel (the packed-int4
+// matrix) and K8 (the int2 tier's int8 companion), exact scans with top-k
+// selection for batches of queries (sweeps of at least 256).
 //
-// Replaces the TPU kernel perceive_tpu/ops/topk.py `pallas_topk_int4_slabbed`
-// (`_scan_kernel_int4_slabbed`): top-k of int4 scores over rows [0, n_sweep)
-// of the transposed (D/2, ld) packed matrix, whose byte [r, n] holds dim r
-// of row n in the low nibble, biased +8, and dim r + D/2 in the high
-// nibble, two's complement.  Scores are f32(exact int32 dot) * row scale *
-// query scale, rounded in that order (__fmul_rn), bit for bit with the
-// plain version (ops/topk.py `scores_int4`); rows whose source id is -1 or
-// outside `allowed` are excluded, ties go to the lower row, and every
-// comparison is by the unique (score, ~row) keys of topk_common.cuh.
+// Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_int4_slabbed`
+// (`_scan_kernel_int4_slabbed`) and `pallas_topk_int8t_slabbed`
+// (`_scan_kernel_int8t_slabbed`): top-k of int8-query scores over rows [0,
+// n_sweep) of a transposed matrix of ld columns (ld, its capacity).  K9's
+// is the (D/2, ld) packed matrix, whose byte [r, n] holds dim r of row n in
+// the low nibble, biased +8, and dim r + D/2 in the high nibble, two's
+// complement; K8's the (D, ld) int8 companion, byte [r, n] dim r of row n.
+// Scores are f32(exact int32 dot) * row scale * query scale, rounded in
+// that order (__fmul_rn), bit for bit with the plain versions (ops/topk.py
+// `scores_int4`, `scores_int8t`); rows whose source id is -1 or outside
+// `allowed` are excluded, ties go to the lower row, and every comparison
+// is by the unique (score, ~row) keys of topk_common.cuh.
 //
-// What bounds it on the H100: operations.  At Q = 512 a 25,165,824 x 384
+// What bounds them on the H100: operations.  At Q = 512 a 25,165,824 x 384
 // sweep is 9.9e12 int8 operations (5.0 ms at 1,979 TOP/s) against 4.8 GB of
-// packed matrix (1.4 ms at 3.35 TB/s).  The first version (scan_slab.cu's
-// template) took ~1 s: one block per (64 queries, 512 rows) kept min(k,
-// 512) keys per query and block, half of all rows at k = 256, so the
-// workspace was as large as the matrix, a 4 GiB budget split the sweep
-// into launches of 42 queries, each re-reading the whole matrix, and pass
-// 2 ran 42 blocks over 12.6M keys each.  Its grid's y dimension was the
-// row block, which refused sweeps past 33,553,920 rows.
+// packed matrix (1.4 ms at 3.35 TB/s); K8 over 3,809,280 rows 1.5e12 (0.72
+// ms) against 1.5 GB (0.44 ms).  The first versions (one block per (64
+// queries, 512 rows), min(k, 512) keys kept per query and block) took ~1 s
+// at int4 and 65 ms at int8: the workspace was as large as the matrix, a
+// budget split each sweep into launches of few queries, each re-reading
+// the whole matrix, and the grid's y dimension, the row block, refused
+// sweeps past 33,553,920 rows.
 //
-// Design, K2's (scan_slab_bf16.cu) with a decode stage:
+// Design, K2's (scan_slab_rows.cu) with a decode stage:
 //   * about one block per SM: (query tiles of 128) x (row ranges) ~ the SM
 //     count; no grid dimension grows with the rows.  A block keeps its
 //     query tile resident (two consumer warpgroups of 64 queries) and walks
 //     one contiguous row range in tiles of 128 rows; blocks of one range
 //     are launched side by side, so its bytes come from L2 for all but the
 //     first;
-//   * a producer warp streams each row tile as boxes of 64 byte-rows x 128
-//     rows (8 KiB) by TMA through a ring of shared-memory stages, with the
-//     tile's source ids and row scales two tiles ahead, completion on
-//     mbarriers;
-//   * the consumers decode each box in registers (4 x 4 byte transposes,
-//     then the low nibbles less 8 and the sign-extended high nibbles) into
-//     one 128-byte K-slice of the 128 rows, dims r.. (the low nibbles) then
-//     r + D/2.. (the high), written with the 128-byte swizzle to one of two
-//     decode buffers; the query tile is staged in the same dim order;
+//   * a producer warp streams each row tile as boxes of byte-rows x 128
+//     rows (64 packed byte-rows, 8 KiB; or 128 int8 dims, 16 KiB) by TMA
+//     through a ring of shared-memory stages, with the tile's source ids
+//     and row scales two tiles ahead, completion on mbarriers;
+//   * the consumers decode each box in registers (4 x 4 byte transposes;
+//     at int4 then the low nibbles less 8 and the sign-extended high
+//     nibbles) into one 128-byte K-slice of the 128 rows, written with the
+//     128-byte swizzle to one of two decode buffers; the query tile is
+//     staged in the decoded dim order (int4: dims r.. then r + D/2..; int8:
+//     the natural order);
 //   * wgmma m64n128k32 (s8 x s8 -> s32, exact) scores each slice, A = the
 //     warpgroup's 64 queries, B = the decoded rows, both from shared
 //     memory; a box's products run while the next box decodes;
-//   * the epilogue scales each int32 dot (f32 * row scale * query scale)
+//   * the epilogue scales each int32 dot (hopper_common.cuh `scale_tile`)
 //     and keeps K2's running per-(query, range) lists (hopper_common.cuh);
-//     pass 2 (hopper_common.cuh `list_pass2`) selects over ranges x cap keys a
-//     query, staged in shared memory where they fit.
+//     pass 2 (hopper_common.cuh `list_pass2`) selects over ranges x cap keys
+//     a query, staged in shared memory where they fit.
 // Why A is not the decoded rows from registers: the accumulator would then
 // hold rows x queries, spreading each query over all eight warps, and the
 // lists, which one warp owns per query in K2's epilogue, would need
@@ -64,8 +69,6 @@ constexpr int kRowTile = 128;                      // rows a tile (wgmma n = 128
 constexpr int kWgQueries = 64;                     // queries a consumer warpgroup (m = 64)
 constexpr int kQRows = 2 * kWgQueries;             // queries a block
 constexpr int kConsumers = 2 * 128;                // consumer threads
-constexpr int kByteRows = 64;                      // packed byte-rows a ring stage
-constexpr int kStageBytes = kByteRows * kRowTile;  // 8 KiB
 constexpr int kSliceBytes = kRowTile * 128;        // a decoded K-slice: 128 rows x 128 bytes
 constexpr int kMaxStages = 8;
 constexpr int kSrcAhead = 2;  // tiles whose source ids and scales load ahead of their rows
@@ -75,26 +78,16 @@ constexpr int kSrcAhead = 2;  // tiles whose source ids and scales load ahead of
 // ceil((stages + 1) / slices) - 1; slot reuse kSrcSlots back is then safe
 constexpr int kSrcSlots = kSrcAhead + kMaxStages + 2;
 
-// d[64] += A(64 x 32, shared, descriptor da) . B(128 x 32, shared, db)^T,
-// int8 x int8 -> int32; scale_d == 0 overwrites d instead.
-__device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+// a[j] for a j known only at run time, by selects (an indexed register
+// array would go to local memory).  The decodes store each lane's rows in
+// an order rotated by lane / 2, so that the lanes of a half-warp (uint2
+// stores) or of a quarter-warp (uint4) hit distinct 16-byte chunks.
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&a)[4], int j) {
+  uint32_t v = a[0];
+#pragma unroll
+  for (int jj = 1; jj < 4; ++jj)
+    if (j == jj) v = a[jj];
+  return v;
 }
 
 // 4 int8 values from the low nibbles of a packed word, less the bias of 8:
@@ -110,53 +103,86 @@ __device__ __forceinline__ uint32_t nibbles_hi(uint32_t w) {
   return ((((w >> 4) & 0x0f0f0f0fu) ^ 0x88888888u) - 0x08080808u) ^ 0x80808080u;
 }
 
-// The consumers (ctid in [0, 256)) decode one ring stage, packed byte-rows
-// [64c, 64c + 64) x 128 rows ([byte-row][row], 128 bytes a byte-row), into
-// the 128-byte K-slice of each row (dims 64c.. then D/2 + 64c..), 128-byte
-// swizzled.  Warp w takes byte-rows 8w..8w+7, lane l rows 4l..4l+3: eight
-// word loads (lane l on bank l), two 4 x 4 byte transposes, then per row 8
-// bytes of low-nibble dims and 8 of high.  Each lane stores its rows in an
-// order rotated by l / 2, so the 16 lanes of a half-warp hit eight
-// distinct 16-byte chunks (two-way at most).
-__device__ __forceinline__ void decode_slice(const unsigned char* stage, unsigned char* dst, int ctid) {
-  const int w = ctid >> 5, l = ctid & 31;
-  uint32_t x[8];
+// K9: the packed (D/2, ld) int4 matrix.  A ring stage holds 64 byte-rows;
+// K-slice c of a row holds dims 64c.. (the low nibbles) then D/2 + 64c..
+// (the high).
+struct Int4Cols {
+  static constexpr int kByteRows = 64;
+  static constexpr int kDimsPerByteRow = 2;
+  // the first dim of 16-byte chunk h of K-slice c
+  __device__ __forceinline__ static int dim(int c, int h, int d) { return (h < 4 ? 0 : d / 2) + 64 * c + 16 * (h & 3); }
+  // The consumers (ctid in [0, 256)) decode one ring stage, packed
+  // byte-rows [64c, 64c + 64) x 128 rows ([byte-row][row], 128 bytes a
+  // byte-row), into the 128-byte K-slice of each row, 128-byte swizzled.
+  // Warp w takes byte-rows 8w..8w+7, lane l rows 4l..4l+3: eight word loads
+  // (lane l on bank l), two 4 x 4 byte transposes, then per row 8 bytes of
+  // low-nibble dims and 8 of high.
+  __device__ __forceinline__ static void decode(const unsigned char* stage, unsigned char* dst, int ctid) {
+    const int w = ctid >> 5, l = ctid & 31;
+    uint32_t x[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = *reinterpret_cast<const uint32_t*>(stage + (8 * w + i) * kRowTile + 4 * l);
-  uint32_t a[4], b[4];  // a[j]: row 4l + j, byte-rows 8w..8w+3; b[j]: 8w+4..8w+7
-  transpose4x4(x[0], x[1], x[2], x[3], a);
-  transpose4x4(x[4], x[5], x[6], x[7], b);
-  const int rot = (l >> 1) & 3;
+    for (int i = 0; i < 8; ++i) x[i] = *reinterpret_cast<const uint32_t*>(stage + (8 * w + i) * kRowTile + 4 * l);
+    uint32_t a[4], b[4];  // a[j]: row 4l + j, byte-rows 8w..8w+3; b[j]: 8w+4..8w+7
+    transpose4x4(x[0], x[1], x[2], x[3], a);
+    transpose4x4(x[4], x[5], x[6], x[7], b);
+    const int rot = (l >> 1) & 3;
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int j = (ii + rot) & 3;
-    uint32_t wa = a[0], wb = b[0];
-#pragma unroll
-    for (int jj = 1; jj < 4; ++jj)
-      if (j == jj) {
-        wa = a[jj];
-        wb = b[jj];
-      }
-    const int n = 4 * l + j;
-    *reinterpret_cast<uint2*>(dst + swz128(n, 8 * w)) = make_uint2(nibbles_lo(wa), nibbles_lo(wb));
-    *reinterpret_cast<uint2*>(dst + swz128(n, 64 + 8 * w)) = make_uint2(nibbles_hi(wa), nibbles_hi(wb));
+    for (int ii = 0; ii < 4; ++ii) {
+      const int j = (ii + rot) & 3;
+      const uint32_t wa = pick4(a, j), wb = pick4(b, j);
+      const int n = 4 * l + j;
+      *reinterpret_cast<uint2*>(dst + swz128(n, 8 * w)) = make_uint2(nibbles_lo(wa), nibbles_lo(wb));
+      *reinterpret_cast<uint2*>(dst + swz128(n, 64 + 8 * w)) = make_uint2(nibbles_hi(wa), nibbles_hi(wb));
+    }
   }
-}
+};
+
+// K8: the (D, ld) int8 companion.  A ring stage holds 128 byte-rows (dims);
+// K-slice c of a row holds dims 128c.. in their natural order.
+struct Int8Cols {
+  static constexpr int kByteRows = 128;
+  static constexpr int kDimsPerByteRow = 1;
+  __device__ __forceinline__ static int dim(int c, int h, int) { return 128 * c + 16 * h; }
+  // Warp w takes dims 16w..16w+15, lane l rows 4l..4l+3: sixteen word loads
+  // (lane l on bank l), four 4 x 4 byte transposes, then one 16-byte store
+  // a row (chunk w of its K-slice); the rotated row order puts the 8 lanes
+  // of a quarter-warp on 8 distinct chunks.
+  __device__ __forceinline__ static void decode(const unsigned char* stage, unsigned char* dst, int ctid) {
+    const int w = ctid >> 5, l = ctid & 31;
+    uint32_t r[4][4];  // r[m][j]: row 4l + j, dims 16w + 4m..
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const unsigned char* p = stage + (16 * w + 4 * m) * kRowTile + 4 * l;
+      transpose4x4(*reinterpret_cast<const uint32_t*>(p), *reinterpret_cast<const uint32_t*>(p + kRowTile),
+                   *reinterpret_cast<const uint32_t*>(p + 2 * kRowTile),
+                   *reinterpret_cast<const uint32_t*>(p + 3 * kRowTile), r[m]);
+    }
+    const int rot = (l >> 1) & 3;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int j = (ii + rot) & 3;
+      *reinterpret_cast<uint4*>(dst + swz128(4 * l + j, 16 * w)) =
+          make_uint4(pick4(r[0], j), pick4(r[1], j), pick4(r[2], j), pick4(r[3], j));
+    }
+  }
+};
 
 // Grid (query tiles, row ranges); block: two consumer warpgroups + one
 // producer warp.  cand[q][range][cap]: each (query, range)'s candidate
 // list, kept there while the block runs.
-__global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_int4(
+template <class Dec>
+__global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_cols(
     const __grid_constant__ CUtensorMap tmap_m, const __grid_constant__ CUtensorMap tmap_s,
     const __grid_constant__ CUtensorMap tmap_scale, const int8_t* __restrict__ q, const float* __restrict__ qscale,
     const int* __restrict__ allowed, int n_filter, int nq, int d, int n_sweep, int k, int cap, int rows_per_range,
     int nranges, int stages, u64* __restrict__ cand) {
+  constexpr int kStageBytes = Dec::kByteRows * kRowTile;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const int nslice = d / 128;  // K-slices (ring boxes) a tile
   unsigned char* qs = base;                                               // [nslice][128 queries][128 B]
   unsigned char* dec = qs + static_cast<size_t>(nslice) * kQRows * 128;  // [2][128 rows][128 B]
-  unsigned char* ring = dec + 2 * kSliceBytes;                            // [stages][64][128 rows]
+  unsigned char* ring = dec + 2 * kSliceBytes;                            // [stages][byte-rows][128 rows]
   int* src_ring = reinterpret_cast<int*>(ring + static_cast<size_t>(stages) * kStageBytes);  // [kSrcSlots][128]
   float* scl_ring = reinterpret_cast<float*>(src_ring + kSrcSlots * kRowTile);              // [kSrcSlots][128]
   float* qsc = scl_ring + kSrcSlots * kRowTile;                                              // [128]
@@ -207,7 +233,7 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_int4(
         for (int c = 0; c < nslice; ++c) {
           mbar_wait(empty + stage, phase ^ 1);
           mbar_expect_tx(full + stage, kStageBytes);
-          tma_load(ring + stage * kStageBytes, &tmap_m, row_lo + tile * kRowTile, c * kByteRows, full + stage);
+          tma_load(ring + stage * kStageBytes, &tmap_m, row_lo + tile * kRowTile, c * Dec::kByteRows, full + stage);
           if (c == 0 && tile + kSrcAhead < n_tiles) load_src(tile + kSrcAhead);
           if (++stage == stages) {
             stage = 0;
@@ -219,13 +245,12 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_int4(
     return;
   }
 
-  // consumers.  The query tile, in the decoded dim order: K-slice c of
-  // query r holds dims 64c.. and D/2 + 64c.., 16-byte chunks, swizzled.
+  // consumers.  The query tile, in the decoded dim order: 16-byte chunk h
+  // of K-slice c of query r holds dims Dec::dim(c, h, d).., swizzled.
   for (int i = tid; i < nslice * kQRows * 8; i += kConsumers) {
     const int h = i & 7, r = (i >> 3) % kQRows, c = i / (8 * kQRows);
-    const int dim = (h < 4 ? 0 : d / 2) + 64 * c + 16 * (h & 3);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < qn) v = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * d + dim);
+    if (r < qn) v = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(q0 + r) * d + Dec::dim(c, h, d));
     *reinterpret_cast<uint4*>(qs + static_cast<size_t>(c) * kQRows * 128 + swz128(r, 16 * h)) = v;
   }
 
@@ -241,7 +266,7 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_int4(
   uint32_t phase = 0;
   auto decode_next = [&](unsigned char* dst) {
     mbar_wait(full + stage, phase);
-    decode_slice(ring + stage * kStageBytes, dst, tid);
+    Dec::decode(ring + stage * kStageBytes, dst, tid);
     fence_async_smem();
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + stage);
@@ -278,70 +303,80 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_int4(
     const int slot = tile % kSrcSlots;
     mbar_wait(src_full + slot, (tile / kSrcSlots) & 1);
     const uint32_t valid = tile_valid(src_ring + slot * kRowTile, row_hi - row0, allow, allow_all ? 0 : n_filter, t);
-    const float* srow = scl_ring + slot * kRowTile;
-    const float sa = qsc[qa], sb = qsc[qb];
     float sc[64];
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float s = srow[8 * j + 2 * t + e];
-        sc[4 * j + e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]), s), sa);
-        sc[4 * j + 2 + e] = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 + e]), s), sb);
-      }
+    scale_tile(acc, scl_ring + slot * kRowTile, qsc[qa], qsc[qb], t, sc);
     append_tile(sc, valid, row0, qa, qb, qn, wq0, tau, cnt, list_of, k, cap);
   }
   finish_lists(wq0, qn, cnt, list_of, cap);
 }
 
+template <class Dec>
 size_t plan_smem(int d, int stages) {
   return 1024 + static_cast<size_t>(d / 128) * kQRows * 128 + 2 * kSliceBytes +
-         static_cast<size_t>(stages) * kStageBytes + kSrcSlots * kRowTile * 8 + kQRows * (4 + 8 + 4) +
+         static_cast<size_t>(stages) * Dec::kByteRows * kRowTile + kSrcSlots * kRowTile * 8 + kQRows * (4 + 8 + 4) +
          static_cast<size_t>(2 * stages + kSrcSlots) * 8 + kMaxFilter * 4;
+}
+
+// Both C entries: the transposed (d / kDimsPerByteRow, ld) matrix (ld,
+// its capacity, a multiple of 16: TMA strides are), (ld,) f32 row scales,
+// int8 queries (nq, d) with (nq,) f32 scales; d a multiple of 128; matrix,
+// scales, src and q 16-byte aligned.  The launch plan comes from the
+// wrapper (ops/topk.py `slab_s8_plan`): 128 queries a block, `ranges` row
+// ranges of rows_per_range rows (a multiple of 128) covering n_sweep, and
+// each (query, range) list's capacity cap: 64 keys for k <= 32, else more
+// than k.  Workspace: nq * ranges * cap * 8 bytes, the lists themselves.
+template <class Dec>
+int launch_cols(const void* m, int ld, const float* scales, const int* src, const void* q, const float* qscale,
+                const int* allowed, int n_filter, int nq, int d, int n_sweep, int k, int qrows, int ranges,
+                int rows_per_range, int cap, float* vals, int* rows, void* workspace, void* stream) {
+  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || d % 128 || ld % 16 || n_sweep > ld || qrows != kQRows ||
+      !list_plan_ok(n_sweep, k, ranges, rows_per_range, cap, kRowTile) || scales == nullptr || qscale == nullptr ||
+      (reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(src) |
+       reinterpret_cast<uintptr_t>(q)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int stages = kMaxStages;
+  while (stages >= 2 && plan_smem<Dec>(d, stages) > kSmemMax) --stages;
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = plan_smem<Dec>(d, stages);
+  CUtensorMap tmap_m, tmap_s, tmap_scale;
+  if (!make_map_2d(&tmap_m, CU_TENSOR_MAP_DATA_TYPE_UINT8, m, n_sweep, d / Dec::kDimsPerByteRow, ld, kRowTile,
+                   Dec::kByteRows, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map_1d(&tmap_s, CU_TENSOR_MAP_DATA_TYPE_INT32, src, n_sweep, kRowTile) ||
+      !make_map_1d(&tmap_scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, n_sweep, kRowTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = allow_smem<scan_slab_cols<Dec>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  u64* cand = static_cast<u64*>(workspace);
+  const dim3 grid((nq + kQRows - 1) / kQRows, ranges);
+  scan_slab_cols<Dec><<<grid, kConsumers + 32, smem, s>>>(tmap_m, tmap_s, tmap_scale, static_cast<const int8_t*>(q),
+                                                          qscale, allowed, n_filter, nq, d, n_sweep, k, cap,
+                                                          rows_per_range, ranges, stages, cand);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_list_pass2(cand, nq, ranges * cap, k, vals, rows, s));
 }
 
 }  // namespace
 
 extern "C" {
 
-// K9's slab kernel: the transposed (d/2, ld) packed-int4 matrix (ld, its
-// capacity, a multiple of 16: TMA strides are), (ld,) f32 row scales, int8
-// queries (nq, d) with (nq,) f32 scales; d a multiple of 128; matrix,
-// scales, src and q 16-byte aligned.  The launch plan comes from the
-// wrapper (ops/topk.py `slab_int4_plan`): 128 queries a block, `ranges` row
-// ranges of rows_per_range rows (a multiple of 128) covering n_sweep, and
-// each (query, range) list's capacity cap: 64 keys for k <= 32, else more
-// than k.  Workspace: nq * ranges * cap * 8 bytes, the lists themselves.
+// K9's slab kernel: the packed (d/2, ld) int4 matrix (launch_cols).
 int perceive_scan_slab_int4(const void* m4t, int ld, const float* scales, const int* src, const void* q,
                             const float* qscale, const int* allowed, int n_filter, int nq, int d, int n_sweep, int k,
                             int qrows, int ranges, int rows_per_range, int cap, float* vals, int* rows,
                             void* workspace, void* stream) {
-  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || d % 128 || ld % 16 || n_sweep > ld || qrows != kQRows ||
-      !list_plan_ok(n_sweep, k, ranges, rows_per_range, cap, kRowTile) ||
-      (reinterpret_cast<uintptr_t>(m4t) | reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(src) |
-       reinterpret_cast<uintptr_t>(q)) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int stages = kMaxStages;
-  while (stages >= 2 && plan_smem(d, stages) > kSmemMax) --stages;
-  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = plan_smem(d, stages);
-  CUtensorMap tmap_m, tmap_s, tmap_scale;
-  if (!make_map_2d(&tmap_m, CU_TENSOR_MAP_DATA_TYPE_UINT8, m4t, n_sweep, d / 2, ld, kRowTile, kByteRows,
-                   CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !make_map_1d(&tmap_s, CU_TENSOR_MAP_DATA_TYPE_INT32, src, n_sweep, kRowTile) ||
-      !make_map_1d(&tmap_scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, n_sweep, kRowTile))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = allow_smem<scan_slab_int4>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  u64* cand = static_cast<u64*>(workspace);
-  const dim3 grid((nq + kQRows - 1) / kQRows, ranges);
-  scan_slab_int4<<<grid, kConsumers + 32, smem, s>>>(tmap_m, tmap_s, tmap_scale, static_cast<const int8_t*>(q),
-                                                     qscale, allowed, n_filter, nq, d, n_sweep, k, cap,
-                                                     rows_per_range, ranges, stages, cand);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_list_pass2(cand, nq, ranges * cap, k, vals, rows, s));
+  return launch_cols<Int4Cols>(m4t, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k, qrows, ranges,
+                               rows_per_range, cap, vals, rows, workspace, stream);
+}
+
+// K8: the int2 tier's (d, ld) int8 companion (launch_cols).
+int perceive_scan_topk_int8t_slab(const void* m8t, int ld, const float* scales, const int* src, const void* q,
+                                  const float* qscale, const int* allowed, int n_filter, int nq, int d, int n_sweep,
+                                  int k, int qrows, int ranges, int rows_per_range, int cap, float* vals, int* rows,
+                                  void* workspace, void* stream) {
+  return launch_cols<Int8Cols>(m8t, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k, qrows, ranges,
+                               rows_per_range, cap, vals, rows, workspace, stream);
 }
 
 }  // extern "C"

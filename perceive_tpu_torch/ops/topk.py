@@ -5,13 +5,13 @@ Port of perceive_tpu/ops/topk.py's scans.  Eight hand-written CUDA kernels,
 each beside its plain PyTorch version and a launch counter:
 
     K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_flat_bf16.cu
-    K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab_bf16.cu
+    K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab_rows.cu
     K3  scan_topk_int8_flat    int8, Q < 256                csrc/scan_topk.cu
-    K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab.cu
+    K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab_rows.cu
     K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_topk.cu
-    K8  scan_topk_int8t_slab   int8 (D, N) transposed, Q >= 256  csrc/scan_slab.cu
+    K8  scan_topk_int8t_slab   int8 (D, N) transposed, Q >= 256  csrc/scan_slab_cols.cu
     K9  scan_topk_int4_flat    packed int4 (D/2, N), Q < 256     csrc/scan_topk.cu
-    K9  scan_topk_int4_slab    packed int4 (D/2, N), Q >= 256    csrc/scan_slab_int4.cu
+    K9  scan_topk_int4_slab    packed int4 (D/2, N), Q >= 256    csrc/scan_slab_cols.cu
 
 The int2 tier's coarse pass (K5, K6) is ops/int2.py.
 
@@ -51,12 +51,13 @@ from . import _cuda
 ALLOW_ALL = -2  # sentinel in allowed[0]: disable source filtering
 MAX_FILTER = 16
 QUERY_SLAB = 128  # the slab kernels take sweeps of whole slabs
-SLAB_QUERIES = 64  # query chunks of the slab kernels align to this (K4/K8 blocks hold 64)
+SLAB_QUERIES = 64  # query chunks of the slab kernels align to this (a consumer warpgroup's queries)
 # queries per sweep; larger batches run as consecutive sweeps
 MAX_QUERY_SLAB = 2048
-# workspace budget per launch (K3, K4, K7, K8 and K9's flat kernel keep up
-# to min(k, 512) candidates per 512-row block and query; K1, K2 and K9's
-# slab kernel one list per row range and query); query chunks shrink to fit
+# workspace budget per launch (K3, K7 and K9's flat kernel keep up to
+# min(k, 512) candidates per 512-row block and query; K1, K2, K4, K8 and
+# K9's slab kernel one list per row range and query); query chunks shrink
+# to fit
 _WORKSPACE_BYTES = 1 << 30
 # K9's flat kernel's: the int4 tier holds past 24M rows, where a query's
 # block candidates take 25 MB at k = 64 (50 MB at k = 128)
@@ -356,10 +357,10 @@ def query_chunks(nq: int, ws_bytes, q_align: int, budget: int) -> list[tuple[int
     return [(s, min(nq, s + chunk)) for s in range(0, nq, chunk)]
 
 
-# The launch plans of K1, K2 and K9's slab kernel (csrc/hopper_common.cuh,
-# kSortK and kSortCap): rows a tile; each (query, range) keeps a running
-# list in the workspace at every k, of 64 keys (compacted by a sort) up to
-# k = 32 and of 2k keys past it
+# The launch plans of K1, K2, K4, K8 and K9's slab kernel
+# (csrc/hopper_common.cuh, kSortK and kSortCap): rows a tile; each (query,
+# range) keeps a running list in the workspace at every k, of 64 keys
+# (compacted by a sort) up to k = 32 and of 2k keys past it
 SLAB_BF16_ROWS = 128
 SLAB_BF16_SORT_K = 32
 SLAB_BF16_SORT_CAP = 64
@@ -406,9 +407,10 @@ def flat_bf16_plan(nq: int, d: int, n_sweep: int, k: int, sms: int, f32: bool = 
     return _list_plan(nq, 64 if nq <= 64 or d > 384 else 128, n_sweep, k, sms)
 
 
-def slab_int4_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
-    """K9's slab launch, as ``slab_bf16_plan``: a block holds 128 queries
-    at every d (its ring stages are 8 KiB); no launch dimension grows with
+def slab_s8_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
+    """The launch of the int8-operand batch scans, K4, K8 and K9's slab
+    kernel, as ``slab_bf16_plan``: a block holds 128 queries at every d (an
+    int8 query tile takes half a bf16 one); no launch dimension grows with
     the rows.  At Q = 2,048 and k = 256 the workspace is ~67 MB at any row
     count, so a sweep is one launch within _WORKSPACE_BYTES."""
     return _list_plan(nq, 128, n_sweep, k, sms)
@@ -544,15 +546,17 @@ def scan_topk_int8_flat(matrix, scales, source_ids, qi8, qscale, allowed, k: int
 
 
 def scan_topk_int8_slab(matrix, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
-    """K4: K3 for batches; tensor cores score a 64-query by 512-row tile
-    per block."""
+    """K4: K3 for batches, K2's kernel with int8 operands: about one block
+    per SM walks a row range for a resident tile of 128 queries (TMA boxes
+    straight into wgmma, running thresholds; ``slab_s8_plan``)."""
     global LAUNCHES_INT8_SLAB
     _check(matrix, source_ids, qi8, allowed, k, (torch.int8,))
     _check_int8(matrix, scales, qi8, qscale)
     if _device_of(matrix, "scan_topk_int8_slab") == "cpu":
         return scan_topk_int8_plain(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
     vals, rows, n = _launch("perceive_scan_topk_slab", "scan_topk_int8_slab", matrix, source_ids,
-                            qi8, allowed, k, n_sweep, (matrix, 2, scales), (qscale,), SLAB_QUERIES, 128)
+                            qi8, allowed, k, n_sweep, (matrix, scales), (qscale,), SLAB_QUERIES, 128,
+                            plan=lambda n, d, ns, kk: slab_s8_plan(n, d, ns, kk, _sm_count(matrix.device)))
     LAUNCHES_INT8_SLAB += n
     return vals, rows
 
@@ -584,12 +588,23 @@ def scan_topk_int8t_flat(m8t, scales, source_ids, qi8, qscale, allowed, k: int, 
     return vals, rows
 
 
+def _check_tma_cols(mat, what: str) -> None:
+    """The slab kernels read a column-major matrix by TMA, whose strides are
+    multiples of 16 bytes: on the card its N must be one (the matrix's
+    capacity is a multiple of ROW_ALIGN)."""
+    if mat.device.type == "cuda" and mat.dim() == 2 and mat.shape[1] % 16:
+        raise ValueError(f"{what}: N must be a multiple of 16, got {mat.shape[1]}")
+
+
 def scan_topk_int8t_slab(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
-    """K8: K7 for batches; K4's tensor-core kernel, staging the transposed
-    tiles."""
+    """K8: K7 for batches, K9's slab kernel with a plain 4 x 4 byte
+    transpose for its decode: about one block per SM walks a row range for
+    a resident tile of 128 queries (``slab_s8_plan``)."""
     global LAUNCHES_INT8T_SLAB
+    _check_tma_cols(m8t, "scan_topk_int8t_slab")
     vals, rows, n = _cols_scan("scan_topk_int8t_slab", "perceive_scan_topk_int8t_slab", False, m8t, scales,
-                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES)
+                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES, 128, _WORKSPACE_BYTES,
+                               lambda n, d, ns, kk: slab_s8_plan(n, d, ns, kk, _sm_count(m8t.device)))
     LAUNCHES_INT8T_SLAB += n
     return vals, rows
 
@@ -608,15 +623,13 @@ def scan_topk_int4_slab(packed, scales, source_ids, qi8, qscale, allowed, k: int
     """K9, slab: the flat kernel's function for batches.  About one block
     per SM walks a row range for a resident tile of 128 queries: TMA ring
     of packed boxes, nibbles decoded into wgmma operands, running
-    thresholds (``slab_int4_plan``).  The kernel reads the matrix by TMA,
-    whose strides are multiples of 16 bytes: N must be one (the matrix's
-    capacity is a multiple of ROW_ALIGN)."""
+    thresholds (``slab_s8_plan``).  N must be a multiple of 16
+    (``_check_tma_cols``)."""
     global LAUNCHES_INT4_SLAB
-    if packed.device.type == "cuda" and packed.dim() == 2 and packed.shape[1] % 16:
-        raise ValueError(f"scan_topk_int4_slab: N must be a multiple of 16, got {packed.shape[1]}")
+    _check_tma_cols(packed, "scan_topk_int4_slab")
     vals, rows, n = _cols_scan("scan_topk_int4_slab", "perceive_scan_slab_int4", True, packed, scales,
                                source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES, 128, _WORKSPACE_BYTES,
-                               lambda n, d, ns, kk: slab_int4_plan(n, d, ns, kk, _sm_count(packed.device)))
+                               lambda n, d, ns, kk: slab_s8_plan(n, d, ns, kk, _sm_count(packed.device)))
     LAUNCHES_INT4_SLAB += n
     return vals, rows
 

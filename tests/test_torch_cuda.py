@@ -21,7 +21,10 @@ sweep that ends inside a row tile), K1 (``test_scan_flat_bf16_*``: bf16
 and f32, widths on the CUDA cores and on the tensor cores, every depth, the
 same adversarial orders, the tie rule), K9's slab kernel
 (``test_scan_slab_int4_*``: bit for bit at every width, the same
-adversarial orders) and K11's bf16 path
+adversarial orders), K4 and K8 (``test_scan_slab_int8*``: bit for bit at
+every width and at k 32, 33 and 8,192, a filtered ragged sweep, one
+launch a sweep, the same adversarial orders, TMA's column rule) and K11's
+bf16 path
 (``test_attention_bf16_tensor_cores``: S 100, 384 and 512, DH 16, 32 and
 64, masks with whole padded key tiles, one kept key, or none).
 """
@@ -185,7 +188,7 @@ def _bf16_rows(dev, n, seed):
 @pytest.mark.parametrize("nq", [256, 384, 2048])
 @pytest.mark.parametrize("k", [1, 10, 32, 512, 8192])
 def test_scan_slab_bf16_widths_and_depths(dev, nq, k):
-    """K2 (csrc/scan_slab_bf16.cu) at every sweep width and depth: 384
+    """K2 (csrc/scan_slab_rows.cu) at every sweep width and depth: 384
     queries go through scan_topk, which pads them to a slab multiple."""
     m, src, g = _bf16_rows(dev, 32768, nq + k)
     q = torch.randn((nq, 384), generator=g, device=dev)
@@ -592,7 +595,7 @@ def test_scan_flat_bf16_ties_lower_row_first(dev, dtype, nq):
 @pytest.mark.parametrize("k,filt,n_sweep", [(1, None, 0), (32, [1], 20037), (256, None, 0), (1024, [0, 2], 0),
                                             (8192, None, 0)])
 def test_scan_slab_int4_widths_bit_exact(dev, nq, k, filt, n_sweep):
-    """K9's slab kernel (csrc/scan_slab_int4.cu) bit for bit at every
+    """K9's slab kernel (csrc/scan_slab_cols.cu) bit for bit at every
     sweep width and depth: one launch."""
     packed, scales, src, qi8, qscale = _int4_inputs(dev, 32768, nq, nq + k)
     before = topk.LAUNCHES_INT4_SLAB
@@ -646,3 +649,80 @@ def test_scan_slab_int4_refuses_unaligned_columns(dev):
     packed, scales, src, qi8, qscale = _int4_inputs(dev, 4100, 256, 3)
     with pytest.raises(ValueError):
         topk.scan_topk_int4_slab(packed, scales, src, qi8, qscale, _allowed(dev), 16)
+
+
+def _slab_int8(kernel, m, scales, src, qi8, qscale, allowed, k, n_sweep=0):
+    """K4 over the (N, D) int8 rows ``m``, or K8 over their (D, N)
+    transpose (the int2 tier's companion layout), beside the plain
+    version: (got, want, launches)."""
+    if kernel == "K4":
+        fn, plain, mat, counter = topk.scan_topk_int8_slab, topk.scan_topk_int8_plain, m, "LAUNCHES_INT8_SLAB"
+    else:
+        fn, plain, mat, counter = (topk.scan_topk_int8t_slab, topk.scan_topk_int8t_plain, m.T.contiguous(),
+                                   "LAUNCHES_INT8T_SLAB")
+    before = getattr(topk, counter)
+    got = fn(mat, scales, src, qi8, qscale, allowed, k, n_sweep)
+    want = plain(mat, scales, src, qi8, qscale, allowed, k, n_sweep)
+    torch.cuda.synchronize()
+    return got, want, getattr(topk, counter) - before
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K8"])
+@pytest.mark.parametrize("nq", [256, 512, 2048])
+@pytest.mark.parametrize("k,filt,n_sweep", [(1, None, 0), (32, [1], 0), (33, None, 0), (256, [0, 2], 0),
+                                            (1024, [1], 20037), (8192, None, 0)])
+def test_scan_slab_int8_widths_bit_exact(dev, kernel, nq, k, filt, n_sweep):
+    """K4 (csrc/scan_slab_rows.cu) and K8 (csrc/scan_slab_cols.cu) bit for
+    bit at every sweep width and depth: k = 32 (the largest list sorted in
+    registers), 33 (the first bitwise compaction), 8,192 (the largest k), a
+    filtered sweep that ends inside a row tile; up to k = 256 a sweep is
+    one launch, 2,048 queries included."""
+    m, scales, src, qi8, qscale = _int8_inputs(dev, 32768, nq, nq + k)
+    (vk, rk), (vp, rp), launches = _slab_int8(kernel, m, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    if k <= 256:
+        assert launches == 1
+    if n_sweep:
+        assert bool((rk < n_sweep).all())
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K8"])
+@pytest.mark.parametrize("case", ["ascending", "all_equal", "filter_drops_99", "ragged_sweep"])
+@pytest.mark.parametrize("k", [10, 32, 512])
+def test_scan_slab_int8_adversarial(dev, kernel, case, k):
+    """K4 and K8 on the orders that defeat running thresholds, bit for bit:
+    one row whose scales ascend along the sweep (queries near it), every
+    row equal (the tie rule: the first live rows, lowest first), a filter
+    keeping ~1% of the rows, a sweep ending inside a row tile."""
+    n, nq = 65536, 256
+    m, scales, src, qi8, qscale = _int8_inputs(dev, n, nq, 17 + k)
+    allowed, n_sweep = _allowed(dev), 0
+    g = torch.Generator(device=dev).manual_seed(k)
+    if case in ("ascending", "all_equal"):
+        m = m[:1].repeat(n, 1).contiguous()
+        qi8, qscale = topk.quantize_queries(m[:1].float() + 20.0 * torch.randn((nq, 384), generator=g, device=dev))
+        if case == "ascending":
+            scales = torch.linspace(0.5, 1.5, n, device=dev)
+            src = torch.zeros_like(src)
+        else:
+            scales = torch.ones_like(scales)
+    elif case == "filter_drops_99":
+        src = torch.where(torch.rand((n,), generator=g, device=dev) < 0.01, 0, 5).to(torch.int32)
+        allowed = _allowed(dev, [0])
+    else:
+        n_sweep = 20_000 + 37
+    got, want, _ = _slab_int8(kernel, m, scales, src, qi8, qscale, allowed, k, n_sweep)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "all_equal":
+        first_rows = torch.nonzero(src >= 0).flatten()[:k].to(torch.int32)
+        assert bool((got[1] == first_rows[None, :]).all())
+    if case == "ragged_sweep":
+        assert bool((got[1] < n_sweep).all())
+
+
+def test_scan_slab_int8t_refuses_unaligned_columns(dev):
+    """K8 reads the companion by TMA: a column count that is not a
+    multiple of 16 raises instead of launching."""
+    _, _, fine, s8, src, qi8, qscale = _int2_inputs(dev, 4100, 256, 3)
+    with pytest.raises(ValueError):
+        topk.scan_topk_int8t_slab(fine, s8, src, qi8, qscale, _allowed(dev), 16)

@@ -269,12 +269,33 @@ def test_slab_int4_plan_sizes_the_workspace(nq, k, n_sweep):
     stopped at 33,553,920 rows), and a sweep of 2,048 queries in one launch
     within the 1 GiB budget up to k = 1,024."""
     sms = 132
-    plan = lambda n: topk.slab_int4_plan(n, 384, n_sweep, k, sms)  # noqa: E731
+    plan = lambda n: topk.slab_s8_plan(n, 384, n_sweep, k, sms)  # noqa: E731
     _, (qt, ranges, _, _) = plan(nq)
     assert qt == 128 and -(-nq // qt) * ranges <= sms
     chunks = _check_list_plan(nq, n_sweep, k, sms, plan, topk.SLAB_QUERIES)
     if k <= 1024:
         assert chunks == [(0, nq)]
+
+
+@pytest.mark.parametrize("kernel,d", [("K4", 384), ("K8", 384), ("K4", 1024), ("K8", 128)])
+@pytest.mark.parametrize("nq", [256, 2048])
+@pytest.mark.parametrize("k", [16, 128, 256, 8192])
+@pytest.mark.parametrize("n_sweep", PLAN_ROWS)
+def test_slab_int8_plans_size_the_workspace(kernel, d, nq, k, n_sweep):
+    """K4's and K8's list plans (``slab_s8_plan``, which their wrappers
+    pass to the kernels at every width the kernels take): the workspace
+    within _WORKSPACE_BYTES, a sweep of 2,048 queries at k <= 256 in one
+    launch at any row count, at most 65,535 ranges of whole 128-row tiles,
+    and no launch dimension that grows with the rows (their first kernels'
+    grid stopped at 33,553,920 rows)."""
+    sms = 132
+    plan = lambda n: topk.slab_s8_plan(n, d, n_sweep, k, sms)  # noqa: E731
+    ws, (qt, ranges, rows_per_range, _) = plan(nq)
+    assert qt == 128 and ranges <= 65_535 and rows_per_range % 128 == 0
+    assert -(-nq // qt) * ranges <= max(sms, -(-nq // qt))
+    chunks = _check_list_plan(nq, n_sweep, k, sms, plan, topk.SLAB_QUERIES)
+    if k <= 256:
+        assert chunks == [(0, nq)] and ws <= topk._WORKSPACE_BYTES
 
 
 @pytest.mark.parametrize("d,nq,want", [(384, 8, 8), (384, 9, 64), (384, 64, 64), (384, 65, 128),
