@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--audit-case CASE.npz]
+    python3 chip_smoke.py --ladder
 
 ``--audit-case`` also writes the int2+int4 self-audit's worst sample and
 the rows around it to CASE.npz, for ``tests/audit_case.py`` to reproduce
-off the card in the port and in the JAX package.
+off the card in the port and in the JAX package.  ``--ladder`` runs only
+the build and K7's and K9 flat's times by depth and by width
+(``flat_cols_ladder``), and prints no result line.
 
 Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
@@ -31,8 +34,10 @@ Phases (any failure exits non-zero before the final line):
  10. K5 (int2 coarse scores), K6 (exact top-kc select), K7 and K8 (int8
      scans over the transposed companion) and K10 (coarse scores kept per
      tile lane bin: the tiletop select) against their plain versions, bit
-     for bit, at the int2 slice's shape (4,194,304 x 384), and a sweep of
-     2,048 queries in one K8 launch;
+     for bit, at the int2 slice's shape (4,194,304 x 384), K7 on both sides
+     of its crossover to the tensor cores and on duplicated columns at k =
+     8,192 (its multi-block pass 2), a sweep of 2,048 queries in one K8
+     launch, and K7 timed by depth on the escalation ladder;
  11. K10 against its plain version, bit for bit, near the int2 tier's
      upper end (22.5M live rows of 25,165,824 x 384, generated on the card);
  12. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
@@ -52,8 +57,11 @@ Phases (any failure exits non-zero before the final line):
      bit for bit, at the int4 tier's own size (25,165,824 x 384, past the
      int2 tier's 24M, generated on the card), with K7 and K8 timed on the
      same rows unpacked to int8 beside it, a sweep of 2,048 queries in one
-     slab launch; then K9's slab kernel bit for bit and timed at 34,603,008
-     rows, and on the same rows unpacked to the companion's (D, N) int8
+     slab launch, K9 flat on both sides of its crossover, on duplicated
+     columns at k = 8,192, a 32-query k = 8,192 sweep in one launch, and
+     timed by depth on the escalation ladder over the int4 slice's
+     4,194,304 rows and over all 25,165,824; then K9's slab kernel bit for
+     bit and timed at 34,603,008 rows, and on the same rows unpacked to the companion's (D, N) int8
      layout and transposed to (N, D) rows, K8 and K4: the three agree bit
      for bit (and with the plain version on a filter), each timed once;
  16. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
@@ -97,9 +105,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "attention": ("perceive_tpu_torch/csrc/attention.cu", "perceive_tpu/ops/attention.py:58"),
     "int2_scores": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1222"),
     "select_topk": ("perceive_tpu_torch/csrc/select_topk.cu", "perceive_tpu/ops/topk.py:1748"),
-    "scan_int8t": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:753"),
+    "scan_int8t": ("perceive_tpu_torch/csrc/scan_flat_cols.cu", "perceive_tpu/ops/topk.py:753"),
     "scan_int8t_slab": ("perceive_tpu_torch/csrc/scan_slab_cols.cu", "perceive_tpu/ops/topk.py:835"),
-    "scan_int4": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:519"),
+    "scan_int4": ("perceive_tpu_torch/csrc/scan_flat_cols.cu", "perceive_tpu/ops/topk.py:519"),
     "scan_int4_slab": ("perceive_tpu_torch/csrc/scan_slab_cols.cu", "perceive_tpu/ops/topk.py:618"),
     "int2_tiletop": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1347"),
 }
@@ -114,6 +122,12 @@ KS = (16, 64, 128, 1024, 8192)
 BF16_KB = 32  # the bf16 slice's sweep depth: k=10, doubled for chunk dedupe
 INT8_KB = 128  # the int8 slice's: k=10, x4 over-fetch, doubled for chunk dedupe
 INT4_KB = 256  # the int4 slices': k=10, x8 over-fetch, doubled for chunk dedupe
+# the escalation ladder's rungs (index/searcher.py _OVERFETCH_BUCKETS, 4x a
+# rung): K7 sweeps the int2 tier's companion from the fused first sweep's
+# 128 (INT8_KB), K9 flat the int4 tier from INT4_KB
+K7_LADDER = (INT8_KB, 512, 2048, 8192)
+K9_LADDER = (INT4_KB, 1024, 4096, 8192)
+INT4_SLICE_ROWS = 4_194_304  # the int4 slice's corpus: K9 flat's main-path sweep
 INT2_KCS = (1024, 4096)  # coarse depths: the audit's shallowest, and the default
 INT4_KERNEL_ROWS = 25_165_824  # the int4 tier's own size: past 24M rows
 INT4_WIDE_ROWS = 34_603_008  # past 33,553,920 rows, where K9's first slab kernel ran out of grid
@@ -307,13 +321,34 @@ def one_launch(kid: str, counter: str, run, ns: int) -> None:
     log(f"{kid}: {N_BATCH} queries over {ns:,} rows at k={INT8_KB} took one launch  ok")
 
 
-def depth_times(card: str, kid: str, run, nq: int, ns: int) -> None:
-    """Logs ``run(k)``'s time at k = 1, 16, INT8_KB and 1,024: the running
-    lists' appends and compactions grow with k, the stream and the products
-    do not, so the spread is what the epilogue costs at each depth."""
-    ms = {k: cuda_ms(lambda: run(k)) for k in (1, 16, INT8_KB, 1024)}
-    log(f"{kid} time by depth Q={nq} n_sweep={ns}: " + "  ".join(f"k={k} {t:.4f} ms" for k, t in ms.items())
-        + f"  [{card}]")
+def depth_times(card: str, kid: str, run, nq: int, ns: int, ks=(1, 16, INT8_KB, 1024), bound_of=None) -> dict:
+    """Logs and returns ``run(k)``'s time at each k of ``ks`` (by default 1,
+    16, INT8_KB and 1,024), each beside ``bound_of(k)``'s (ms, what bounds
+    it) where given: the running lists' appends and compactions, and pass
+    2, grow with k, the stream and the products do not, so the spread is
+    what the epilogue costs at each depth."""
+    ms = {k: cuda_ms(lambda: run(k)) for k in ks}
+    bounds = {k: f" (bound {bound_of(k)[0]:.4f}, {bound_of(k)[1]})" if bound_of else "" for k in ks}
+    log(f"{kid} time by depth Q={nq} n_sweep={ns}: "
+        + "  ".join(f"k={k} {t:.4f} ms{bounds[k]}" for k, t in ms.items()) + f"  [{card}]")
+    return ms
+
+
+def int4_bound(live: int, n_sweep: int, nq: int, k: int):
+    """Bound of a packed-int4 scan: the live rows' packed bytes and scales
+    read once, every source id of the sweep once, the queries once, the
+    (Q, k) result written once; 2 * D int8 operations a live row and
+    query."""
+    return bound(live * (DIM // 2 + 4) + 4 * n_sweep + nq * DIM + nq * k * 8, 2.0 * nq * live * DIM, "int8")
+
+
+def flat_cols_widths(widths: tuple, decode: str) -> tuple:
+    """``widths`` and the two sides of K7's (decode "int8") or K9 flat's
+    ("int4") crossover from the CUDA cores to the tensor cores."""
+    from perceive_tpu_torch.ops import topk
+
+    cross = topk.FLAT_COLS_CORE_QUERIES[decode]
+    return tuple(sorted(set(widths) | {cross, cross + 1}))
 
 
 def check_case(name: str, got, want, tol: float) -> float:
@@ -573,7 +608,7 @@ def check_int2_kernels(card: str) -> dict:
             raise SystemExit(f"K6 disagrees with its plain version on dense ties (kc={kc})")
     log("K6 dense ties and an all -inf row: bit-exact, lower row first  ok")
 
-    for kid, fn, widths, ks in (("K7", topk.scan_topk_int8t_flat, (1, 8, 32), KS),
+    for kid, fn, widths, ks in (("K7", topk.scan_topk_int8t_flat, flat_cols_widths((1, 8, 32), "int8"), KS),
                                 ("K8", topk.scan_topk_int8t_slab, (512, 2048), KS)):
         for nq in widths:
             qi8, qs = queries(nq)
@@ -582,18 +617,20 @@ def check_int2_kernels(card: str) -> dict:
                     got = fn(fine, s8, src, qi8, qs, al, k, ns)
                     want = topk.scan_topk_int8t_plain(fine, s8, src, qi8, qs, al, k, ns)
                     check_case(f"{kid} Q={nq:<4d} k={k:<5d} filter={fname:<4s}", got, want, 0.0)
-    # ties: every column 8 times over, so equal scores are everywhere
+    # ties: every column 8 times over, so equal scores are everywhere (K7
+    # at k = 8,192 through its multi-block pass 2)
     tn = 262_144
     tf, tsc, tsrc = fine[:, : tn // 8].repeat(1, 8).contiguous(), s8[: tn // 8].repeat(8), src[: tn // 8].repeat(8)
-    for kid, fn, nq in (("K7", topk.scan_topk_int8t_flat, 8), ("K8", topk.scan_topk_int8t_slab, 256)):
+    for kid, fn, nq, k in (("K7", topk.scan_topk_int8t_flat, 8, 64), ("K7", topk.scan_topk_int8t_flat, 1, 8192),
+                           ("K8", topk.scan_topk_int8t_slab, 256, 64)):
         qi8, qs = queries(nq)
-        got = fn(tf, tsc, tsrc, qi8, qs, allowed["all"], 64)
+        got = fn(tf, tsc, tsrc, qi8, qs, allowed["all"], k)
         v, r = got
         same = (v[:, 1:] == v[:, :-1]) & torch.isfinite(v[:, 1:])
-        if not (torch_equal(got, topk.scan_topk_int8t_plain(tf, tsc, tsrc, qi8, qs, allowed["all"], 64))
+        if not (torch_equal(got, topk.scan_topk_int8t_plain(tf, tsc, tsrc, qi8, qs, allowed["all"], k))
                 and bool(same.any()) and bool((r[:, 1:][same] > r[:, :-1][same]).all())):
-            raise SystemExit(f"{kid} tie order differs from the plain version")
-    log("K7, K8 duplicated columns: bit-exact, equal scores order by the lower row  ok")
+            raise SystemExit(f"{kid} tie order differs from the plain version (Q={nq}, k={k})")
+    log("K7 (k 64 and 8,192), K8 duplicated columns: bit-exact, equal scores order by the lower row  ok")
     del tf, tsc, tsrc
 
     live = int((src[:ns] >= 0).sum())
@@ -643,6 +680,9 @@ def check_int2_kernels(card: str) -> dict:
             f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     one_launch("K8", "LAUNCHES_INT8T_SLAB", lambda: topk.scan_topk_int8t_slab(
         fine, s8, src, *queries(N_BATCH), allowed["all"], INT8_KB, ns), ns)
+    qi8, qs = queries(1)
+    depth_times(card, "K7", lambda k: topk.scan_topk_int8t_flat(fine, s8, src, qi8, qs, allowed["all"], k, ns), 1, ns,
+                K7_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"))
     qi8, qs = queries(512)
     depth_times(card, "K8", lambda k: topk.scan_topk_int8t_slab(fine, s8, src, qi8, qs, allowed["all"], k, ns), 512, ns)
     times["K10"] = check_tiletop(card, packed, s2, src, ns, allowed, queries)
@@ -772,8 +812,9 @@ def check_int4_kernels(card: str) -> dict:
     def queries(nq):
         return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
 
+    cross = tuple(("K9-flat", flat, nq, (INT4_KB, 8192), ("all",)) for nq in flat_cols_widths((), "int4"))
     for kid, fn, nq, ks, fnames in (("K9-flat", flat, 1, KS, ("all", "2src")),
-                                    ("K9-flat", flat, 32, (16, INT4_KB, 8192), ("all",)),
+                                    ("K9-flat", flat, 32, (16, INT4_KB, 8192), ("all",)), *cross,
                                     ("K9-slab", slab, 512, (16, INT4_KB, 1024), ("all", "2src")),
                                     ("K9-slab", slab, 2048, (INT4_KB,), ("all",))):
         qi8, qs = queries(nq)
@@ -794,15 +835,15 @@ def check_int4_kernels(card: str) -> dict:
     # ties: every column 8 times over, so equal scores are everywhere
     tn = 262_144
     tp, tsc, tsrc = packed[:, : tn // 8].repeat(1, 8).contiguous(), scales[: tn // 8].repeat(8), src[: tn // 8].repeat(8)
-    for kid, fn, nq in (("K9-flat", flat, 8), ("K9-slab", slab, 256)):
+    for kid, fn, nq, k in (("K9-flat", flat, 8, 64), ("K9-flat", flat, 1, 8192), ("K9-slab", slab, 256, 64)):
         qi8, qs = queries(nq)
-        got = fn(tp, tsc, tsrc, qi8, qs, allowed["all"], 64)
+        got = fn(tp, tsc, tsrc, qi8, qs, allowed["all"], k)
         v, r = got
         same = (v[:, 1:] == v[:, :-1]) & torch.isfinite(v[:, 1:])
-        if not (torch_equal(got, plain(tp, tsc, tsrc, qi8, qs, allowed["all"], 64)) and bool(same.any())
+        if not (torch_equal(got, plain(tp, tsc, tsrc, qi8, qs, allowed["all"], k)) and bool(same.any())
                 and bool((r[:, 1:][same] > r[:, :-1][same]).all())):
-            raise SystemExit(f"{kid} tie order differs from the plain version")
-    log("K9 flat and slab, duplicated rows: bit-exact, equal scores order by the lower row  ok")
+            raise SystemExit(f"{kid} tie order differs from the plain version (Q={nq}, k={k})")
+    log("K9 flat (k 64 and 8,192) and slab, duplicated rows: bit-exact, equal scores order by the lower row  ok")
     del tp, tsc, tsrc
 
     # the same rows unpacked to the int8 (D, N) layout of the int2 tier's
@@ -833,17 +874,27 @@ def check_int4_kernels(card: str) -> dict:
              "library_ms": None,  # no single PyTorch call unpacks nibbles
              "int8_ms": cuda_ms(lambda: yard(m8, scales, src, qi8, qs, al, k), reps=1 if wide else 20,
                                 warmup=0 if wide else 1)}
-        # the live rows' packed bytes and scales read once, every source id
-        # once, the queries once, the (Q, k) result written once; 2 * D int8
-        # operations a live row and query
-        t["bound_ms"], t["bound_by"] = bound(live * (DIM // 2 + 4) + 4 * n + nq * DIM + nq * k * 8,
-                                             2.0 * nq * live * DIM, "int8")
+        t["bound_ms"], t["bound_by"] = int4_bound(live, n, nq, k)
         times[(kid, nq)] = t
         plain_txt = "not timed" if t["plain_ms"] is None else f"{t['plain_ms']:.4f} ms"
         log(f"{kid} time Q={nq} k={k} n_sweep={n}: kernel {t['ms']:.4f} ms{' (one cold run)' if wide else ''}  "
             f"plain {plain_txt}  library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  "
             f"{'K7' if kid == 'K9-flat' else 'K8'} on the rows unpacked to int8 {t['int8_ms']:.4f} ms  [{card}]")
     log(f"K9-slab: {N_BATCH} queries over {n:,} rows at k={INT4_KB} took one launch  ok")
+    # the escalation ladder's top rung for a 32-query sweep: one launch (the
+    # first kernel's workspace split it in two, each re-reading the matrix)
+    qi8, qs = queries(32)
+    before = topk.LAUNCHES_INT4
+    flat(packed, scales, src, qi8, qs, allowed["all"], 8192)
+    if topk.LAUNCHES_INT4 != before + 1:
+        raise SystemExit(f"K9 flat took {topk.LAUNCHES_INT4 - before} launches for 32 queries at k=8192")
+    ms = cuda_ms(lambda: flat(packed, scales, src, qi8, qs, allowed["all"], 8192), reps=3, warmup=0)
+    log(f"K9-flat: 32 queries over {n:,} rows at k=8192 took one launch ({ms:.4f} ms)  ok  [{card}]")
+    qi8, qs = queries(1)
+    for ns in (INT4_SLICE_ROWS, n):  # the int4 slice's sweep, and the tier's own size
+        live_ns = int((src[:ns] >= 0).sum())
+        depth_times(card, "K9-flat", lambda k: flat(packed, scales, src, qi8, qs, allowed["all"], k, ns), 1, ns,
+                    K9_LADDER, lambda k: int4_bound(live_ns, ns, 1, k))
     del packed, scales, src, m8
     torch.cuda.empty_cache()
 
@@ -857,7 +908,7 @@ def check_int4_kernels(card: str) -> dict:
         check_case(f"K9-slab Q=512  k={INT4_KB:<5d} filter={fname:<4s} n_sweep={n}", got, want, 0.0)
     ms = cuda_ms(lambda: slab(packed, scales, src, qi8, qs, allowed["all"], INT4_KB), reps=1, warmup=0)
     live = int((src >= 0).sum())
-    b, by = bound(live * (DIM // 2 + 4) + 4 * n + 512 * DIM + 512 * INT4_KB * 8, 2.0 * 512 * live * DIM, "int8")
+    b, by = int4_bound(live, n, 512, INT4_KB)
     log(f"K9-slab time Q=512 k={INT4_KB} n_sweep={n}: kernel {ms:.4f} ms (one cold run)  "
         f"bound {b:.4f} ms ({by})  [{card}]")
     check_wide_int8(card, packed, scales, src, queries, allowed)
@@ -903,12 +954,77 @@ def check_wide_int8(card: str, packed, scales, src, queries, allowed: dict) -> N
     for kid, fn, mat in kernels:
         ms = cuda_ms(lambda: fn(mat, scales, src, qi8, qs, allowed["all"], k), reps=1, warmup=0)
         if kid == "K9-slab":
-            b, by = bound(live * (DIM // 2 + 4) + 4 * n + 256 * DIM + 256 * k * 8, 2.0 * 256 * live * DIM, "int8")
+            b, by = int4_bound(live, n, 256, k)
         else:
             b, by = scan_bound(live, n, 256, k, 1, "int8")
         log(f"{kid} time Q=256 k={k} n_sweep={n}: kernel {ms:.4f} ms (one cold run)  "
             f"bound {b:.4f} ms ({by})  [{card}]")
     del m8, rows
+    torch.cuda.empty_cache()
+
+
+def crossover_times(card: str, kid: str, decode: str, run, queries) -> None:
+    """Logs ``run(qi8, qscale)``'s time at Q = 1 to 64 on each of K7's or K9
+    flat's two pass 1s: the CUDA cores (tiles of up to 16 queries) and K8's
+    and K9 slab's wgmma pass 1 (tiles of 64), chosen by setting
+    FLAT_COLS_CORE_QUERIES[decode] for the call: the measure behind its
+    value.  A tree without that table routes by no crossover: nothing to
+    log."""
+    from perceive_tpu_torch.ops import topk
+
+    table = getattr(topk, "FLAT_COLS_CORE_QUERIES", None)
+    if table is None:
+        return
+    saved = table[decode]
+    try:
+        for nq in (1, 2, 4, 8, 16, 32, 64):
+            qi8, qs = queries(nq)
+            t = {}
+            for route, cross in (("CUDA cores", 255), ("tensor cores", 0)):
+                table[decode] = cross
+                t[route] = cuda_ms(lambda: run(qi8, qs))
+            log(f"{kid} crossover Q={nq}: " + "  ".join(f"{r} {ms:.4f} ms" for r, ms in t.items()) + f"  [{card}]")
+    finally:
+        table[decode] = saved
+
+
+def flat_cols_ladder(card: str) -> None:
+    """``--ladder``: K7 and K9 flat by depth on the escalation ladder at the
+    main path's shapes (K7 over the int2 slice's 3,809,280-row companion
+    sweep, K9 flat over the int4 slice's 4,194,304 rows and the tier's own
+    25,165,824) and each width on either pass 1 (``crossover_times``).
+    Uses only the wrappers' public names, so a copy of this script times
+    an older tree's package the same way: run it in each of two trees in
+    turns to compare them on one card."""
+    import torch
+
+    from perceive_tpu_torch.ops import topk
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(5)
+    allowed = filters(dev)["all"]
+
+    def queries(nq):
+        return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
+
+    _, _, fine, s8, src, ns = int2_corpus(g, dev, 4_194_304, 3_800_000)
+    live = int((src[:ns] >= 0).sum())
+    qi8, qs = queries(1)
+    depth_times(card, "K7", lambda k: topk.scan_topk_int8t_flat(fine, s8, src, qi8, qs, allowed, k, ns), 1, ns,
+                K7_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"))
+    crossover_times(card, "K7", "int8",
+                    lambda q, qsc: topk.scan_topk_int8t_flat(fine, s8, src, q, qsc, allowed, INT8_KB, ns), queries)
+    del fine, s8, src
+    torch.cuda.empty_cache()
+    packed, scales, src = int4_matrix(g, dev, INT4_KERNEL_ROWS)
+    flat = topk.scan_topk_int4_flat
+    for ns in (INT4_SLICE_ROWS, INT4_KERNEL_ROWS):
+        live = int((src[:ns] >= 0).sum())
+        depth_times(card, "K9-flat", lambda k: flat(packed, scales, src, qi8, qs, allowed, k, ns), 1, ns, K9_LADDER,
+                    lambda k: int4_bound(live, ns, 1, k))
+    crossover_times(card, "K9-flat", "int4",
+                    lambda q, qsc: flat(packed, scales, src, q, qsc, allowed, INT4_KB, INT4_SLICE_ROWS), queries)
+    del packed, scales, src
     torch.cuda.empty_cache()
 
 
@@ -1865,9 +1981,16 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.")
     ap.add_argument("--audit-case", default="", help="write the int2+int4 self-audit's worst sample here (.npz)")
+    ap.add_argument("--ladder", action="store_true",
+                    help="only build the kernels and time K7 and K9 flat by depth and by width (flat_cols_ladder)")
     args = ap.parse_args(argv)
     card = environment()
     import torch
+
+    if args.ladder:
+        build_kernels(card)
+        flat_cols_ladder(card)
+        return 0
 
     from perceive_tpu_torch.ops import attention as attn
 

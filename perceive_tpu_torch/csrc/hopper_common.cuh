@@ -1,10 +1,13 @@
 // Shared parts of the Hopper scan kernels (scan_flat_bf16.cu: K1;
 // scan_slab_rows.cu: K2 and K4; scan_slab_cols.cu: K8 and K9's slab
-// kernel): mbarriers, TMA loads and tensor maps (encoded on the host
-// through cudaGetDriverEntryPoint, so nothing links libcuda), wgmma
-// descriptors and the s8 product, the int8 epilogue's scaling, and the
-// running per-(query, row range) candidate lists that replace a select per
-// row block.
+// kernel; scan_flat_cols.cu: K7 and K9's flat kernel): mbarriers, TMA
+// loads and tensor maps (encoded on the host through
+// cudaGetDriverEntryPoint, so nothing links libcuda), wgmma descriptors and
+// the s8 product, the int8 epilogue's scaling, the running per-(query, row
+// range) candidate lists that replace a select per row block, and the two
+// pass 2s over those lists: one block a query (list_pass2), and a
+// multi-block radix select (launch_keys_select) where the lists outgrow
+// shared memory.
 //
 // A list lives in the workspace, cand[q][range][cap] (it stays in L2).  A
 // query's running threshold tau is the k-th best key of its list when the
@@ -13,7 +16,7 @@
 // a 64-key sort in registers) and cap >= 2k past that (compacted by a
 // bitwise search for the k-th key); at the end each block leaves its lists
 // as they stand, zero-filled to cap, and list_pass2 selects over ranges x
-// cap keys a query.
+// cap keys a query (or, past what it stages, launch_keys_select does).
 
 #pragma once
 
@@ -476,6 +479,193 @@ inline cudaError_t launch_list_pass2(const u64* cand, int nq, int ncand, int k, 
   return cudaGetLastError();
 }
 
+// -- the multi-block select over a query's keys --------------------------------
+//
+// Past what list_pass2 stages in shared memory (ranges x cap keys a query:
+// deep k over many ranges), one block a query would stream millions of
+// keys from L2 several times.  Here every pass spreads a query's keys over
+// many blocks, as K6 (select_topk.cu) does for scores: radix levels of 11
+// bits over the 64-bit keys (bits 63..53, 52..42, 41..31, 30..20, 19..9,
+// 8..0), each one launch in which every block adds the digits of its keys
+// that match the prefix so far into a shared histogram, warp-aggregated
+// (keys crowd a few bins), flushes it into the query's global histogram,
+// and the last block to finish (a ticket on an atomic counter) finds the
+// bin of the kk-th largest key, extends the prefix and lowers kk.  Keys
+// are unique, so the levels end at the exact k-th key T (usually after the
+// score's bits: a bin that holds exactly kk keys ends them early, and the
+// later launches return at once); every non-zero key >= T is in the top
+// k, equal scores lower row first, as every comparison here is by key.
+// A collect pass copies those keys into a zeroed k-key buffer a query, and
+// list_pass2 sorts it (staged: 2 x 8,192 keys fit) and writes (score, row).
+// Launches: an init, six levels, the collect and list_pass2.
+
+constexpr int kKsBins = 2048;    // 11-bit digits
+constexpr int kKsLevels = 6;
+constexpr int kKsKeys = 16384;   // keys a block of a streaming pass
+constexpr int kKsUnroll = 4;     // loads in flight a thread
+
+struct KeysState {  // one a query
+  u64 prefix;       // the digits fixed so far; at the end the k-th key T
+  u64 mask;
+  uint32_t kk;      // keys still to take under the prefix
+  uint32_t done;    // T is found: later levels return at once
+  uint32_t arrive;  // blocks of the current level that have flushed
+  uint32_t count;   // keys the collect pass has written
+};
+
+__device__ __forceinline__ int ks_shift(int level) { return level < kKsLevels - 1 ? 53 - 11 * level : 0; }
+__device__ __forceinline__ int ks_bits(int level) { return level < kKsLevels - 1 ? 11 : 9; }
+
+__global__ void keys_init(KeysState* __restrict__ st, uint32_t* __restrict__ hist, u64* __restrict__ out, int kpad,
+                          int k) {
+  const int q = blockIdx.x;
+  for (int i = threadIdx.x; i < kKsBins; i += blockDim.x) hist[static_cast<size_t>(q) * kKsBins + i] = 0;
+  for (int i = threadIdx.x; i < kpad; i += blockDim.x) out[static_cast<size_t>(q) * kpad + i] = 0ull;
+  if (threadIdx.x == 0) st[q] = KeysState{0ull, 0ull, static_cast<uint32_t>(k), 0u, 0u, 0u};
+}
+
+// Calls fn(key) for the keys of this block's share [lo, hi) of one query's
+// n keys, kKsUnroll loads in flight a thread; every thread runs the same
+// rounds (past hi it sees key 0), so warp collectives may run inside fn.
+template <class Fn>
+__device__ __forceinline__ void ks_for_keys(const u64* keys, int lo, int hi, Fn fn) {
+  for (int i0 = lo; i0 < hi; i0 += kKsUnroll * kThreads) {
+    u64 kv[kKsUnroll];
+#pragma unroll
+    for (int u = 0; u < kKsUnroll; ++u) {
+      const int i = i0 + u * kThreads + threadIdx.x;
+      kv[u] = i < hi ? keys[i] : 0ull;
+    }
+#pragma unroll
+    for (int u = 0; u < kKsUnroll; ++u) fn(kv[u]);
+  }
+}
+
+// Grid (blocks of kKsKeys keys, queries): one radix level.
+__global__ void __launch_bounds__(kThreads) keys_hist(const u64* __restrict__ cand, int n, KeysState* __restrict__ st,
+                                                      uint32_t* __restrict__ hist, int level) {
+  __shared__ uint32_t h[kKsBins];
+  __shared__ uint32_t warp_tot[kWarps];
+  __shared__ int last;
+  const int q = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const KeysState s0 = st[q];
+  if (s0.done) return;  // block-uniform
+  const int shift = ks_shift(level), bits = ks_bits(level);
+  for (int i = tid; i < kKsBins; i += kThreads) h[i] = 0;
+  __syncthreads();
+  const int lo = blockIdx.x * kKsKeys, hi = min(n, lo + kKsKeys);
+  ks_for_keys(cand + static_cast<size_t>(q) * n, lo, hi, [&](u64 kv) {
+    const uint32_t bin = kv != 0ull && (kv & s0.mask) == s0.prefix
+                             ? static_cast<uint32_t>(kv >> shift) & ((1u << bits) - 1u)
+                             : 0xffffffffu;
+    const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    if (bin != 0xffffffffu && lane == __ffs(peers) - 1) atomicAdd(&h[bin], static_cast<uint32_t>(__popc(peers)));
+  });
+  __syncthreads();
+  uint32_t* g = hist + static_cast<size_t>(q) * kKsBins;
+  for (int i = tid; i < kKsBins; i += kThreads)
+    if (h[i]) atomicAdd(&g[i], h[i]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&st[q].arrive, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: the bin of the kk-th largest key, highest bins first
+  __threadfence();
+  constexpr int kPer = kKsBins / kThreads;
+  const uint32_t kk = s0.kk;
+  uint32_t c[kPer], sum = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    c[j] = __ldcg(&g[kKsBins - 1 - (tid * kPer + j)]);
+    sum += c[j];
+  }
+  uint32_t incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  uint32_t base = 0, total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    base += w < warp ? warp_tot[w] : 0u;
+    total += warp_tot[w];
+  }
+  incl += base;
+  const uint32_t excl = incl - sum;
+  if (level == 0 && total <= kk) {  // at most k non-zero keys: take them all
+    if (tid == 0) {
+      st[q].prefix = 1ull;
+      st[q].done = 1u;
+    }
+  } else if (excl < kk && kk <= incl) {  // exactly one thread
+    uint32_t above = excl;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (above + c[j] >= kk) {
+        const u64 digit = static_cast<u64>(kKsBins - 1 - (tid * kPer + j));
+        st[q].prefix = s0.prefix | (digit << shift);
+        st[q].mask = s0.mask | (static_cast<u64>((1u << bits) - 1u) << shift);
+        st[q].kk = kk - above;
+        st[q].done = c[j] == kk - above;  // every key under the prefix is taken (always at the last level)
+        break;
+      }
+      above += c[j];
+    }
+  }
+  for (int i = tid; i < kKsBins; i += kThreads) g[i] = 0;
+  if (tid == 0) st[q].arrive = 0u;
+}
+
+// Grid (blocks of kKsKeys keys, queries): the non-zero keys >= T into
+// out[q][0, min(k, non-zero)), in no order.
+__global__ void __launch_bounds__(kThreads) keys_collect(const u64* __restrict__ cand, int n,
+                                                         KeysState* __restrict__ st, u64* __restrict__ out,
+                                                         int kpad) {
+  const int q = blockIdx.y, lane = threadIdx.x & 31;
+  const u64 thr = st[q].prefix;
+  u64* dst = out + static_cast<size_t>(q) * kpad;
+  const int lo = blockIdx.x * kKsKeys, hi = min(n, lo + kKsKeys);
+  ks_for_keys(cand + static_cast<size_t>(q) * n, lo, hi, [&](u64 kv) {
+    const bool take = kv != 0ull && kv >= thr;
+    const unsigned ballot = __ballot_sync(0xffffffffu, take);
+    uint32_t slot = 0;
+    if (lane == 0 && ballot) slot = atomicAdd(&st[q].count, static_cast<uint32_t>(__popc(ballot)));
+    slot = __shfl_sync(0xffffffffu, slot, 0);
+    if (take) dst[slot + __popc(ballot & ((1u << lane) - 1u))] = kv;
+  });
+}
+
+inline int keys_kpad(int k) { return (k + 31) / 32 * 32; }
+
+// Scratch bytes of launch_keys_select for nq queries at depth k.
+inline size_t keys_select_bytes(int nq, int k) {
+  return static_cast<size_t>(nq) *
+         (sizeof(KeysState) + kKsBins * sizeof(uint32_t) + static_cast<size_t>(keys_kpad(k)) * sizeof(u64));
+}
+
+// The top k of each of nq queries' ncand keys (cand[q][ncand]) into vals
+// and rows, best first; scratch holds keys_select_bytes(nq, k) bytes,
+// 16-byte aligned.
+inline cudaError_t launch_keys_select(const u64* cand, int nq, int ncand, int k, float* vals, int* rows,
+                                      void* scratch, cudaStream_t stream) {
+  if (nq < 1 || nq > 65535) return cudaErrorInvalidValue;
+  KeysState* st = static_cast<KeysState*>(scratch);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(st + nq);
+  u64* out = reinterpret_cast<u64*>(hist + static_cast<size_t>(nq) * kKsBins);
+  const int kpad = keys_kpad(k);
+  const dim3 grid((ncand + kKsKeys - 1) / kKsKeys, nq);
+  keys_init<<<nq, kThreads, 0, stream>>>(st, hist, out, kpad, k);
+  for (int level = 0; level < kKsLevels; ++level) keys_hist<<<grid, kThreads, 0, stream>>>(cand, ncand, st, hist, level);
+  keys_collect<<<grid, kThreads, 0, stream>>>(cand, ncand, st, out, kpad);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_list_pass2(out, nq, kpad, k, vals, rows, stream);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -539,3 +729,13 @@ inline bool list_plan_ok(int n_sweep, int k, int ranges, int rows_per_range, int
 cudaError_t scan_bf16_wgmma_lists(const void* matrix, const int* src, const void* q, const int* allowed,
                                   int n_filter, int nq, int d, int n_sweep, int k, int qrows, int ranges,
                                   int rows_per_range, int cap, unsigned long long* cand, cudaStream_t s);
+
+// The s8 wgmma pass 1 over a column-major matrix (scan_slab_cols.cu): K8's
+// and K9 slab's, and K7's and K9 flat's for sweeps wider than their
+// CUDA-core crossover (ops/topk.py `flat_cols_plan`).  int4: the packed
+// (d/2, ld) matrix, else the (d, ld) int8 companion.  Leaves each (query,
+// range) list in cand.
+cudaError_t scan_s8_cols_wgmma_lists(bool int4, const void* m, int ld, const float* scales, const int* src,
+                                     const void* q, const float* qscale, const int* allowed, int n_filter, int nq,
+                                     int d, int n_sweep, int k, int qrows, int ranges, int rows_per_range, int cap,
+                                     unsigned long long* cand, cudaStream_t s);

@@ -1,7 +1,10 @@
 // The batch scans over column-major (transposed) matrices, one kernel for
 // Hopper templated on its decode stage: K9's slab kernel (the packed-int4
 // matrix) and K8 (the int2 tier's int8 companion), exact scans with top-k
-// selection for batches of queries (sweeps of at least 256).
+// selection for batches of queries (sweeps of at least 256).  Its pass 1,
+// with a tile of 64 queries (one consumer warpgroup) or 128, also serves
+// K7 and K9 flat (scan_flat_cols.cu) past their CUDA-core crossover
+// (`scan_s8_cols_wgmma_lists`).
 //
 // Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_int4_slabbed`
 // (`_scan_kernel_int4_slabbed`) and `pallas_topk_int8t_slabbed`
@@ -67,8 +70,6 @@ namespace {
 
 constexpr int kRowTile = 128;                      // rows a tile (wgmma n = 128)
 constexpr int kWgQueries = 64;                     // queries a consumer warpgroup (m = 64)
-constexpr int kQRows = 2 * kWgQueries;             // queries a block
-constexpr int kConsumers = 2 * 128;                // consumer threads
 constexpr int kSliceBytes = kRowTile * 128;        // a decoded K-slice: 128 rows x 128 bytes
 constexpr int kMaxStages = 8;
 constexpr int kSrcAhead = 2;  // tiles whose source ids and scales load ahead of their rows
@@ -167,16 +168,19 @@ struct Int8Cols {
   }
 };
 
-// Grid (query tiles, row ranges); block: two consumer warpgroups + one
-// producer warp.  cand[q][range][cap]: each (query, range)'s candidate
-// list, kept there while the block runs.
-template <class Dec>
-__global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_cols(
+// Grid (query tiles, row ranges); block: NWG consumer warpgroups (two for
+// the batch scans; one for K7's and K9 flat's 64-query tiles,
+// scan_flat_cols.cu) + one producer warp.  cand[q][range][cap]: each
+// (query, range)'s candidate list, kept there while the block runs.
+template <class Dec, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1) scan_slab_cols(
     const __grid_constant__ CUtensorMap tmap_m, const __grid_constant__ CUtensorMap tmap_s,
     const __grid_constant__ CUtensorMap tmap_scale, const int8_t* __restrict__ q, const float* __restrict__ qscale,
     const int* __restrict__ allowed, int n_filter, int nq, int d, int n_sweep, int k, int cap, int rows_per_range,
     int nranges, int stages, u64* __restrict__ cand) {
   constexpr int kStageBytes = Dec::kByteRows * kRowTile;
+  constexpr int kQRows = NWG * kWgQueries;  // queries a block
+  constexpr int kConsumers = NWG * 128;     // consumer threads
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const int nslice = d / 128;  // K-slices (ring boxes) a tile
@@ -185,9 +189,9 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_cols(
   unsigned char* ring = dec + 2 * kSliceBytes;                            // [stages][byte-rows][128 rows]
   int* src_ring = reinterpret_cast<int*>(ring + static_cast<size_t>(stages) * kStageBytes);  // [kSrcSlots][128]
   float* scl_ring = reinterpret_cast<float*>(src_ring + kSrcSlots * kRowTile);              // [kSrcSlots][128]
-  float* qsc = scl_ring + kSrcSlots * kRowTile;                                              // [128]
-  u64* tau = reinterpret_cast<u64*>(qsc + kQRows);                                           // [128]
-  int* cnt = reinterpret_cast<int*>(tau + kQRows);                                           // [128]
+  float* qsc = scl_ring + kSrcSlots * kRowTile;                                              // [kQRows]
+  u64* tau = reinterpret_cast<u64*>(qsc + kQRows);                                           // [kQRows]
+  int* cnt = reinterpret_cast<int*>(tau + kQRows);                                           // [kQRows]
   uint64_t* full = reinterpret_cast<uint64_t*>(cnt + kQRows);                                // [stages]
   uint64_t* empty = full + stages;                                                           // [stages]
   uint64_t* src_full = empty + stages;                                                       // [kSrcSlots]
@@ -267,6 +271,7 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_cols(
   auto decode_next = [&](unsigned char* dst) {
     mbar_wait(full + stage, phase);
     Dec::decode(ring + stage * kStageBytes, dst, tid);
+    if constexpr (NWG == 1) Dec::decode(ring + stage * kStageBytes, dst, tid + 128);  // the other four warps' share
     fence_async_smem();
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + stage);
@@ -310,54 +315,91 @@ __global__ void __launch_bounds__(kConsumers + 32, 1) scan_slab_cols(
   finish_lists(wq0, qn, cnt, list_of, cap);
 }
 
-template <class Dec>
+template <class Dec, int NWG>
 size_t plan_smem(int d, int stages) {
+  constexpr int kQRows = NWG * kWgQueries;
   return 1024 + static_cast<size_t>(d / 128) * kQRows * 128 + 2 * kSliceBytes +
          static_cast<size_t>(stages) * Dec::kByteRows * kRowTile + kSrcSlots * kRowTile * 8 + kQRows * (4 + 8 + 4) +
          static_cast<size_t>(2 * stages + kSrcSlots) * 8 + kMaxFilter * 4;
 }
 
-// Both C entries: the transposed (d / kDimsPerByteRow, ld) matrix (ld,
-// its capacity, a multiple of 16: TMA strides are), (ld,) f32 row scales,
-// int8 queries (nq, d) with (nq,) f32 scales; d a multiple of 128; matrix,
-// scales, src and q 16-byte aligned.  The launch plan comes from the
-// wrapper (ops/topk.py `slab_s8_plan`): 128 queries a block, `ranges` row
-// ranges of rows_per_range rows (a multiple of 128) covering n_sweep, and
-// each (query, range) list's capacity cap: 64 keys for k <= 32, else more
-// than k.  Workspace: nq * ranges * cap * 8 bytes, the lists themselves.
-template <class Dec>
-int launch_cols(const void* m, int ld, const float* scales, const int* src, const void* q, const float* qscale,
-                const int* allowed, int n_filter, int nq, int d, int n_sweep, int k, int qrows, int ranges,
-                int rows_per_range, int cap, float* vals, int* rows, void* workspace, void* stream) {
-  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || d % 128 || ld % 16 || n_sweep > ld || qrows != kQRows ||
-      !list_plan_ok(n_sweep, k, ranges, rows_per_range, cap, kRowTile) || scales == nullptr || qscale == nullptr ||
-      (reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(src) |
-       reinterpret_cast<uintptr_t>(q)) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
+// Pass 1 of K8, K9 slab and (past their crossover, ops/topk.py
+// `flat_cols_plan`) K7 and K9 flat into cand: the transposed (d /
+// kDimsPerByteRow, ld) matrix (ld, its capacity, a multiple of 16: TMA
+// strides are), (ld,) f32 row scales, int8 queries (nq, d) with (nq,) f32
+// scales; d a multiple of 128; matrix, scales, src and q 16-byte aligned.
+// The launch plan comes from the wrapper (`slab_s8_plan`, `flat_cols_plan`):
+// qrows (64: one consumer warpgroup, or 128: two) queries a block, `ranges`
+// row ranges of rows_per_range rows (a multiple of 128) covering n_sweep,
+// and each (query, range) list's capacity cap: 64 keys for k <= 32, else
+// more than k.  cand: nq * ranges * cap keys, the lists themselves.
+template <class Dec, int NWG>
+cudaError_t cols_lists(const void* m, int ld, const float* scales, const int* src, const void* q,
+                       const float* qscale, const int* allowed, int n_filter, int nq, int d, int n_sweep, int k,
+                       int ranges, int rows_per_range, int cap, u64* cand, cudaStream_t s) {
   int stages = kMaxStages;
-  while (stages >= 2 && plan_smem<Dec>(d, stages) > kSmemMax) --stages;
-  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = plan_smem<Dec>(d, stages);
+  while (stages >= 2 && plan_smem<Dec, NWG>(d, stages) > kSmemMax) --stages;
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = plan_smem<Dec, NWG>(d, stages);
   CUtensorMap tmap_m, tmap_s, tmap_scale;
   if (!make_map_2d(&tmap_m, CU_TENSOR_MAP_DATA_TYPE_UINT8, m, n_sweep, d / Dec::kDimsPerByteRow, ld, kRowTile,
                    Dec::kByteRows, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !make_map_1d(&tmap_s, CU_TENSOR_MAP_DATA_TYPE_INT32, src, n_sweep, kRowTile) ||
       !make_map_1d(&tmap_scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, n_sweep, kRowTile))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = allow_smem<scan_slab_cols<Dec>>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  u64* cand = static_cast<u64*>(workspace);
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<scan_slab_cols<Dec, NWG>>();
+  if (err != cudaSuccess) return err;
+  constexpr int kQRows = NWG * kWgQueries;
   const dim3 grid((nq + kQRows - 1) / kQRows, ranges);
-  scan_slab_cols<Dec><<<grid, kConsumers + 32, smem, s>>>(tmap_m, tmap_s, tmap_scale, static_cast<const int8_t*>(q),
-                                                          qscale, allowed, n_filter, nq, d, n_sweep, k, cap,
-                                                          rows_per_range, ranges, stages, cand);
-  err = cudaGetLastError();
+  scan_slab_cols<Dec, NWG><<<grid, NWG * 128 + 32, smem, s>>>(
+      tmap_m, tmap_s, tmap_scale, static_cast<const int8_t*>(q), qscale, allowed, n_filter, nq, d, n_sweep, k, cap,
+      rows_per_range, ranges, stages, cand);
+  return cudaGetLastError();
+}
+
+template <class Dec>
+cudaError_t scan_cols_lists(const void* m, int ld, const float* scales, const int* src, const void* q,
+                            const float* qscale, const int* allowed, int n_filter, int nq, int d, int n_sweep, int k,
+                            int qrows, int ranges, int rows_per_range, int cap, u64* cand, cudaStream_t s) {
+  if (!common_args_ok(nq, n_sweep, k, d, n_filter) || d % 128 || ld % 16 || n_sweep > ld ||
+      (qrows != kWgQueries && qrows != 2 * kWgQueries) ||
+      !list_plan_ok(n_sweep, k, ranges, rows_per_range, cap, kRowTile) || scales == nullptr || qscale == nullptr ||
+      (reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(src) |
+       reinterpret_cast<uintptr_t>(q)) % 16)
+    return cudaErrorInvalidValue;
+  return qrows == kWgQueries
+             ? cols_lists<Dec, 1>(m, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k, ranges,
+                                  rows_per_range, cap, cand, s)
+             : cols_lists<Dec, 2>(m, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k, ranges,
+                                  rows_per_range, cap, cand, s);
+}
+
+// Both C entries: pass 1 (scan_cols_lists, 128 queries a block), then
+// list_pass2 over ranges x cap keys a query.  Workspace: nq * ranges * cap
+// * 8 bytes.
+template <class Dec>
+int launch_cols(const void* m, int ld, const float* scales, const int* src, const void* q, const float* qscale,
+                const int* allowed, int n_filter, int nq, int d, int n_sweep, int k, int qrows, int ranges,
+                int rows_per_range, int cap, float* vals, int* rows, void* workspace, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  u64* cand = static_cast<u64*>(workspace);
+  const cudaError_t err = scan_cols_lists<Dec>(m, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k,
+                                               qrows, ranges, rows_per_range, cap, cand, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_list_pass2(cand, nq, ranges * cap, k, vals, rows, s));
 }
 
 }  // namespace
+
+cudaError_t scan_s8_cols_wgmma_lists(bool int4, const void* m, int ld, const float* scales, const int* src,
+                                     const void* q, const float* qscale, const int* allowed, int n_filter, int nq,
+                                     int d, int n_sweep, int k, int qrows, int ranges, int rows_per_range, int cap,
+                                     unsigned long long* cand, cudaStream_t s) {
+  return int4 ? scan_cols_lists<Int4Cols>(m, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k, qrows,
+                                          ranges, rows_per_range, cap, cand, s)
+              : scan_cols_lists<Int8Cols>(m, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k, qrows,
+                                          ranges, rows_per_range, cap, cand, s);
+}
 
 extern "C" {
 

@@ -1,7 +1,7 @@
-// Shared parts of the scan-top-k kernels (scan_topk.cu: K3, K7, K9 flat;
-// and, with hopper_common.cuh, scan_flat_bf16.cu: K1, scan_slab_rows.cu: K2
-// and K4, scan_slab_cols.cu: K8 and K9 slab) and of K5/K6 (scan_int2.cu,
-// select_topk.cu):
+// Shared parts of the scan-top-k kernels (scan_topk.cu: K3; and, with
+// hopper_common.cuh, scan_flat_bf16.cu: K1, scan_slab_rows.cu: K2 and K4,
+// scan_slab_cols.cu: K8 and K9 slab, scan_flat_cols.cu: K7 and K9 flat)
+// and of K5/K6 (scan_int2.cu, select_topk.cu):
 // the 64-bit candidate keys and order values, the 4 x 4 byte transpose of
 // the (D, N) layouts, the warp-wide select that ends pass 1, and pass 2
 // with its block-wide radix select.
@@ -14,8 +14,8 @@
 //
 // Pass 1 (one kernel per tier and width) leaves, for every query and every
 // block of kRows rows, the block's best min(k, kRows) keys in a workspace
-// laid out cand[q][block][kc] (K1, K2, K4, K8, K9 slab: each row range's
-// running list, cap keys a range).  Pass 2 (here) selects the top k of each
+// laid out cand[q][block][kc] (K3; the Hopper scans leave each row range's
+// running list instead, cap keys a range, hopper_common.cuh).  Pass 2 (here) selects the top k of each
 // query's candidates and bitonic-sorts them.
 
 #pragma once

@@ -107,12 +107,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.perceive_scan_topk_slab.restype = i
     lib.perceive_scan_slab_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_slab_bf16.restype = i
-    lib.perceive_scan_topk_int8t.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
-    lib.perceive_scan_topk_int8t.restype = i
+    lib.perceive_scan_flat_int8t.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_flat_int8t.restype = i
     lib.perceive_scan_topk_int8t_slab.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_topk_int8t_slab.restype = i
-    lib.perceive_scan_topk_int4.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
-    lib.perceive_scan_topk_int4.restype = i
+    lib.perceive_scan_flat_int4.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_flat_int4.restype = i
+    lib.perceive_keys_select_workspace.argtypes = [i, i]
+    lib.perceive_keys_select_workspace.restype = z
     lib.perceive_scan_slab_int4.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_slab_int4.restype = i
     lib.perceive_int2_scores.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p, p]

@@ -8,9 +8,9 @@ each beside its plain PyTorch version and a launch counter:
     K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab_rows.cu
     K3  scan_topk_int8_flat    int8, Q < 256                csrc/scan_topk.cu
     K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab_rows.cu
-    K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_topk.cu
+    K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_flat_cols.cu
     K8  scan_topk_int8t_slab   int8 (D, N) transposed, Q >= 256  csrc/scan_slab_cols.cu
-    K9  scan_topk_int4_flat    packed int4 (D/2, N), Q < 256     csrc/scan_topk.cu
+    K9  scan_topk_int4_flat    packed int4 (D/2, N), Q < 256     csrc/scan_flat_cols.cu
     K9  scan_topk_int4_slab    packed int4 (D/2, N), Q >= 256    csrc/scan_slab_cols.cu
 
 The int2 tier's coarse pass (K5, K6) is ops/int2.py.
@@ -54,14 +54,10 @@ QUERY_SLAB = 128  # the slab kernels take sweeps of whole slabs
 SLAB_QUERIES = 64  # query chunks of the slab kernels align to this (a consumer warpgroup's queries)
 # queries per sweep; larger batches run as consecutive sweeps
 MAX_QUERY_SLAB = 2048
-# workspace budget per launch (K3, K7 and K9's flat kernel keep up to
-# min(k, 512) candidates per 512-row block and query; K1, K2, K4, K8 and
-# K9's slab kernel one list per row range and query); query chunks shrink
-# to fit
+# workspace budget per launch (K3 keeps up to min(k, 512) candidates per
+# 512-row block and query; every other scan one list per row range and
+# query); query chunks shrink to fit
 _WORKSPACE_BYTES = 1 << 30
-# K9's flat kernel's: the int4 tier holds past 24M rows, where a query's
-# block candidates take 25 MB at k = 64 (50 MB at k = 128)
-_WORKSPACE_BYTES_INT4 = 4 << 30
 # the plain versions' (Q, N) temporaries are bounded by this many bytes
 _PLAIN_BYTES = 1 << 30
 # the plain int8 version sums in f32: exact while every partial sum stays
@@ -357,30 +353,66 @@ def query_chunks(nq: int, ws_bytes, q_align: int, budget: int) -> list[tuple[int
     return [(s, min(nq, s + chunk)) for s in range(0, nq, chunk)]
 
 
-# The launch plans of K1, K2, K4, K8 and K9's slab kernel
-# (csrc/hopper_common.cuh, kSortK and kSortCap): rows a tile; each (query,
-# range) keeps a running list in the workspace at every k, of 64 keys
-# (compacted by a sort) up to k = 32 and of 2k keys past it
+# The launch plans of K1, K2, K4, K7, K8 and K9 (csrc/hopper_common.cuh,
+# kSortK and kSortCap): rows a tile; each (query, range) keeps a running
+# list in the workspace at every k, of 64 keys (compacted by a sort) up to
+# k = 32 and of 2k keys past it
 SLAB_BF16_ROWS = 128
 SLAB_BF16_SORT_K = 32
 SLAB_BF16_SORT_CAP = 64
 # K1 scores sweeps of up to this many queries on the CUDA cores (and every
 # f32 sweep); wider bf16 sweeps take K2's tensor-core pass 1
 FLAT_CORE_QUERIES = 8
+# K7 and K9 flat score sweeps of up to this many queries on the CUDA cores
+# (and every sweep whose d is no multiple of 128), by decode (the int4
+# decode costs more CUDA-core operations a byte); wider sweeps take K8's
+# and K9 slab's tensor-core pass 1.  Measured for each decode on an H100
+# 80GB HBM3 at 700 W (`chip_smoke.py --ladder`, PERF.md section 6): at 16
+# queries the CUDA cores win (K7 1.63 against 2.02 ms, K9 flat 1.85
+# against 2.42), at 32 the tensor cores (2.41 against 2.70, 2.72 against
+# 2.95)
+FLAT_COLS_CORE_QUERIES = {"int8": 16, "int4": 16}
+# list_pass2 (csrc/hopper_common.cuh) stages a query's ranges x cap keys in
+# shared memory beside its sort buffer where they fit in a block's
+# 232,448 bytes with its select scratch (1,040) and 1,024 to spare; past
+# that K7 and K9 flat take the multi-block select, whose scratch is a
+# 32-byte state, a 2,048-bin histogram and k keys (rounded up to 32) a query
+_SMEM_MAX = 232_448
+_SELECT_SCRATCH = 1_040
+_KEYS_BINS = 2048
 
 
-def _list_plan(nq: int, qt: int, n_sweep: int, k: int, blocks: int):
+def _pow2_at_least(k: int) -> int:
+    return 1 << max(0, k - 1).bit_length()
+
+
+def list_pass2_staged(ncand: int, k: int) -> bool:
+    """Whether list_pass2 stages a query's ``ncand`` keys in shared memory
+    at depth k (csrc/hopper_common.cuh ``launch_list_pass2``)."""
+    sort_n = _pow2_at_least(k)
+    return (((sort_n + 1) & ~1) + ncand) * 8 + _SELECT_SCRATCH + 1024 <= _SMEM_MAX
+
+
+def keys_select_bytes(nq: int, k: int) -> int:
+    """Scratch of the multi-block select for nq queries at depth k
+    (csrc/hopper_common.cuh ``keys_select_bytes``)."""
+    return nq * (32 + _KEYS_BINS * 4 + -(-k // 32) * 32 * 8)
+
+
+def _list_plan(nq: int, qt: int, n_sweep: int, k: int, blocks: int, span: int = 4):
     """(workspace bytes, (qt, row ranges, rows a range, list capacity)) of
     a list-keeping launch of nq queries, qt a block: (query tiles) x
     (ranges) comes to about ``blocks``, each range at least one row tile
-    and, past k = 32, at least 4k rows (its list of 2k keys then compacts
-    rarely).  Each (query, range) leaves ``cap`` keys for pass 2."""
+    and, past k = 32, at least ``span`` x k rows (at 4k its list of 2k keys
+    compacts rarely and a one-block pass 2 has few keys to read; at 2k a
+    list holds no more keys than its range has rows).  Each (query, range)
+    leaves ``cap`` keys for pass 2."""
     cap = SLAB_BF16_SORT_CAP if k <= SLAB_BF16_SORT_K else -(-2 * k // 32) * 32
     qtiles = -(-nq // qt)
     tiles = -(-n_sweep // SLAB_BF16_ROWS)
     ranges = max(1, blocks // qtiles)
     if k > SLAB_BF16_SORT_K:
-        ranges = min(ranges, max(1, n_sweep // (4 * k)))
+        ranges = min(ranges, max(1, n_sweep // (span * k)))
     ranges = min(ranges, tiles)
     per = -(-tiles // ranges)
     ranges = -(-tiles // per)
@@ -414,6 +446,29 @@ def slab_s8_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
     the rows.  At Q = 2,048 and k = 256 the workspace is ~67 MB at any row
     count, so a sweep is one launch within _WORKSPACE_BYTES."""
     return _list_plan(nq, 128, n_sweep, k, sms)
+
+
+def flat_cols_plan(nq: int, d: int, n_sweep: int, k: int, sms: int, int4: bool):
+    """The launch of K7 (int8 (D, N) companion) or K9 flat (``int4``:
+    packed (D/2, N)) for nq < 256 queries: (workspace bytes, (queries a
+    block, row ranges, rows a range, list capacity, multi)).  Up to
+    FLAT_COLS_CORE_QUERIES[decode] queries (and wherever d is no multiple of
+    128) the power of two at or above nq, at most 16, on the CUDA cores, two
+    blocks an SM; past that K8's and K9 slab's tensor-core pass 1 with a
+    tile of 64 queries (128 past 64), one block an SM.  Past k = 32 a range
+    holds at least 2k rows, no fewer than its list's keys; where a query's
+    ranges x cap keys pass what list_pass2 stages, pass 2 is the
+    multi-block select (``multi``), whose scratch follows the lists.  The
+    workspace, nq x ranges x cap x 8 bytes and that scratch, does not grow
+    with the rows."""
+    if nq <= FLAT_COLS_CORE_QUERIES["int4" if int4 else "int8"] or d % 128:
+        ws, (qt, ranges, per, cap) = _list_plan(nq, min(16, _pow2_at_least(nq)), n_sweep, k, 2 * sms, 2)
+    else:
+        ws, (qt, ranges, per, cap) = _list_plan(nq, 64 if nq <= 64 else 128, n_sweep, k, sms, 2)
+    multi = not list_pass2_staged(ranges * cap, k)
+    if multi:
+        ws += keys_select_bytes(nq, k)
+    return ws, (qt, ranges, per, cap, int(multi))
 
 
 @functools.lru_cache(maxsize=None)
@@ -562,38 +617,43 @@ def scan_topk_int8_slab(matrix, scales, source_ids, qi8, qscale, allowed, k: int
 
 
 def _cols_scan(what: str, entry: str, int4: bool, mat, scales, source_ids, qi8, qscale, allowed, k: int,
-               n_sweep: int, q_align: int, row_align: int = 0, budget: int = 0, plan=None) -> tuple:
+               n_sweep: int, q_align: int, row_align: int, plan) -> tuple:
     """Shared body of the K7, K8 and K9 wrappers over a column-major matrix
     (int8 (D, N), or packed int4 (D/2, N) where ``int4``): check, then the
-    plain version for a CPU matrix, else the kernel (``_launch``; by
-    default rows of a multiple of 32 bytes at int4 and 16 at int8, budget
-    _WORKSPACE_BYTES_INT4 at int4).  Returns (vals, rows, launches)."""
+    plain version for a CPU matrix, else the kernel (``_launch``: TMA's
+    column rule, ``_check_tma_cols``, then the C entry with the launch plan
+    ``plan(n, d, n_sweep, k)``).  Returns (vals, rows, launches)."""
     _check_cols(mat, scales, source_ids, qi8, allowed, k, torch.uint8 if int4 else torch.int8, 2 if int4 else 1)
     _check_qi8(qi8, qscale)
     if _device_of(mat, what) == "cpu":
         plain = scan_topk_int4_plain if int4 else scan_topk_int8t_plain
         return (*plain(mat, scales, source_ids, qi8, qscale, allowed, k, n_sweep), 0)
+    _check_tma_cols(mat, what)
     return _launch(entry, what, mat, source_ids, qi8, allowed, k, n_sweep, (mat, mat.shape[1], scales),
-                   (qscale,), q_align, row_align or (32 if int4 else 16),
-                   budget or (_WORKSPACE_BYTES_INT4 if int4 else _WORKSPACE_BYTES), plan)
+                   (qscale,), q_align, row_align, plan=plan)
+
+
+def _check_tma_cols(mat, what: str) -> None:
+    """Every kernel over a column-major matrix (K7, K8, K9) reads it by TMA,
+    whose strides are multiples of 16 bytes: on the card its N must be one.
+    The matrices the package builds have capacities that are multiples of
+    ROW_ALIGN = 512, so the main path passes no other."""
+    if mat.device.type == "cuda" and mat.dim() == 2 and mat.shape[1] % 16:
+        raise ValueError(f"{what}: N must be a multiple of 16, got {mat.shape[1]}")
 
 
 def scan_topk_int8t_flat(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
     """K7: exact top-k of int8 scores over the transposed (D, N) companion
-    of the int2 tier, any Q."""
+    of the int2 tier, any Q: persistent blocks over row ranges (TMA ring,
+    running thresholds), CUDA cores or tensor cores by width
+    (``flat_cols_plan``).  On the card N must be a multiple of 16
+    (``_check_tma_cols``)."""
     global LAUNCHES_INT8T
-    vals, rows, n = _cols_scan("scan_topk_int8t_flat", "perceive_scan_topk_int8t", False, m8t, scales, source_ids,
-                               qi8, qscale, allowed, k, n_sweep, 1)
+    vals, rows, n = _cols_scan("scan_topk_int8t_flat", "perceive_scan_flat_int8t", False, m8t, scales, source_ids,
+                               qi8, qscale, allowed, k, n_sweep, 1, 16,
+                               lambda n, d, ns, kk: flat_cols_plan(n, d, ns, kk, _sm_count(m8t.device), False))
     LAUNCHES_INT8T += n
     return vals, rows
-
-
-def _check_tma_cols(mat, what: str) -> None:
-    """The slab kernels read a column-major matrix by TMA, whose strides are
-    multiples of 16 bytes: on the card its N must be one (the matrix's
-    capacity is a multiple of ROW_ALIGN)."""
-    if mat.device.type == "cuda" and mat.dim() == 2 and mat.shape[1] % 16:
-        raise ValueError(f"{what}: N must be a multiple of 16, got {mat.shape[1]}")
 
 
 def scan_topk_int8t_slab(m8t, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
@@ -601,9 +661,8 @@ def scan_topk_int8t_slab(m8t, scales, source_ids, qi8, qscale, allowed, k: int, 
     transpose for its decode: about one block per SM walks a row range for
     a resident tile of 128 queries (``slab_s8_plan``)."""
     global LAUNCHES_INT8T_SLAB
-    _check_tma_cols(m8t, "scan_topk_int8t_slab")
     vals, rows, n = _cols_scan("scan_topk_int8t_slab", "perceive_scan_topk_int8t_slab", False, m8t, scales,
-                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES, 128, _WORKSPACE_BYTES,
+                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES, 128,
                                lambda n, d, ns, kk: slab_s8_plan(n, d, ns, kk, _sm_count(m8t.device)))
     LAUNCHES_INT8T_SLAB += n
     return vals, rows
@@ -611,10 +670,13 @@ def scan_topk_int8t_slab(m8t, scales, source_ids, qi8, qscale, allowed, k: int, 
 
 def scan_topk_int4_flat(packed, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
     """K9, flat: exact top-k of int4 scores (see ``scores_int4``) over the
-    packed (D/2, N) matrix, any Q."""
+    packed (D/2, N) matrix, any Q: K7's kernel with a nibble decode
+    (``flat_cols_plan``).  On the card N must be a multiple of 16
+    (``_check_tma_cols``)."""
     global LAUNCHES_INT4
-    vals, rows, n = _cols_scan("scan_topk_int4_flat", "perceive_scan_topk_int4", True, packed, scales, source_ids,
-                               qi8, qscale, allowed, k, n_sweep, 1)
+    vals, rows, n = _cols_scan("scan_topk_int4_flat", "perceive_scan_flat_int4", True, packed, scales, source_ids,
+                               qi8, qscale, allowed, k, n_sweep, 1, 32,
+                               lambda n, d, ns, kk: flat_cols_plan(n, d, ns, kk, _sm_count(packed.device), True))
     LAUNCHES_INT4 += n
     return vals, rows
 
@@ -626,9 +688,8 @@ def scan_topk_int4_slab(packed, scales, source_ids, qi8, qscale, allowed, k: int
     thresholds (``slab_s8_plan``).  N must be a multiple of 16
     (``_check_tma_cols``)."""
     global LAUNCHES_INT4_SLAB
-    _check_tma_cols(packed, "scan_topk_int4_slab")
     vals, rows, n = _cols_scan("scan_topk_int4_slab", "perceive_scan_slab_int4", True, packed, scales,
-                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES, 128, _WORKSPACE_BYTES,
+                               source_ids, qi8, qscale, allowed, k, n_sweep, SLAB_QUERIES, 128,
                                lambda n, d, ns, kk: slab_s8_plan(n, d, ns, kk, _sm_count(packed.device)))
     LAUNCHES_INT4_SLAB += n
     return vals, rows

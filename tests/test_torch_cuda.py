@@ -23,7 +23,12 @@ same adversarial orders, the tie rule), K9's slab kernel
 (``test_scan_slab_int4_*``: bit for bit at every width, the same
 adversarial orders), K4 and K8 (``test_scan_slab_int8*``: bit for bit at
 every width and at k 32, 33 and 8,192, a filtered ragged sweep, one
-launch a sweep, the same adversarial orders, TMA's column rule) and K11's
+launch a sweep, the same adversarial orders, TMA's column rule), K7 and
+K9 flat (``test_scan_topk_int8t_bit_exact``, ``test_scan_topk_int4_bit_exact``
+at widths on both sides of each crossover and depths through the
+multi-block pass 2; ``test_scan_flat_cols_*``: the adversarial orders,
+every row masked, one live row at the sweep's end, dense ties at k =
+8,192, TMA's column rule) and K11's
 bf16 path
 (``test_attention_bf16_tensor_cores``: S 100, 384 and 512, DH 16, 32 and
 64, masks with whole padded key tiles, one kept key, or none).
@@ -343,8 +348,20 @@ def test_select_topk_matches_plain(dev, case, kc):
         assert int(torch.isfinite(vk).sum()) and bool((vk == fk[:, None]).sum(dim=1).gt(1).any())
 
 
-@pytest.mark.parametrize("kernel,nq", [("flat", 1), ("flat", 8), ("flat", 32), ("slab", 256), ("slab", 512)])
-@pytest.mark.parametrize("k,filt,n_sweep", [(16, None, 0), (128, [1], 20480), (600, [0, 2], 0), (8192, None, 0)])
+# K7's and K9 flat's widths: every CUDA-core tile (1, 2, 8, 16), both sides
+# of each decode's crossover (FLAT_COLS_CORE_QUERIES) and of the 64-query
+# tensor-core tile, and the widest flat sweep
+FLAT_COLS_WIDTHS = [("flat", 1), ("flat", 2), ("flat", 7), ("flat", 8), ("flat", 9), ("flat", 16), ("flat", 17),
+                    ("flat", 63), ("flat", 64), ("flat", 255), ("slab", 256), ("slab", 512)]
+# depths with both filters: the sorted list (16), the bitwise compaction
+# (128, 600), the multi-block pass 2 (600 and past), a sweep that is no
+# multiple of 128 rows (20,037)
+FLAT_COLS_DEPTHS = [(16, None, 0), (128, [1], 20480), (600, [0, 2], 0), (1024, [1], 20037), (8192, None, 0),
+                    (8192, [0, 2], 20037)]
+
+
+@pytest.mark.parametrize("kernel,nq", FLAT_COLS_WIDTHS)
+@pytest.mark.parametrize("k,filt,n_sweep", FLAT_COLS_DEPTHS)
 def test_scan_topk_int8t_bit_exact(dev, kernel, nq, k, filt, n_sweep):
     _, _, fine, s8, src, qi8, qscale = _int2_inputs(dev, 32768, nq, nq + k)
     fn = topk.scan_topk_int8t_flat if kernel == "flat" else topk.scan_topk_int8t_slab
@@ -396,8 +413,8 @@ def _int4_inputs(dev, n, nq, seed, d=384, dup=False):
     return packed, scales, src, qi8, qscale
 
 
-@pytest.mark.parametrize("kernel,nq", [("flat", 1), ("flat", 8), ("flat", 32), ("slab", 256), ("slab", 512)])
-@pytest.mark.parametrize("k,filt,n_sweep", [(16, None, 0), (128, [1], 20480), (600, [0, 2], 0), (8192, None, 0)])
+@pytest.mark.parametrize("kernel,nq", FLAT_COLS_WIDTHS)
+@pytest.mark.parametrize("k,filt,n_sweep", FLAT_COLS_DEPTHS)
 def test_scan_topk_int4_bit_exact(dev, kernel, nq, k, filt, n_sweep):
     packed, scales, src, qi8, qscale = _int4_inputs(dev, 32768, nq, nq + k)
     assert bool(((packed & 15) == 0).any())
@@ -726,3 +743,105 @@ def test_scan_slab_int8t_refuses_unaligned_columns(dev):
     _, _, fine, s8, src, qi8, qscale = _int2_inputs(dev, 4100, 256, 3)
     with pytest.raises(ValueError):
         topk.scan_topk_int8t_slab(fine, s8, src, qi8, qscale, _allowed(dev), 16)
+
+
+def _flat_cols(kernel, m8, scales, src, qi8, qscale, allowed, k, n_sweep=0):
+    """K7 over the (D, N) int8 columns ``m8``, or K9 flat over their packed
+    int4 form (``m8`` then holds nibble values), beside the plain version:
+    (got, want, launches)."""
+    if kernel == "K7":
+        fn, plain, mat, counter = topk.scan_topk_int8t_flat, topk.scan_topk_int8t_plain, m8, "LAUNCHES_INT8T"
+    else:
+        d2 = m8.shape[0] // 2
+        lo, hi = m8[:d2].to(torch.int32), m8[d2:].to(torch.int32)
+        mat = ((lo + 8) | ((hi & 15) << 4)).to(torch.uint8).contiguous()
+        fn, plain, counter = topk.scan_topk_int4_flat, topk.scan_topk_int4_plain, "LAUNCHES_INT4"
+    before = getattr(topk, counter)
+    got = fn(mat, scales, src, qi8, qscale, allowed, k, n_sweep)
+    want = plain(mat, scales, src, qi8, qscale, allowed, k, n_sweep)
+    torch.cuda.synchronize()
+    return got, want, getattr(topk, counter) - before
+
+
+@pytest.mark.parametrize("kernel", ["K7", "K9"])
+@pytest.mark.parametrize("nq", [1, 40])
+@pytest.mark.parametrize("case", ["ascending", "all_equal", "filter_drops_99", "all_masked", "last_row_only",
+                                  "dense_ties"])
+@pytest.mark.parametrize("k", [10, 512, 8192])
+def test_scan_flat_cols_adversarial(dev, kernel, nq, case, k):
+    """K7 and K9 flat (csrc/scan_flat_cols.cu) on the orders that defeat
+    running thresholds, bit for bit, on the CUDA cores (Q = 1) and the
+    tensor cores (Q = 40): one column whose row scales ascend along the
+    sweep (queries near it), every column equal (the tie rule: the first
+    live rows, lowest first), a filter keeping ~1% of the rows, every row
+    masked ((-inf, -1) everywhere), one live row at the sweep's end (a
+    ragged last tile), every column 8 times over (dense ties; at k = 8,192
+    through the multi-block pass 2)."""
+    n = 65536
+    g = torch.Generator(device=dev).manual_seed(k + nq)
+    lo, hi = (-8, 8) if kernel == "K9" else (-127, 128)
+    m8 = torch.randint(lo, hi, (384, n), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+    scales = torch.rand((n,), generator=g, device=dev) + 0.5
+    src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    src[torch.rand((n,), generator=g, device=dev) < 0.2] = -1
+    qi8, qscale = topk.quantize_queries(torch.randn((nq, 384), generator=g, device=dev))
+    allowed, n_sweep = _allowed(dev), 0
+    if case in ("ascending", "all_equal"):
+        m8 = m8[:, :1].repeat(1, n).contiguous()
+        qi8, qscale = topk.quantize_queries(m8[:, :1].float().T + 0.5 * torch.randn((nq, 384), generator=g, device=dev))
+        if case == "ascending":
+            scales = torch.linspace(0.5, 1.5, n, device=dev)
+            src = torch.zeros_like(src)
+        else:
+            scales = torch.ones_like(scales)
+    elif case == "filter_drops_99":
+        src = torch.where(torch.rand((n,), generator=g, device=dev) < 0.01, 0, 5).to(torch.int32)
+        allowed = _allowed(dev, [0])
+    elif case == "all_masked":
+        src = torch.full_like(src, -1)
+    elif case == "last_row_only":
+        n_sweep = 50_001
+        src = torch.full_like(src, -1)
+        src[n_sweep - 1] = 1
+    else:
+        m8 = m8[:, : n // 8].repeat(1, 8).contiguous()
+        scales = scales[: n // 8].repeat(8)
+    (vk, rk), (vp, rp), launches = _flat_cols(kernel, m8, scales, src, qi8, qscale, allowed, k, n_sweep)
+    assert torch.equal(vk, vp) and torch.equal(rk, rp) and launches == 1
+    if case == "all_equal":
+        first_rows = torch.nonzero(src >= 0).flatten()[:k].to(torch.int32)
+        assert bool((rk == first_rows[None, :]).all())
+    if case == "all_masked":
+        assert bool(torch.isinf(vk).all()) and bool((rk == -1).all())
+    if case == "last_row_only":
+        assert bool((rk[:, 0] == n_sweep - 1).all()) and bool((rk[:, 1:] == -1).all())
+    if case == "dense_ties":
+        same = (vk[:, 1:] == vk[:, :-1]) & torch.isfinite(vk[:, 1:])
+        assert bool(same.any()) and bool((rk[:, 1:][same] > rk[:, :-1][same]).all())
+        if k == 8192:
+            assert topk.flat_cols_plan(nq, 384, n, k, topk._sm_count(dev), kernel == "K9")[1][4] == 1
+
+
+def test_scan_flat_cols_keys_select_workspace_matches_the_kernel(dev):
+    """The multi-block select's scratch as the wrapper sizes it
+    (``keys_select_bytes``) and as the kernel lays it out."""
+    from perceive_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for nq, k in ((1, 1), (3, 100), (16, 8192), (255, 1024)):
+        assert lib.perceive_keys_select_workspace(nq, k) == topk.keys_select_bytes(nq, k)
+
+
+@pytest.mark.parametrize("kernel", ["K7", "K9"])
+def test_scan_flat_cols_refuses_unaligned_columns(dev, kernel):
+    """K7 and K9 flat read the matrix by TMA: a column count that is not a
+    multiple of 16 raises instead of launching, at every width."""
+    packed, s2, fine, s8, src, qi8, qscale = _int2_inputs(dev, 4100, 1, 3)
+    if kernel == "K7":
+        fn, mat, sc = topk.scan_topk_int8t_flat, fine, s8
+    else:
+        fn, mat, sc = topk.scan_topk_int4_flat, fine[:192].view(torch.uint8).contiguous(), s8
+    for nq in (1, 40):
+        qi8, qscale = topk.quantize_queries(torch.randn((nq, 384), device=dev))
+        with pytest.raises(ValueError):
+            fn(mat, sc, src, qi8, qscale, _allowed(dev), 16)

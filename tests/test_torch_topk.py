@@ -306,3 +306,152 @@ def test_flat_bf16_plan_tiles_by_width(d, nq, want):
     past that, and 128 past 64 queries where d <= 384."""
     _, (qt, *_) = topk.flat_bf16_plan(nq, d, 958_464, 32, 132)
     assert qt == want
+
+
+FLAT_COLS_ROWS = [3_809_280, 25_165_824, 100_000_000]
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("nq", [1, 8, 32, 255])
+@pytest.mark.parametrize("k", [16, 128, 256, 1024, 8192])
+def test_flat_cols_plan_workspace_does_not_grow_with_rows(int4, nq, k):
+    """K7's and K9 flat's launch plan (``flat_cols_plan``): one list per
+    (query, range) and, where pass 2 is the multi-block select, its scratch;
+    about two blocks an SM on the CUDA cores, one on the tensor cores; no
+    launch dimension and no workspace that grows with the rows (the first
+    kernel kept min(k, 512) keys per 512-row block: 4 GiB at 25M rows)."""
+    sms = 132
+    plans = [topk.flat_cols_plan(nq, 384, n, k, sms, int4) for n in FLAT_COLS_ROWS]
+    for n, (ws, (qt, ranges, per, cap, multi)) in zip(FLAT_COLS_ROWS, plans):
+        assert ws == nq * ranges * cap * 8 + (topk.keys_select_bytes(nq, k) if multi else 0)
+        assert cap == 64 if k <= 32 else cap >= 2 * k and cap % 32 == 0
+        assert per % 128 == 0 and ranges * per >= n > (ranges - 1) * per
+        assert -(-nq // qt) * ranges <= (2 * sms if qt <= 16 else sms)
+        assert ws <= nq * 2 * sms * cap * 8 + topk.keys_select_bytes(nq, k)
+    assert plans[0][0] <= plans[1][0] == plans[2][0]
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("n_sweep", [4_194_304, 25_165_824])
+def test_flat_cols_plan_deep_32_query_sweep_is_one_launch(int4, n_sweep):
+    """A 32-query sweep at k = 8,192 (the escalation ladder's top rung) is
+    one chunk within _WORKSPACE_BYTES at the int4 tier's size and at the
+    main path's: the first kernel split it in two, each re-reading the
+    matrix."""
+    plan = lambda n: topk.flat_cols_plan(n, 384, n_sweep, 8192, 132, int4)  # noqa: E731
+    assert topk.query_chunks(32, lambda n: plan(n)[0], 1, topk._WORKSPACE_BYTES) == [(0, 32)]
+    assert plan(32)[0] <= topk._WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("d", [384, 256, 160])
+@pytest.mark.parametrize("step", [-1, 0, 1])
+def test_flat_cols_plan_routes_at_the_crossover(int4, d, step):
+    """Up to FLAT_COLS_CORE_QUERIES[decode] queries a power-of-two tile of
+    at most 16 on the CUDA cores; past it K8's and K9 slab's wgmma tile of
+    64 queries (128 past 64), but only where d is a multiple of 128 (their
+    K-slices); elsewhere the CUDA cores at every width."""
+    cross = topk.FLAT_COLS_CORE_QUERIES["int4" if int4 else "int8"]
+    for nq in (cross + step, 64 + step, 255):
+        if nq < 1:
+            continue
+        _, (qt, *_) = topk.flat_cols_plan(nq, d, 3_809_280, 128, 132, int4)
+        if nq <= cross or d % 128:
+            assert qt == min(16, 1 << (nq - 1).bit_length())
+        else:
+            assert qt == (64 if nq <= 64 else 128)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("nq", [1, 16, 255])
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 64, 128, 512, 1024, 8192])
+@pytest.mark.parametrize("n_sweep", [128, 20_037, 958_464, 3_809_280])
+def test_flat_cols_plan_takes_the_multi_block_select_past_staging(int4, nq, k, n_sweep):
+    """Pass 2 is the multi-block select exactly where a query's ranges x cap
+    keys pass what list_pass2 stages in shared memory beside its sort
+    buffer (232,448 bytes less its select scratch and 1,024 spare)."""
+    _, (_, ranges, _, cap, multi) = topk.flat_cols_plan(nq, 384, n_sweep, k, 132, int4)
+    sort_n = 1 << max(0, k - 1).bit_length()
+    staged = (((sort_n + 1) & ~1) + ranges * cap) * 8 + 1040 + 1024 <= 232_448
+    assert multi == (not staged) and topk.list_pass2_staged(ranges * cap, k) == staged
+
+
+def test_list_pass2_staging_boundary():
+    """The staging rule at its edge: at k = 128 (a sort buffer of 128 keys)
+    28,670 keys stage and 28,672 do not."""
+    assert topk.list_pass2_staged(28_670, 128)
+    assert not topk.list_pass2_staged(28_672, 128)
+    assert topk.keys_select_bytes(3, 100) == 3 * (32 + 2048 * 4 + 128 * 8)
+
+
+_KS_SHIFTS = (53, 42, 31, 20, 9, 0)
+_KS_BITS = (11, 11, 11, 11, 11, 9)
+
+
+def _keys_select_model(keys: np.ndarray, k: int, block: int = 4096) -> np.ndarray:
+    """A plain model of csrc/hopper_common.cuh's multi-block select over
+    one query's uint64 keys (0 = no row): radix levels of 11 bits (9 at the
+    last), each a histogram over blocks of keys that match the prefix, the
+    bin of the kk-th largest found highest first, done once a bin holds
+    exactly kk keys; at level 0, at most k non-zero keys are all taken
+    (T = 1).  Returns the keys >= T, best first."""
+    prefix, mask, kk, done = np.uint64(0), np.uint64(0), k, False
+    for level, (shift, bits) in enumerate(zip(_KS_SHIFTS, _KS_BITS)):
+        if done:
+            break
+        hist = np.zeros(2048, dtype=np.int64)
+        for lo in range(0, keys.size, block):  # the blocks' shared histograms, flushed
+            part = keys[lo : lo + block]
+            live = part[(part != 0) & ((part & mask) == prefix)]
+            hist += np.bincount(((live >> np.uint64(shift)) & np.uint64((1 << bits) - 1)).astype(np.int64),
+                                minlength=2048)
+        if level == 0 and hist.sum() <= kk:
+            prefix, done = np.uint64(1), True
+            break
+        above = 0
+        for digit in range(2047, -1, -1):
+            if above + hist[digit] >= kk:
+                prefix |= np.uint64(digit) << np.uint64(shift)
+                mask |= np.uint64((1 << bits) - 1) << np.uint64(shift)
+                kk -= above
+                done = hist[digit] == kk
+                break
+            above += hist[digit]
+    taken = keys[(keys != 0) & (keys >= prefix)]
+    assert taken.size == min(k, int((keys != 0).sum()))
+    return np.sort(taken)[::-1]
+
+
+@pytest.mark.parametrize("case", ["random", "dense_ties", "all_equal", "few_live", "none_live", "negative"])
+@pytest.mark.parametrize("k", [1, 7, 128, 1000, 8192])
+def test_keys_select_model_matches_topk(case, k):
+    """The multi-block select's plan, modelled on the CPU, against torch.topk
+    over the (score, ~row) keys: the same (score, row) pairs best first,
+    equal scores lower row first, on lists laid out as pass 1 leaves them
+    (ranges x cap slots, zero-filled)."""
+    rng = np.random.default_rng(k + len(case))
+    ranges, cap = 37, 512
+    n = ranges * cap
+    scores = rng.standard_normal(n).astype(np.float32)
+    if case == "dense_ties":
+        scores = rng.integers(-3, 4, n).astype(np.float32) * np.float32(0.25)
+    elif case == "all_equal":
+        scores[:] = np.float32(0.5)
+    elif case == "negative":
+        scores = -np.abs(scores)
+        scores[::5] = np.float32(-0.0)
+    rows = rng.permutation(40 * n)[:n].astype(np.int64)  # rows spread past the slots, in no order
+    live = rng.random(n) < {"few_live": 0.01, "none_live": 0.0}.get(case, 0.9)
+    bits = scores.view(np.uint32).astype(np.uint64)
+    bits = np.where(scores == 0, np.uint64(0x80000000), bits)  # -0 -> +0, as float_order(s + 0.0f)
+    order = np.where(bits & np.uint64(0x80000000), ~bits & np.uint64(0xFFFFFFFF), bits | np.uint64(0x80000000))
+    keys = np.where(live, (order << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - rows.astype(np.uint64)), np.uint64(0))
+    got = _keys_select_model(keys, k)
+    got_rows = (np.uint64(0xFFFFFFFF) - (got & np.uint64(0xFFFFFFFF))).astype(np.int64)
+    # torch.topk over the port's int64 keys of the live (score, row) pairs
+    s_live, r_live = torch.from_numpy(scores[live]), torch.from_numpy(rows[live])
+    ref = topk._order_keys(s_live[None, :], 0, r_live[None, :])[0]
+    kk = min(k, ref.numel())
+    pos = torch.topk(ref, kk, sorted=True).indices
+    np.testing.assert_array_equal(got_rows, r_live[pos].numpy())
+    np.testing.assert_array_equal(scores[live][pos.numpy()], s_live[pos].numpy())
