@@ -6,17 +6,21 @@
 ``--audit-case`` also writes the int2+int4 self-audit's worst sample and
 the rows around it to CASE.npz, for ``tests/audit_case.py`` to reproduce
 off the card in the port and in the JAX package.  ``--ladder`` runs only
-the build and K7's and K9 flat's times by depth and by width
-(``flat_cols_ladder``), and prints no result line.
+the build and the flat scans' times by depth and by width (K3, K7 and K9
+flat) and K5's by width (``ladders``), and prints no result line.
 
 Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
   2. build the CUDA kernels from perceive_tpu_torch/csrc;
   3. K1 and K2 (bf16 scan + top-k, flat and slab) against their plain
-     version at 1M x 384 bf16, K1 also over the same rows in f32;
+     version at 1M x 384 bf16, K1 also over the same rows in f32, and K1
+     replayed 40 times on one input;
   4. K3 and K4 (int8 scan + top-k, flat and slab) against their plain
-     version, bit for bit, at 2M x 384 int8, and a sweep of 2,048 queries
-     in one K4 launch;
+     version, bit for bit, at 2M x 384 int8 (K3 on both sides of its
+     crossover to the tensor cores and at 255 queries), a sweep of 2,048
+     queries in one K4 launch and of 255 queries at k = 8,192 in one K3
+     launch, K3 timed by depth on the escalation ladder and by width on
+     either pass 1, and replayed 40 times on one input;
   5. K11 (attention) against its plain version at every encoder bucket
      (timed beside the short-bucket route) and on masks with whole padded
      key tiles and one kept key;
@@ -37,7 +41,8 @@ Phases (any failure exits non-zero before the final line):
      for bit, at the int2 slice's shape (4,194,304 x 384), K7 on both sides
      of its crossover to the tensor cores and on duplicated columns at k =
      8,192 (its multi-block pass 2), a sweep of 2,048 queries in one K8
-     launch, and K7 timed by depth on the escalation ladder;
+     launch, K7 timed by depth on the escalation ladder, and K5 replayed 40
+     times on one input at 1 and 8 queries;
  11. K10 against its plain version, bit for bit, near the int2 tier's
      upper end (22.5M live rows of 25,165,824 x 384, generated on the card);
  12. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
@@ -98,9 +103,9 @@ import time
 import numpy as np
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    "scan_topk": ("perceive_tpu_torch/csrc/scan_flat_bf16.cu", "perceive_tpu/ops/topk.py:966"),
+    "scan_topk": ("perceive_tpu_torch/csrc/scan_flat_rows.cu", "perceive_tpu/ops/topk.py:966"),
     "scan_slab": ("perceive_tpu_torch/csrc/scan_slab_rows.cu", "perceive_tpu/ops/topk.py:927"),
-    "scan_int8": ("perceive_tpu_torch/csrc/scan_topk.cu", "perceive_tpu/ops/topk.py:273"),
+    "scan_int8": ("perceive_tpu_torch/csrc/scan_flat_rows.cu", "perceive_tpu/ops/topk.py:273"),
     "scan_int8_slab": ("perceive_tpu_torch/csrc/scan_slab_rows.cu", "perceive_tpu/ops/topk.py:234"),
     "attention": ("perceive_tpu_torch/csrc/attention.cu", "perceive_tpu/ops/attention.py:58"),
     "int2_scores": ("perceive_tpu_torch/csrc/scan_int2.cu", "perceive_tpu/ops/topk.py:1222"),
@@ -123,9 +128,9 @@ BF16_KB = 32  # the bf16 slice's sweep depth: k=10, doubled for chunk dedupe
 INT8_KB = 128  # the int8 slice's: k=10, x4 over-fetch, doubled for chunk dedupe
 INT4_KB = 256  # the int4 slices': k=10, x8 over-fetch, doubled for chunk dedupe
 # the escalation ladder's rungs (index/searcher.py _OVERFETCH_BUCKETS, 4x a
-# rung): K7 sweeps the int2 tier's companion from the fused first sweep's
-# 128 (INT8_KB), K9 flat the int4 tier from INT4_KB
-K7_LADDER = (INT8_KB, 512, 2048, 8192)
+# rung): K3 sweeps the int8 tier and K7 the int2 tier's companion from the
+# fused first sweep's 128 (INT8_KB), K9 flat the int4 tier from INT4_KB
+INT8_LADDER = (INT8_KB, 512, 2048, 8192)
 K9_LADDER = (INT4_KB, 1024, 4096, 8192)
 INT4_SLICE_ROWS = 4_194_304  # the int4 slice's corpus: K9 flat's main-path sweep
 INT2_KCS = (1024, 4096)  # coarse depths: the audit's shallowest, and the default
@@ -200,6 +205,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds a call of ``fn`` takes: its kernels' device time
+    under torch.profiler over ``reps`` calls after a warm-up, over
+    ``reps``.  Unlike ``cuda_ms`` it leaves out the host's work before and
+    between the launches (a wrapper's Python prologue)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
 
 
 def bound(n_bytes: float, ops: float, kind: str, transcendentals: float = 0.0) -> tuple[float, str]:
@@ -321,17 +343,61 @@ def one_launch(kid: str, counter: str, run, ns: int) -> None:
     log(f"{kid}: {N_BATCH} queries over {ns:,} rows at k={INT8_KB} took one launch  ok")
 
 
-def depth_times(card: str, kid: str, run, nq: int, ns: int, ks=(1, 16, INT8_KB, 1024), bound_of=None) -> dict:
+def depth_times(card: str, kid: str, run, nq: int, ns: int, ks=(1, 16, INT8_KB, 1024), bound_of=None,
+                library=None) -> dict:
     """Logs and returns ``run(k)``'s time at each k of ``ks`` (by default 1,
     16, INT8_KB and 1,024), each beside ``bound_of(k)``'s (ms, what bounds
-    it) where given: the running lists' appends and compactions, and pass
-    2, grow with k, the stream and the products do not, so the spread is
-    what the epilogue costs at each depth."""
+    it) and ``library(k)``'s time where given: the running lists' appends
+    and compactions, and pass 2, grow with k, the stream and the products
+    do not, so the spread is what the epilogue costs at each depth."""
     ms = {k: cuda_ms(lambda: run(k)) for k in ks}
-    bounds = {k: f" (bound {bound_of(k)[0]:.4f}, {bound_of(k)[1]})" if bound_of else "" for k in ks}
+    extra = {k: (f" (bound {bound_of(k)[0]:.4f}, {bound_of(k)[1]}" if bound_of else "")
+             + (f"; library {cuda_ms(lambda: library(k)):.4f} ms" if library else "")
+             + (")" if bound_of else "") for k in ks}
     log(f"{kid} time by depth Q={nq} n_sweep={ns}: "
-        + "  ".join(f"k={k} {t:.4f} ms{bounds[k]}" for k, t in ms.items()) + f"  [{card}]")
+        + "  ".join(f"k={k} {t:.4f} ms{extra[k]}" for k, t in ms.items()) + f"  [{card}]")
     return ms
+
+
+def int8_yardstick(m, scales, keep, cols: bool = False):
+    """The library call for an int8 scan with top-k over a sweep's rows
+    ``m`` ((n, D) int8, or the (D, n) companion where ``cols``) with their
+    scales and live mask: torch._int_mm where its shape rules allow (more
+    than 16 queries), else an f32 matmul of the int8 values (exact: sums
+    below 2**24); then the scale products, masked_fill and topk."""
+    import torch
+
+    mt = m if cols else m.T
+
+    def library(qi8, qs, k):
+        dots = torch._int_mm(qi8, mt).float() if qi8.shape[0] > 16 else qi8.float() @ mt.float()
+        return torch.topk((dots * scales * qs).masked_fill(~keep, float("-inf")), k)
+
+    return library
+
+
+def replay(kid: str, name: str, run, want, times: int = 40) -> None:
+    """Runs ``run()`` ``times`` times back to back on one input (the
+    wrapper's workspace reused from PyTorch's cache) and fails unless each
+    answer equals ``want`` (the checked first answer) bit for bit: a race
+    between a ring stage's release and the next TMA write shows as a few
+    wrong rows now and then (PERF.md section 6)."""
+    import torch
+
+    bad = 0
+    for _ in range(times):
+        got = run()
+        bad += not (torch.equal(got, want) if isinstance(got, torch.Tensor) else torch_equal(got, want))
+    log(f"{kid} {name}: {times} replays, {bad} differ  {'ok' if bad == 0 else 'FAIL'}")
+    if bad:
+        raise SystemExit(f"{kid} answered differently in {bad} of {times} replays ({name})")
+
+
+def int2_bound(n_sweep: int, nq: int):
+    """Bound of K5: the sweep's packed bytes, scales and ids read once, the
+    queries once, the (Q, n_sweep) scores written once; 2 * D int8
+    operations a row and query."""
+    return bound(n_sweep * (DIM // 4 + 8) + nq * DIM + nq * n_sweep * 4, 2.0 * nq * n_sweep * DIM, "int8")
 
 
 def int4_bound(live: int, n_sweep: int, nq: int, k: int):
@@ -342,13 +408,15 @@ def int4_bound(live: int, n_sweep: int, nq: int, k: int):
     return bound(live * (DIM // 2 + 4) + 4 * n_sweep + nq * DIM + nq * k * 8, 2.0 * nq * live * DIM, "int8")
 
 
-def flat_cols_widths(widths: tuple, decode: str) -> tuple:
-    """``widths`` and the two sides of K7's (decode "int8") or K9 flat's
-    ("int4") crossover from the CUDA cores to the tensor cores."""
+def crossover_widths(widths: tuple, table: str, key: str) -> tuple:
+    """``widths`` and the two sides of a flat scan's crossover from the
+    CUDA cores to the tensor cores, ``topk.<table>[key]`` (K1 and K3:
+    FLAT_ROWS_CORE_QUERIES by operand; K7 and K9 flat:
+    FLAT_COLS_CORE_QUERIES by decode), where the tree has one."""
     from perceive_tpu_torch.ops import topk
 
-    cross = topk.FLAT_COLS_CORE_QUERIES[decode]
-    return tuple(sorted(set(widths) | {cross, cross + 1}))
+    cross = getattr(topk, table, {}).get(key)
+    return tuple(sorted(set(widths) | ({cross, cross + 1} if cross else set())))
 
 
 def check_case(name: str, got, want, tol: float) -> float:
@@ -409,6 +477,13 @@ def check_bf16_scans(card: str) -> dict:
             err = check_case(f"K1 Q={nq:<4d} k={BF16_KB:<5d} filter={fname:<4s} f32", got, want, SCAN_TOL)
             worst["K1"] = max(worst["K1"], err)
     del m32
+    for nq, k, fname in ((1, BF16_KB, "all"), (8, 8192, "2src")):  # the CUDA cores: their ring's releases
+        q = queries(nq)
+        first = topk.scan_topk_flat(m, src, q, allowed[fname], k, ns)
+        check_case(f"K1 Q={nq:<4d} k={k:<5d} filter={fname:<4s} (replayed)", first,
+                   topk.scan_topk_plain(m, src, q, allowed[fname], k, ns), SCAN_TOL)
+        replay("K1", f"Q={nq} k={k} filter={fname}", lambda: topk.scan_topk_flat(m, src, q, allowed[fname], k, ns),
+               first)
     before = topk.LAUNCHES_SLAB
     topk.scan_topk(m, src, queries(300), allowed["all"], 16, ns)  # padded to 384: K2's route
     if topk.LAUNCHES_SLAB != before + 1:
@@ -452,6 +527,23 @@ def check_bf16_scans(card: str) -> dict:
             "K2": {"max_abs_err": worst["K2"], **times[("K2", 512, BF16_KB)]}}
 
 
+def int8_rows(g, dev, n: int, hwm: int):
+    """Seeded unit rows as the int8 tier stores them, quantized on the card
+    (per-row symmetric, as the matrix's ``_quantize``): the (n, DIM) int8
+    matrix, its row scales, source ids and the sweep prefix as corpus_rows
+    gives them."""
+    import torch
+
+    chunks, src, ns = corpus_rows(g, dev, n, hwm)
+    m = torch.empty((n, DIM), dtype=torch.int8, device=dev)
+    scales = torch.empty((n,), dtype=torch.float32, device=dev)
+    for lo, blk in chunks:
+        s = torch.clamp(blk.abs().amax(dim=1), min=1e-12) / 127.0
+        m[lo : lo + blk.shape[0]] = torch.clamp(torch.round(blk / s[:, None]), -127, 127).to(torch.int8)
+        scales[lo : lo + blk.shape[0]] = s
+    return m, scales, src, ns
+
+
 def check_int8_scans(card: str) -> dict:
     """K3 (flat) and K4 (slab) at 2,097,152 x 384 int8, bit for bit."""
     import torch
@@ -459,25 +551,19 @@ def check_int8_scans(card: str) -> dict:
     from perceive_tpu_torch.ops import topk
 
     dev = torch.device("cuda:0")
-    n, hwm = 2_097_152, 1_900_000
     g = torch.Generator(device=dev).manual_seed(3)
-    chunks, src, ns = corpus_rows(g, dev, n, hwm)
-    m = torch.empty((n, DIM), dtype=torch.int8, device=dev)
-    scales = torch.empty((n,), dtype=torch.float32, device=dev)
-    for lo, blk in chunks:  # the matrix's per-row symmetric quantization
-        s = torch.clamp(blk.abs().amax(dim=1), min=1e-12) / 127.0
-        m[lo : lo + blk.shape[0]] = torch.clamp(torch.round(blk / s[:, None]), -127, 127).to(torch.int8)
-        scales[lo : lo + blk.shape[0]] = s
+    m, scales, src, ns = int8_rows(g, dev, 2_097_152, 1_900_000)
     allowed = filters(dev)
 
     def queries(nq):
         return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
 
-    for kid, fn, widths in (("K3", topk.scan_topk_int8_flat, (1, 8)),
+    k3_widths = crossover_widths((1, 8, 16, 17, 255), "FLAT_ROWS_CORE_QUERIES", "int8")
+    for kid, fn, widths in (("K3", topk.scan_topk_int8_flat, k3_widths),
                             ("K4", topk.scan_topk_int8_slab, (256, 512, 2048))):
         for nq in widths:
             qi8, qs = queries(nq)
-            for k in KS:
+            for k in (KS if kid == "K4" or nq > 17 else KS + (2048,)):
                 for fname, al in allowed.items():
                     got = fn(m, scales, src, qi8, qs, al, k, ns)
                     want = topk.scan_topk_int8_plain(m, scales, src, qi8, qs, al, k, ns)
@@ -486,37 +572,47 @@ def check_int8_scans(card: str) -> dict:
     topk.scan_topk_int8(m, scales, src, torch.randn((300, DIM), generator=g, device=dev), allowed["all"], 16, ns)
     if topk.LAUNCHES_INT8_SLAB != before + 1:
         raise SystemExit("scan_topk_int8 did not route a 300-query sweep to K4")
+    # the escalation ladder's top rung at an executor drain's widest flat
+    # sweep: one K3 launch (its first kernel's workspace split it in eight)
+    qi8, qs = queries(255)
+    before = topk.LAUNCHES_INT8
+    topk.scan_topk_int8_flat(m, scales, src, qi8, qs, allowed["all"], 8192, ns)
+    if topk.LAUNCHES_INT8 != before + 1:
+        raise SystemExit(f"K3 took {topk.LAUNCHES_INT8 - before} launches for 255 queries at k=8192")
+    log(f"K3: 255 queries over {ns:,} rows at k=8192 took one launch  ok")
 
-    # ties: every row 8 times over, so equal scores are everywhere
+    # ties: every row 8 times over, so equal scores are everywhere (K3 at
+    # k = 8,192 through its multi-block pass 2)
     tn = 262_144
     tm, tsc, tsrc = m[: tn // 8].repeat(8, 1).contiguous(), scales[: tn // 8].repeat(8), src[: tn // 8].repeat(8)
-    for kid, fn, nq in (("K3", topk.scan_topk_int8_flat, 8), ("K4", topk.scan_topk_int8_slab, 256)):
+    for kid, fn, nq, k in (("K3", topk.scan_topk_int8_flat, 8, 64), ("K3", topk.scan_topk_int8_flat, 1, 8192),
+                           ("K3", topk.scan_topk_int8_flat, 64, 512), ("K4", topk.scan_topk_int8_slab, 256, 64)):
         qi8, qs = queries(nq)
-        got = fn(tm, tsc, tsrc, qi8, qs, allowed["all"], 64)
-        want = topk.scan_topk_int8_plain(tm, tsc, tsrc, qi8, qs, allowed["all"], 64)
+        got = fn(tm, tsc, tsrc, qi8, qs, allowed["all"], k)
+        want = topk.scan_topk_int8_plain(tm, tsc, tsrc, qi8, qs, allowed["all"], k)
         v, r = got
         same = (v[:, 1:] == v[:, :-1]) & torch.isfinite(v[:, 1:])
         if not (torch_equal(got, want) and bool(same.any()) and bool((r[:, 1:][same] > r[:, :-1][same]).all())):
-            raise SystemExit(f"{kid} tie order differs from the plain version")
-    log("K3, K4 duplicated rows: bit-exact, equal scores order by the lower row  ok")
+            raise SystemExit(f"{kid} tie order differs from the plain version (Q={nq}, k={k})")
+    log("K3 (k 64, 512 and 8,192), K4 duplicated rows: bit-exact, equal scores order by the lower row  ok")
     del tm, tsc, tsrc
+
+    # replays on one input: the CUDA cores at the main path's shape and deep
+    # under a filter, the tensor cores
+    for nq, k, fname in ((1, INT8_KB, "all"), (8, 8192, "2src"), (64, 512, "all")):
+        qi8, qs = queries(nq)
+        first = topk.scan_topk_int8_flat(m, scales, src, qi8, qs, allowed[fname], k, ns)
+        check_case(f"K3 Q={nq:<4d} k={k:<5d} filter={fname:<4s} (replayed)", first,
+                   topk.scan_topk_int8_plain(m, scales, src, qi8, qs, allowed[fname], k, ns), 0.0)
+        replay("K3", f"Q={nq} k={k} filter={fname}",
+               lambda: topk.scan_topk_int8_flat(m, scales, src, qi8, qs, allowed[fname], k, ns), first)
 
     live = int((src[:ns] >= 0).sum())
     keep = src[:ns] >= 0
-    mv, sv = m[:ns], scales[:ns]
-
-    def library(qi8, qs, k):
-        """torch._int_mm where its shape rules allow (more than 16 queries),
-        else an f32 matmul of the int8 values (exact: sums below 2**24);
-        then the scale products, masked_fill and topk."""
-        if qi8.shape[0] > 16:
-            dots = torch._int_mm(qi8, mv.T).float()
-        else:
-            dots = qi8.float() @ mv.float().T
-        return torch.topk((dots * sv * qs).masked_fill(~keep, float("-inf")), k)
-
+    library = int8_yardstick(m[:ns], scales[:ns], keep)
     times = {}
-    for kid, fn, nq in (("K3", topk.scan_topk_int8_flat, 1), ("K3", topk.scan_topk_int8_flat, 512),
+    for kid, fn, nq in (("K3", topk.scan_topk_int8_flat, 1), ("K3", topk.scan_topk_int8_flat, 16),
+                        ("K3", topk.scan_topk_int8_flat, 64), ("K3", topk.scan_topk_int8_flat, 255),
                         ("K4", topk.scan_topk_int8_slab, 512), ("K4", topk.scan_topk_int8_slab, 2048)):
         qi8, qs = queries(nq)
         k = INT8_KB
@@ -530,11 +626,28 @@ def check_int8_scans(card: str) -> dict:
             f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     one_launch("K4", "LAUNCHES_INT8_SLAB", lambda: topk.scan_topk_int8_slab(
         m, scales, src, *queries(N_BATCH), allowed["all"], INT8_KB, ns), ns)
+    k3_ladder(card, m, scales, src, ns, queries)
     qi8, qs = queries(512)
     depth_times(card, "K4", lambda k: topk.scan_topk_int8_slab(m, scales, src, qi8, qs, allowed["all"], k, ns), 512, ns)
-    del m, mv, scales
+    del m, scales, library
     torch.cuda.empty_cache()
     return {"K3": {"max_abs_err": 0.0, **times[("K3", 1)]}, "K4": {"max_abs_err": 0.0, **times[("K4", 512)]}}
+
+
+def k3_ladder(card: str, m, scales, src, ns: int, queries) -> None:
+    """K3 at one query by depth on the escalation ladder, each rung beside
+    its bound and its library call, and by width on either pass 1
+    (``crossover_times``)."""
+    from perceive_tpu_torch.ops import topk
+
+    allowed = filters(m.device)["all"]
+    live = int((src[:ns] >= 0).sum())
+    library = int8_yardstick(m[:ns], scales[:ns], src[:ns] >= 0)
+    qi8, qs = queries(1)
+    depth_times(card, "K3", lambda k: topk.scan_topk_int8_flat(m, scales, src, qi8, qs, allowed, k, ns), 1, ns,
+                INT8_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"), lambda k: library(qi8, qs, k))
+    crossover_times(card, "K3", "FLAT_ROWS_CORE_QUERIES", "int8",
+                    lambda q, qsc: topk.scan_topk_int8_flat(m, scales, src, q, qsc, allowed, INT8_KB, ns), queries)
 
 
 def int2_corpus(g, dev, n: int, hwm: int):
@@ -590,6 +703,7 @@ def check_int2_kernels(card: str) -> dict:
             if not same:
                 raise SystemExit(f"K5 disagrees with its plain version (Q={nq}, {fname})")
             scores[(nq, fname)] = got
+            replay("K5", f"Q={nq} filter={fname}", lambda: int2.int2_scores(packed, s2, src, qi8, qs, al, ns), got)
             for kc in INT2_KCS:
                 vk, rk, fk = int2.select_topk(got, kc)
                 vp, rp, fp = int2.select_topk_plain(got, kc)
@@ -608,7 +722,8 @@ def check_int2_kernels(card: str) -> dict:
             raise SystemExit(f"K6 disagrees with its plain version on dense ties (kc={kc})")
     log("K6 dense ties and an all -inf row: bit-exact, lower row first  ok")
 
-    for kid, fn, widths, ks in (("K7", topk.scan_topk_int8t_flat, flat_cols_widths((1, 8, 32), "int8"), KS),
+    k7_widths = crossover_widths((1, 8, 32), "FLAT_COLS_CORE_QUERIES", "int8")
+    for kid, fn, widths, ks in (("K7", topk.scan_topk_int8t_flat, k7_widths, KS),
                                 ("K8", topk.scan_topk_int8t_slab, (512, 2048), KS)):
         for nq in widths:
             qi8, qs = queries(nq)
@@ -641,11 +756,7 @@ def check_int2_kernels(card: str) -> dict:
         t = {"ms": cuda_ms(lambda: int2.int2_scores(packed, s2, src, qi8, qs, allowed["all"], ns)),
              "plain_ms": cuda_ms(lambda: int2.int2_scores_plain(packed, s2, src, qi8, qs, allowed["all"], ns)),
              "library_ms": None}  # no single PyTorch call unpacks 2-bit crumbs
-        # packed bytes, scales and ids of the sweep read once, the queries
-        # once, the (Q, n_sweep) scores written once; 2 * D int8 operations
-        # a row and query
-        t["bound_ms"], t["bound_by"] = bound(ns * (DIM // 4 + 8) + nq * DIM + nq * ns * 4,
-                                             2.0 * nq * ns * DIM, "int8")
+        t["bound_ms"], t["bound_by"] = int2_bound(ns, nq)
         times[("K5", nq)] = t
         log(f"K5 time Q={nq} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
@@ -659,12 +770,7 @@ def check_int2_kernels(card: str) -> dict:
         times[("K6", nq, kc)] = t
         log(f"K6 time Q={nq} kc={kc} n={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library {t['library_ms']:.4f} ms (torch.topk)  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
-    mv, sv = fine[:, :ns], s8[:ns]
-
-    def library(qi8, qs, k):
-        """As check_int8_scans' yardstick, over the transposed matrix."""
-        dots = torch._int_mm(qi8, mv).float() if qi8.shape[0] > 16 else qi8.float() @ mv.float()
-        return torch.topk((dots * sv * qs).masked_fill(~keep, float("-inf")), k)
+    library = int8_yardstick(fine[:, :ns], s8[:ns], keep, cols=True)
 
     for kid, fn, nq in (("K7", topk.scan_topk_int8t_flat, 1), ("K7", topk.scan_topk_int8t_flat, 32),
                         ("K8", topk.scan_topk_int8t_slab, 512), ("K8", topk.scan_topk_int8t_slab, 2048)):
@@ -682,14 +788,14 @@ def check_int2_kernels(card: str) -> dict:
         fine, s8, src, *queries(N_BATCH), allowed["all"], INT8_KB, ns), ns)
     qi8, qs = queries(1)
     depth_times(card, "K7", lambda k: topk.scan_topk_int8t_flat(fine, s8, src, qi8, qs, allowed["all"], k, ns), 1, ns,
-                K7_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"))
+                INT8_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"), lambda k: library(qi8, qs, k))
     qi8, qs = queries(512)
     depth_times(card, "K8", lambda k: topk.scan_topk_int8t_slab(fine, s8, src, qi8, qs, allowed["all"], k, ns), 512, ns)
     times["K10"] = check_tiletop(card, packed, s2, src, ns, allowed, queries)
     k56 = times[("K5", 1)]["ms"] + times[("K6", 1, 4096)]["ms"]
     log(f"K10 at Q=1 kc=4096 n_sweep={ns}: {times['K10']['ms']:.4f} ms against K5 + K6 (scores written, "
         f"then the exact select) {k56:.4f} ms at the same shape  [{card}]")
-    del packed, fine, mv, scores, tied
+    del packed, fine, library, scores, tied
     torch.cuda.empty_cache()
     return {"K5": {"max_abs_err": 0.0, **times[("K5", 1)]}, "K6": {"max_abs_err": 0.0, **times[("K6", 1, 4096)]},
             "K7": {"max_abs_err": 0.0, **times[("K7", 1)]}, "K8": {"max_abs_err": 0.0, **times[("K8", 512)]},
@@ -812,7 +918,8 @@ def check_int4_kernels(card: str) -> dict:
     def queries(nq):
         return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
 
-    cross = tuple(("K9-flat", flat, nq, (INT4_KB, 8192), ("all",)) for nq in flat_cols_widths((), "int4"))
+    cross = tuple(("K9-flat", flat, nq, (INT4_KB, 8192), ("all",))
+                  for nq in crossover_widths((), "FLAT_COLS_CORE_QUERIES", "int4"))
     for kid, fn, nq, ks, fnames in (("K9-flat", flat, 1, KS, ("all", "2src")),
                                     ("K9-flat", flat, 32, (16, INT4_KB, 8192), ("all",)), *cross,
                                     ("K9-slab", slab, 512, (16, INT4_KB, 1024), ("all", "2src")),
@@ -963,42 +1070,47 @@ def check_wide_int8(card: str, packed, scales, src, queries, allowed: dict) -> N
     torch.cuda.empty_cache()
 
 
-def crossover_times(card: str, kid: str, decode: str, run, queries) -> None:
-    """Logs ``run(qi8, qscale)``'s time at Q = 1 to 64 on each of K7's or K9
-    flat's two pass 1s: the CUDA cores (tiles of up to 16 queries) and K8's
-    and K9 slab's wgmma pass 1 (tiles of 64), chosen by setting
-    FLAT_COLS_CORE_QUERIES[decode] for the call: the measure behind its
-    value.  A tree without that table routes by no crossover: nothing to
-    log."""
+def crossover_times(card: str, kid: str, table: str, key: str, run, queries) -> None:
+    """Logs ``run(qi8, qscale)``'s time at Q = 1 to 128 on each of a flat
+    scan's two pass 1s: the CUDA cores (tiles of up to 16 queries) and the
+    batch kernel's wgmma pass 1 (tiles of 64), chosen by setting
+    ``topk.<table>[key]`` (FLAT_ROWS_CORE_QUERIES for K1 and K3,
+    FLAT_COLS_CORE_QUERIES for K7 and K9 flat) for the call: the measure
+    behind its value.  A tree without that table routes by no crossover:
+    its one route is timed."""
     from perceive_tpu_torch.ops import topk
 
-    table = getattr(topk, "FLAT_COLS_CORE_QUERIES", None)
-    if table is None:
-        return
-    saved = table[decode]
+    routes = getattr(topk, table, None)
+    saved = routes[key] if routes else None
     try:
-        for nq in (1, 2, 4, 8, 16, 32, 64):
+        for nq in (1, 2, 4, 8, 16, 32, 64, 96, 128):
             qi8, qs = queries(nq)
             t = {}
-            for route, cross in (("CUDA cores", 255), ("tensor cores", 0)):
-                table[decode] = cross
+            for route, cross in ((("CUDA cores", 255), ("tensor cores", 0)) if routes else (("one route", None),)):
+                if routes:
+                    routes[key] = cross
                 t[route] = cuda_ms(lambda: run(qi8, qs))
             log(f"{kid} crossover Q={nq}: " + "  ".join(f"{r} {ms:.4f} ms" for r, ms in t.items()) + f"  [{card}]")
     finally:
-        table[decode] = saved
+        if routes:
+            routes[key] = saved
 
 
-def flat_cols_ladder(card: str) -> None:
-    """``--ladder``: K7 and K9 flat by depth on the escalation ladder at the
-    main path's shapes (K7 over the int2 slice's 3,809,280-row companion
-    sweep, K9 flat over the int4 slice's 4,194,304 rows and the tier's own
-    25,165,824) and each width on either pass 1 (``crossover_times``).
-    Uses only the wrappers' public names, so a copy of this script times
-    an older tree's package the same way: run it in each of two trees in
-    turns to compare them on one card."""
+def ladders(card: str) -> None:
+    """``--ladder``: K1 at 1, 16 and 64 queries over the bf16 slice's
+    958,464-row sweep, by CUDA events and by device time (``device_ms``);
+    the flat scans by depth on the escalation ladder at the main path's
+    shapes (K3 over the int8 slice's 2,064,384-row sweep, K7 over the int2
+    slice's 3,809,280-row companion sweep, K9 flat over the int4 slice's
+    4,194,304 rows and the tier's own 25,165,824) and each width on either
+    pass 1 (``crossover_times``); K3 at one query and K5 at 1 and 8 queries
+    over the int2 slice's sweep by device time too.  Uses only the
+    wrappers' public names, so a copy of this script times an older tree's
+    package the same way: run it in each of two trees in turns to compare
+    them on one card."""
     import torch
 
-    from perceive_tpu_torch.ops import topk
+    from perceive_tpu_torch.ops import int2, topk
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1007,14 +1119,39 @@ def flat_cols_ladder(card: str) -> None:
     def queries(nq):
         return topk.quantize_queries(torch.randn((nq, DIM), generator=g, device=dev))
 
-    _, _, fine, s8, src, ns = int2_corpus(g, dev, 4_194_304, 3_800_000)
-    live = int((src[:ns] >= 0).sum())
+    chunks, src, ns = corpus_rows(g, dev, 1_048_576, 950_000)
+    m = torch.empty((1_048_576, DIM), dtype=torch.bfloat16, device=dev)
+    for lo, blk in chunks:
+        m[lo : lo + blk.shape[0]] = blk.to(torch.bfloat16)
+    for nq in (1, 16, 64):
+        q = torch.randn((nq, DIM), generator=g, device=dev)
+        run = lambda: topk.scan_topk_flat(m, src, q, allowed, BF16_KB, ns)  # noqa: E731
+        log(f"K1 time Q={nq} k={BF16_KB} n_sweep={ns}: events {cuda_ms(run):.4f} ms  device {device_ms(run):.4f} ms  "
+            f"[{card}]")
+    del m, src
+    torch.cuda.empty_cache()
+    m, scales, src, ns = int8_rows(g, dev, 2_097_152, 1_900_000)
+    k3_ladder(card, m, scales, src, ns, queries)
     qi8, qs = queries(1)
+    run = lambda: topk.scan_topk_int8_flat(m, scales, src, qi8, qs, allowed, INT8_KB, ns)  # noqa: E731
+    log(f"K3 time Q=1 k={INT8_KB} n_sweep={ns}: events {cuda_ms(run):.4f} ms  device {device_ms(run):.4f} ms  [{card}]")
+    del m, scales, src
+    torch.cuda.empty_cache()
+    packed, s2, fine, s8, src, ns = int2_corpus(g, dev, 4_194_304, 3_800_000)
+    live = int((src[:ns] >= 0).sum())
+    for nq in (1, 8):
+        qi8, qs = queries(nq)
+        run = lambda: int2.int2_scores(packed, s2, src, qi8, qs, allowed, ns)  # noqa: E731
+        log(f"K5 time Q={nq} n_sweep={ns}: kernel {cuda_ms(run):.4f} ms  device {device_ms(run):.4f} ms  "
+            f"bound {int2_bound(ns, nq)[0]:.4f} ms  [{card}]")
+    del packed, s2
+    qi8, qs = queries(1)
+    library = int8_yardstick(fine[:, :ns], s8[:ns], src[:ns] >= 0, cols=True)
     depth_times(card, "K7", lambda k: topk.scan_topk_int8t_flat(fine, s8, src, qi8, qs, allowed, k, ns), 1, ns,
-                K7_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"))
-    crossover_times(card, "K7", "int8",
+                INT8_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"), lambda k: library(qi8, qs, k))
+    crossover_times(card, "K7", "FLAT_COLS_CORE_QUERIES", "int8",
                     lambda q, qsc: topk.scan_topk_int8t_flat(fine, s8, src, q, qsc, allowed, INT8_KB, ns), queries)
-    del fine, s8, src
+    del fine, s8, src, library
     torch.cuda.empty_cache()
     packed, scales, src = int4_matrix(g, dev, INT4_KERNEL_ROWS)
     flat = topk.scan_topk_int4_flat
@@ -1022,7 +1159,7 @@ def flat_cols_ladder(card: str) -> None:
         live = int((src[:ns] >= 0).sum())
         depth_times(card, "K9-flat", lambda k: flat(packed, scales, src, qi8, qs, allowed, k, ns), 1, ns, K9_LADDER,
                     lambda k: int4_bound(live, ns, 1, k))
-    crossover_times(card, "K9-flat", "int4",
+    crossover_times(card, "K9-flat", "FLAT_COLS_CORE_QUERIES", "int4",
                     lambda q, qsc: flat(packed, scales, src, q, qsc, allowed, INT4_KB, INT4_SLICE_ROWS), queries)
     del packed, scales, src
     torch.cuda.empty_cache()
@@ -1982,14 +2119,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.")
     ap.add_argument("--audit-case", default="", help="write the int2+int4 self-audit's worst sample here (.npz)")
     ap.add_argument("--ladder", action="store_true",
-                    help="only build the kernels and time K7 and K9 flat by depth and by width (flat_cols_ladder)")
+                    help="only build the kernels and time the flat scans by depth and by width, and K5 (ladders)")
     args = ap.parse_args(argv)
     card = environment()
     import torch
 
     if args.ladder:
         build_kernels(card)
-        flat_cols_ladder(card)
+        ladders(card)
         return 0
 
     from perceive_tpu_torch.ops import attention as attn

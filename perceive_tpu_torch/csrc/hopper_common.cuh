@@ -1,4 +1,4 @@
-// Shared parts of the Hopper scan kernels (scan_flat_bf16.cu: K1;
+// Shared parts of the Hopper scan kernels (scan_flat_rows.cu: K1 and K3;
 // scan_slab_rows.cu: K2 and K4; scan_slab_cols.cu: K8 and K9's slab
 // kernel; scan_flat_cols.cu: K7 and K9's flat kernel): mbarriers, TMA
 // loads and tensor maps (encoded on the host through
@@ -7,7 +7,7 @@
 // range) candidate lists that replace a select per row block, and the two
 // pass 2s over those lists: one block a query (list_pass2), and a
 // multi-block radix select (launch_keys_select) where the lists outgrow
-// shared memory.
+// shared memory; launch_lists_pass2 takes the one the launch plan names.
 //
 // A list lives in the workspace, cand[q][range][cap] (it stays in L2).  A
 // query's running threshold tau is the k-th best key of its list when the
@@ -666,6 +666,15 @@ inline cudaError_t launch_keys_select(const u64* cand, int nq, int ncand, int k,
   return launch_list_pass2(out, nq, kpad, k, vals, rows, stream);
 }
 
+// Pass 2 of a list-keeping scan over nq queries' ncand = ranges x cap keys:
+// the multi-block select where the launch plan says so (`multi`, its
+// scratch right after the lists), else list_pass2.
+inline cudaError_t launch_lists_pass2(u64* cand, int nq, int ncand, int k, int multi, float* vals, int* rows,
+                                      cudaStream_t stream) {
+  if (multi) return launch_keys_select(cand, nq, ncand, k, vals, rows, cand + static_cast<size_t>(nq) * ncand, stream);
+  return launch_list_pass2(cand, nq, ncand, k, vals, rows, stream);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -724,11 +733,17 @@ inline bool list_plan_ok(int n_sweep, int k, int ranges, int rows_per_range, int
 
 }  // namespace
 
-// The bf16 wgmma pass 1 (scan_slab_rows.cu): K2's, and K1's for bf16 sweeps
-// wider than FLAT_CORE_QUERIES.  Leaves each (query, range) list in cand.
+// The wgmma pass 1s over a row-major matrix (scan_slab_rows.cu): K2's
+// (bf16) and K4's (int8 with row and query scales), and K1's and K3's for
+// sweeps wider than their CUDA-core crossover (ops/topk.py
+// `flat_rows_plan`).  Leave each (query, range) list in cand.
 cudaError_t scan_bf16_wgmma_lists(const void* matrix, const int* src, const void* q, const int* allowed,
                                   int n_filter, int nq, int d, int n_sweep, int k, int qrows, int ranges,
                                   int rows_per_range, int cap, unsigned long long* cand, cudaStream_t s);
+cudaError_t scan_s8_rows_wgmma_lists(const void* matrix, const float* scales, const int* src, const void* q,
+                                     const float* qscale, const int* allowed, int n_filter, int nq, int d,
+                                     int n_sweep, int k, int qrows, int ranges, int rows_per_range, int cap,
+                                     unsigned long long* cand, cudaStream_t s);
 
 // The s8 wgmma pass 1 over a column-major matrix (scan_slab_cols.cu): K8's
 // and K9 slab's, and K7's and K9 flat's for sweeps wider than their

@@ -20,13 +20,13 @@
 // What bounds them on the H100: device-memory bytes.  At Q = 1 a
 // 25,165,824-row packed sweep reads 4.8 GB (1.43 ms at 3.35 TB/s), K7 over
 // 3,809,280 rows 1.46 GB (0.44 ms), for 2 * D int8 operations a row and
-// query.  The first kernel (scan_topk.cu) took 44.5 and 2.9 ms: a block per
+// query.  The first kernel took 44.5 and 2.9 ms: a block per
 // (8 queries, 256 rows) with plain loads, a select over every 512-row
 // block that kept min(k, 512) keys per block and query (49,152 blocks x
 // 256 keys a query at 25M rows), and a pass 2 of one block a query over
 // all of them; its workspace grew with the rows (4 GiB for K9).
 //
-// Design, K1's CUDA-core template (scan_flat_bf16.cu) with a decode:
+// Design, K1's CUDA-core template (scan_flat_rows.cu) with a decode:
 //   * persistent blocks over contiguous row ranges, (query tiles of QT =
 //     1, 2, 4, 8 or 16) x (ranges) ~ two blocks an SM; no launch dimension
 //     grows with the rows;
@@ -403,11 +403,7 @@ int scan_flat(const void* m, int ld, const float* scales, const int* src, const 
                               n_filter, nq, d, n_sweep, k, ranges, rows_per_range, cap, cand, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ncand = ranges * cap;
-  if (multi)
-    return static_cast<int>(
-        launch_keys_select(cand, nq, ncand, k, vals, rows, cand + static_cast<size_t>(nq) * ncand, s));
-  return static_cast<int>(launch_list_pass2(cand, nq, ncand, k, vals, rows, s));
+  return static_cast<int>(launch_lists_pass2(cand, nq, ranges * cap, k, multi, vals, rows, s));
 }
 
 }  // namespace

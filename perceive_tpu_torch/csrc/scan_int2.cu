@@ -17,19 +17,29 @@
 // an exact int32.  The four crumbs of a byte spread into the four bytes of
 // one word (values 0..3, the same bits as signed or unsigned bytes), and
 // one __dp4a takes them against the query bytes q[r], q[r + D/4],
-// q[r + 2D/4], q[r + 3D/4], gathered once per block into shared memory.
+// q[r + 2D/4], q[r + 3D/4] (K10), or a plane's crumbs of four plane-rows
+// against the query bytes of that plane (K5, below).
 // The score is __fmul_rn(__fmul_rn(f32(acc), row scale), query scale), in
 // that order and with no fast math, so it equals the plain version
 // (ops/int2.py `scores_int2`, the JAX `xla_scores_int2`) bit for bit.
 // Rows whose source id is negative or not allowed score -inf.
 //
-// What bounds K5 on the H100: at Q = 1 over 4,194,304 x 384 it reads
-// 403 MB of packed bytes plus 34 MB of scales and ids, and writes 17 MB of
-// scores (0.13 ms at 3.35 TB/s); the decode is ~8 integer operations a
-// byte, so at one query it is near the integer-throughput line too.  A
-// thread takes 4 adjacent rows and reads one 32-bit word a plane-row: a
-// warp reads 128 contiguous bytes a load; the decode of a byte is shared
-// by every query of the block's tile.
+// What bounds K5 on the H100: at Q = 1 over 3,809,280 x 384 it reads 366
+// MB of packed bytes plus 30 MB of scales and ids, and writes 15 MB of
+// scores (0.12 ms at 3.35 TB/s).  The first kernel took 0.30 ms: a block
+// per 1,024 rows gathered the query words and summed the query's bytes on
+// one thread before it read anything, then read one 4-byte word a
+// plane-row, few bytes in flight, and spread each byte's crumbs with ~8
+// integer operations.  Design: persistent blocks (about two an SM) stride
+// over tiles of 256 x R rows with the query words and the sums of the
+// query's bytes (a warp reduction) staged once a block; a thread takes R
+// adjacent rows (16 at up to 2 queries, 8 or 4 past that) and loads R
+// bytes of four plane-rows at a time (16-byte loads at one query), two
+// such groups in flight; a 4 x 4 byte transpose gives each row one word of its four plane-rows, and
+// its crumb c comes out as (word >> 2c) & 0x03030303 against the query's
+// bytes of plane c at those plane-rows: ~3.4 integer operations a byte at
+// one query.  Ids and scales are read once a tile with 16-byte loads, and
+// the scores written with 16-byte stores, a warp's contiguous.
 //
 // K10 keeps, for each query, tile t of tile_n rows and lane l < 128, the
 // best p = M / 128 scores of the bin {t * tile_n + s * 128 + l}, ordered by
@@ -40,8 +50,9 @@
 // every score left is -inf.  The tile geometry is the JAX package's tile
 // picker (ops/int2.py `_pick_tile_int2`): it defines the bins, so it is
 // kept; the block shape is this kernel's own.  One block a (tile, query):
-// 256 threads score the tile as K5 does into shared memory (at most 12,288
-// f32, 48 KiB), then 128 threads each walk one lane bin (stride 128: no
+// 256 threads score the tile into shared memory (at most 12,288 f32, 48
+// KiB), four adjacent rows a thread, one 4-byte word a plane-row, each
+// byte's crumbs spread into one word against the query bytes, then 128 threads each walk one lane bin (stride 128: no
 // bank conflicts) and keep p <= 4 entries in registers.  It reads what K5
 // reads and writes (Q, T * M) pairs instead of (Q, n_sweep) scores: bound
 // by the packed bytes, ~0.12 ms at Q = 1 over 3,809,280 x 384.
@@ -54,9 +65,10 @@
 namespace {
 
 constexpr int kInt2Threads = 256;
-constexpr int kInt2Rows = 4 * kInt2Threads;  // rows per block, 4 a thread
-constexpr int kInt2QueryTile = 8;            // queries per block
+constexpr int kInt2QueryTile = 8;  // queries per block at most
 constexpr int kInt2MaxD4 = kMaxDim / 4;
+constexpr int kInt2MaxGroups = kInt2MaxD4 / 4;  // groups of four plane-rows
+constexpr int kInt2BlocksPerSm = 2;
 
 // The crumbs of byte b (its top crumb already flipped) in the low 2 bits of
 // the four bytes of a word.
@@ -65,85 +77,172 @@ __device__ __forceinline__ int spread_crumbs(uint32_t b) {
                           ((b << 18) & 0x3000000u));
 }
 
-// Grid (row blocks, query tiles).
+// R bytes of one plane-row (R adjacent rows) as R / 4 words.
+template <int R>
+__device__ __forceinline__ void load_rows(const uint8_t* p, uint32_t (&w)[R / 4]) {
+  if constexpr (R == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (R == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+  }
+}
+
+// K5.  Grid (blocks, query tiles of QT): block b takes the tiles of
+// kInt2Threads * R rows b, b + gridDim.x, ...; thread t rows R t .. R t +
+// R - 1 of each.  qw[i][c][g]: the bytes of query i at dims c D/4 + 4g ..
+// + 3 (zero past D/4), a dp4a operand against crumbs c of plane-rows 4g ..
+// 4g + 3.
+template <int QT, int R>
 __global__ void __launch_bounds__(kInt2Threads) int2_scores_kernel(
     const uint8_t* __restrict__ packed, int ld, const float* __restrict__ scales,
     const int* __restrict__ src, const int8_t* __restrict__ q, const float* __restrict__ qscale,
     const int* __restrict__ allowed, int n_filter, int nq, int d, int n_sweep,
     float* __restrict__ out) {
-  __shared__ int qw[kInt2QueryTile][kInt2MaxD4];
-  __shared__ int qsum[kInt2QueryTile];
-  __shared__ float qsc[kInt2QueryTile];
+  __shared__ uint32_t qw[QT][4][kInt2MaxGroups];
+  __shared__ int qsum[QT];
+  __shared__ float qsc[QT];
   __shared__ int allow[kMaxFilter];
 
-  const int tid = threadIdx.x;
-  const int d4 = d / 4;
-  const int q0 = blockIdx.y * kInt2QueryTile;
-  const int qn = min(kInt2QueryTile, nq - q0);
-  for (int i = tid; i < qn * d4; i += kInt2Threads) {
-    const int qi = i / d4, r = i - qi * d4;
-    const int8_t* qq = q + static_cast<size_t>(q0 + qi) * d;
-    const uint32_t b0 = static_cast<uint8_t>(qq[r]), b1 = static_cast<uint8_t>(qq[r + d4]);
-    const uint32_t b2 = static_cast<uint8_t>(qq[r + 2 * d4]), b3 = static_cast<uint8_t>(qq[r + 3 * d4]);
-    qw[qi][r] = static_cast<int>(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int d4 = d / 4, ng = (d4 + 3) / 4;
+  const int q0 = blockIdx.y * QT;
+  const int qn = min(QT, nq - q0);
+  for (int i = tid; i < QT * 4 * ng; i += kInt2Threads) {
+    const int qi = i / (4 * ng), c = (i / ng) % 4, g = i % ng;
+    uint32_t w = 0;
+    if (qi < qn)
+      for (int j = 0; j < 4; ++j)
+        if (4 * g + j < d4)
+          w |= static_cast<uint32_t>(static_cast<uint8_t>(q[static_cast<size_t>(q0 + qi) * d + c * d4 + 4 * g + j]))
+               << (8 * j);
+    qw[qi][c][g] = w;
   }
-  if (tid < qn) {
+  for (int qi = warp; qi < QT; qi += kInt2Threads / 32) {  // the query's byte sum, a warp's reduction
     int s = 0;
-    const int8_t* qq = q + static_cast<size_t>(q0 + tid) * d;
-    for (int j = 0; j < d; ++j) s += qq[j];
-    qsum[tid] = s;
-    qsc[tid] = qscale[q0 + tid];
+    if (qi < qn)
+      for (int j = lane; j < d; j += 32) s += q[static_cast<size_t>(q0 + qi) * d + j];
+    s = warp_sum_i(s);
+    if (lane == 0) {
+      qsum[qi] = s;
+      qsc[qi] = qi < qn ? qscale[q0 + qi] : 0.f;
+    }
   }
   if (tid < kMaxFilter) allow[tid] = tid < n_filter ? allowed[tid] : -9;
   __syncthreads();
 
-  const int row = blockIdx.x * kInt2Rows + 4 * tid;  // this thread's 4 rows
-  if (row >= n_sweep) return;
-  int acc[kInt2QueryTile][4];
+  const int tile_rows = kInt2Threads * R;
+  const int n_tiles = (n_sweep + tile_rows - 1) / tile_rows;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row = tile * tile_rows + R * tid;  // this thread's R rows
+    if (row >= n_sweep) continue;
+    int acc[QT][R];
 #pragma unroll
-  for (int i = 0; i < kInt2QueryTile; ++i)
+    for (int i = 0; i < QT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  const uint32_t* p = reinterpret_cast<const uint32_t*>(packed + row);
-  const int ldw = ld / 4;
-#pragma unroll 4
-  for (int r = 0; r < d4; ++r) {
-    const uint32_t w = __ldg(p + static_cast<size_t>(r) * ldw) ^ 0x80808080u;
-    const int c0 = spread_crumbs(w & 0xffu), c1 = spread_crumbs((w >> 8) & 0xffu);
-    const int c2 = spread_crumbs((w >> 16) & 0xffu), c3 = spread_crumbs(w >> 24);
+      for (int j = 0; j < R; ++j) acc[i][j] = 0;
+    const uint8_t* p = packed + row;
+    // groups of four plane-rows, two in flight: w[h][pr] holds plane-row
+    // 4(g + h) + pr of the R rows (zeros past D/4)
+    for (int g = 0; g < ng; g += 2) {
+      uint32_t w[2][4][R / 4];
 #pragma unroll
-    for (int i = 0; i < kInt2QueryTile; ++i) {
-      if (i < qn) {
-        const int x = qw[i][r];
-        acc[i][0] = __dp4a(c0, x, acc[i][0]);
-        acc[i][1] = __dp4a(c1, x, acc[i][1]);
-        acc[i][2] = __dp4a(c2, x, acc[i][2]);
-        acc[i][3] = __dp4a(c3, x, acc[i][3]);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int pr = 0; pr < 4; ++pr) {
+          const int r = 4 * (g + h) + pr;
+          if (r < d4) {
+            load_rows<R>(p + static_cast<size_t>(r) * ld, w[h][pr]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < R / 4; ++u) w[h][pr][u] = 0;  // past D/4: against zero query bytes
+          }
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (g + h >= ng) break;
+#pragma unroll
+        for (int u = 0; u < R / 4; ++u) {
+          uint32_t rw[4];  // rw[e]: row 4u + e's bytes at the group's four plane-rows
+          transpose4x4(w[h][0][u] ^ 0x80808080u, w[h][1][u] ^ 0x80808080u, w[h][2][u] ^ 0x80808080u,
+                       w[h][3][u] ^ 0x80808080u, rw);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int m = static_cast<int>((rw[e] >> (2 * c)) & 0x03030303u);
+#pragma unroll
+              for (int i = 0; i < QT; ++i)
+                acc[i][4 * u + e] = __dp4a(m, static_cast<int>(qw[i][c][g + h]), acc[i][4 * u + e]);
+            }
+        }
       }
     }
-  }
-  bool ok[4];
-  float srow[4];
+    // ids and scales once a tile; the scores with 16-byte stores where the
+    // rows are whole and the row pitch keeps them aligned
+    int ids[R];
+    float srow[R];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    ok[j] = row + j < n_sweep && row_allowed(src[row + j], allow, n_filter);
-    srow[j] = row + j < n_sweep ? scales[row + j] : 0.f;
-  }
+    for (int u = 0; u < R / 4; ++u) {
+      const int4 iv = *reinterpret_cast<const int4*>(src + row + 4 * u);
+      const float4 sv = *reinterpret_cast<const float4*>(scales + row + 4 * u);
+      ids[4 * u] = iv.x, ids[4 * u + 1] = iv.y, ids[4 * u + 2] = iv.z, ids[4 * u + 3] = iv.w;
+      srow[4 * u] = sv.x, srow[4 * u + 1] = sv.y, srow[4 * u + 2] = sv.z, srow[4 * u + 3] = sv.w;
+    }
+    bool ok[R];
 #pragma unroll
-  for (int i = 0; i < kInt2QueryTile; ++i) {
-    if (i < qn) {
+    for (int j = 0; j < R; ++j) ok[j] = row + j < n_sweep && row_allowed(ids[j], allow, n_filter);
+    const bool vec = row + R <= n_sweep && (n_sweep & 3) == 0;
+#pragma unroll
+    for (int i = 0; i < QT; ++i) {
+      if (i >= qn) break;
+      float sc[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int dot = 2 * acc[i][j] - 3 * qsum[i];
+        sc[j] = ok[j] ? __fmul_rn(__fmul_rn(__int2float_rn(dot), srow[j]), qsc[i]) : -INFINITY;
+      }
       float* o = out + static_cast<size_t>(q0 + i) * n_sweep + row;
+      if (vec) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (row + j < n_sweep) {
-          const int dot = 2 * acc[i][j] - 3 * qsum[i];
-          o[j] = ok[j] ? __fmul_rn(__fmul_rn(__int2float_rn(dot), srow[j]), qsc[i]) : -INFINITY;
-        }
+        for (int u = 0; u < R / 4; ++u)
+          reinterpret_cast<float4*>(o)[u] = make_float4(sc[4 * u], sc[4 * u + 1], sc[4 * u + 2], sc[4 * u + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          if (row + j < n_sweep) o[j] = sc[j];
       }
     }
   }
 }
 
+template <int QT, int R>
+cudaError_t launch_int2_scores(const uint8_t* packed, int ld, const float* scales, const int* src, const int8_t* q,
+                               const float* qscale, const int* allowed, int n_filter, int nq, int d, int n_sweep,
+                               float* out, cudaStream_t s) {
+  static int sms[64] = {0};  // by device, read once a process
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  // about kInt2BlocksPerSm blocks an SM over the query tiles, each taking
+  // an equal count of row tiles
+  const int qtiles = (nq + QT - 1) / QT;
+  const int tiles = (n_sweep + kInt2Threads * R - 1) / (kInt2Threads * R);
+  const int most = max(1, kInt2BlocksPerSm * sms[dev] / qtiles);
+  const int per = (tiles + most - 1) / most;
+  const dim3 grid((tiles + per - 1) / per, qtiles);
+  int2_scores_kernel<QT, R><<<grid, kInt2Threads, 0, s>>>(packed, ld, scales, src, q, qscale, allowed, n_filter, nq,
+                                                          d, n_sweep, out);
+  return cudaGetLastError();
+}
 
 constexpr int kTileTopMaxTile = 12288;  // the widest int2 tile: 48 KiB of f32
 constexpr int kTileTopMaxP = 4;         // M <= 512 (_INT2_TILETOP_MAX)
@@ -271,18 +370,28 @@ __global__ void __launch_bounds__(kInt2Threads) int2_tiletop_kernel(
 
 extern "C" {
 
-// K5.  packed: (d/4, ld) uint8 with ld (the capacity) a multiple of 4;
-// scores the first n_sweep rows into out (nq, n_sweep) f32.
+// K5.  packed: (d/4, ld) uint8 with ld (the capacity) a multiple of 16;
+// scores the first n_sweep rows into out (nq, n_sweep) f32; packed,
+// scales, src and out 16-byte aligned.  Query tiles of up to 8: 16 rows a
+// thread up to 2 queries, 8 up to 4, 4 past that (the accumulators of 8
+// queries x 8 rows took 244 registers, one block an SM: 0.44 ms at Q = 8
+// against 0.35 with 4 rows on an H100, chip_smoke.py, PERF.md section 6).
 int perceive_int2_scores(const uint8_t* packed, int ld, const float* scales, const int* src,
                          const int8_t* q, const float* qscale, const int* allowed, int n_filter,
                          int nq, int d, int n_sweep, float* out, void* stream) {
-  if (nq < 1 || n_sweep < 1 || n_sweep > ld || ld % 4 || d < 4 || d % 4 || d > kMaxDim ||
-      n_filter < 1 || n_filter > kMaxFilter || reinterpret_cast<uintptr_t>(packed) % 4)
+  if (nq < 1 || nq > 65535 * kInt2QueryTile || n_sweep < 1 || n_sweep > ld || ld % 16 || d < 4 || d % 4 ||
+      d > kMaxDim || n_filter < 1 || n_filter > kMaxFilter ||
+      (reinterpret_cast<uintptr_t>(packed) | reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(src) |
+       reinterpret_cast<uintptr_t>(out)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_sweep + kInt2Rows - 1) / kInt2Rows, (nq + kInt2QueryTile - 1) / kInt2QueryTile);
-  int2_scores_kernel<<<grid, kInt2Threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      packed, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, out);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t (*launch)(const uint8_t*, int, const float*, const int*, const int8_t*, const float*, const int*, int,
+                        int, int, int, float*, cudaStream_t) =
+      nq == 1 ? launch_int2_scores<1, 16>
+      : nq == 2 ? launch_int2_scores<2, 16>
+      : nq <= 4 ? launch_int2_scores<4, 8>
+                : launch_int2_scores<8, 4>;
+  return static_cast<int>(launch(packed, ld, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, out, s));
 }
 
 // K10.  packed: (d/4, ld) uint8 with ld a multiple of 4; the first n_sweep

@@ -1,9 +1,9 @@
 // The batch scans over row-major matrices, one kernel for Hopper templated
 // on the operand type: K2 (bf16) and K4 (int8 with row scales), exact scans
 // with top-k selection for batches of queries (sweeps of at least 256).
-// K2's pass 1 also serves K1 (scan_flat_bf16.cu) for bf16 sweeps wider than
-// FLAT_CORE_QUERIES (ops/topk.py), with a tile of 64 queries
-// (`scan_bf16_wgmma_lists`).
+// Their pass 1 also serves K1 and K3 (scan_flat_rows.cu) for sweeps wider
+// than FLAT_ROWS_CORE_QUERIES (ops/topk.py), with a tile of 64 queries
+// (`scan_bf16_wgmma_lists`, `scan_s8_rows_wgmma_lists`).
 //
 // Replaces the TPU kernels perceive_tpu/ops/topk.py `pallas_topk_slabbed`
 // (`_scan_kernel_slabbed`: top-k of q . matrix^T) and
@@ -323,6 +323,14 @@ cudaError_t scan_bf16_wgmma_lists(const void* matrix, const int* src, const void
                                    ranges, rows_per_range, cap, cand, s);
 }
 
+cudaError_t scan_s8_rows_wgmma_lists(const void* matrix, const float* scales, const int* src, const void* q,
+                                     const float* qscale, const int* allowed, int n_filter, int nq, int d,
+                                     int n_sweep, int k, int qrows, int ranges, int rows_per_range, int cap,
+                                     u64* cand, cudaStream_t s) {
+  return scan_rows_lists<S8Rows>(matrix, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep, k, qrows, ranges,
+                                 rows_per_range, cap, cand, s);
+}
+
 extern "C" {
 
 // K2: bf16 (n, d) matrix and (nq, d) queries, d a multiple of 64, both
@@ -355,8 +363,8 @@ int perceive_scan_topk_slab(const void* matrix, const float* scales, const int* 
                             void* workspace, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   u64* cand = static_cast<u64*>(workspace);
-  const cudaError_t err = scan_rows_lists<S8Rows>(matrix, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep,
-                                                  k, qrows, ranges, rows_per_range, cap, cand, s);
+  const cudaError_t err = scan_s8_rows_wgmma_lists(matrix, scales, src, q, qscale, allowed, n_filter, nq, d, n_sweep,
+                                                   k, qrows, ranges, rows_per_range, cap, cand, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_list_pass2(cand, nq, ranges * cap, k, vals, rows, s));
 }

@@ -1,22 +1,15 @@
-// Shared parts of the scan-top-k kernels (scan_topk.cu: K3; and, with
-// hopper_common.cuh, scan_flat_bf16.cu: K1, scan_slab_rows.cu: K2 and K4,
+// Shared parts of the scan-top-k kernels (with hopper_common.cuh,
+// scan_flat_rows.cu: K1 and K3, scan_slab_rows.cu: K2 and K4,
 // scan_slab_cols.cu: K8 and K9 slab, scan_flat_cols.cu: K7 and K9 flat)
-// and of K5/K6 (scan_int2.cu, select_topk.cu):
-// the 64-bit candidate keys and order values, the 4 x 4 byte transpose of
-// the (D, N) layouts, the warp-wide select that ends pass 1, and pass 2
-// with its block-wide radix select.
+// and of K5, K6 and K10 (scan_int2.cu, select_topk.cu): the 64-bit
+// candidate keys and order values, the 4 x 4 byte transpose of the (D, N)
+// layouts, and the block-wide radix select of the scans' pass 2.
 //
 // A candidate is a 64-bit key: the order-preserving bits of the f32 score
 // above the complement of the row index.  Keys are unique, so selection is
 // exact, and equal scores order by the lower row first.  Key 0 marks "no
 // row" (masked, or past the sweep); slots past the number of matching rows
 // come out as (-inf, -1).
-//
-// Pass 1 (one kernel per tier and width) leaves, for every query and every
-// block of kRows rows, the block's best min(k, kRows) keys in a workspace
-// laid out cand[q][block][kc] (K3; the Hopper scans leave each row range's
-// running list instead, cap keys a range, hopper_common.cuh).  Pass 2 (here) selects the top k of each
-// query's candidates and bitonic-sorts them.
 
 #pragma once
 
@@ -29,7 +22,6 @@ typedef unsigned long long u64;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 512;        // rows per pass-1 block
 constexpr int kMaxDim = 1024;
 constexpr int kMaxK = 8192;
 constexpr int kMaxFilter = 16;
@@ -202,115 +194,6 @@ __device__ __forceinline__ int warp_sum_i(int v) {
   return v;
 }
 
-// One warp keeps the best min(kc, #rows) of one query's rn <= kRows scores
-// sc[r] (-inf = no row) as keys out[0, kc), zero-filling the rest.  Lane l
-// holds rows l, l + 32, ... as 32-bit order values (0 = no row); a binary
-// search over the 32 bits finds the kc-th largest value T, and the rows
-// above T plus the lowest-numbered rows equal to T are taken (the 64-bit
-// key order: equal scores, lower row first).  No block barrier, no atomics.
-__device__ void warp_select_block(const float* sc, int rn, int row0, int kc, u64* __restrict__ out) {
-  constexpr int kPer = kRows / 32;
-  const int lane = threadIdx.x & 31;
-  const unsigned lower = (1u << lane) - 1u;
-  uint32_t u[kPer];
-  int n = 0;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int r = j * 32 + lane;
-    const float s = r < rn ? sc[r] : -INFINITY;
-    u[j] = s == -INFINITY ? 0u : float_order(s + 0.0f);
-    n += u[j] != 0u;
-  }
-  const int total = warp_sum_i(n);
-  uint32_t t = 0;  // every row counts when there are at most kc
-  int need = 0;    // rows equal to t to take, lowest first
-  if (total > kc) {
-    for (int bit = 31; bit >= 0; --bit) {
-      const uint32_t c = t | (1u << bit);
-      int cnt = 0;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) cnt += u[j] >= c;
-      if (warp_sum_i(cnt) >= kc) t = c;
-    }
-    int gt = 0;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) gt += u[j] > t;
-    need = kc - warp_sum_i(gt);  // >= 1: t is the kc-th largest value
-  }
-  int base = 0, eq_seen = 0;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const bool eq = t != 0u && u[j] == t;
-    const unsigned eqs = __ballot_sync(0xffffffffu, eq);
-    const bool take = u[j] > t || (eq && eq_seen + __popc(eqs & lower) < need);
-    const unsigned takes = __ballot_sync(0xffffffffu, take);
-    if (take)
-      out[base + __popc(takes & lower)] = make_key(u[j], row0 + j * 32 + lane);
-    base += __popc(takes);
-    eq_seen += __popc(eqs);
-  }
-  for (int j = base + lane; j < kc; j += 32) out[j] = 0ull;
-}
-
-// End of pass 1: for each of the qn queries of the tile, keep the best
-// min(kc, rn) of the rn scores sc[i * pitch + r] (-inf = no row) as keys
-// in cand[(q0 + i) * nblk + blk][0, kc), zero-filling the rest.  One warp
-// per query; the scores must be visible to every warp (after a barrier).
-__device__ void write_candidates(const float* sc, int pitch, int qn, int q0, int rn, int row0,
-                                 int blk, int nblk, int kc, u64* __restrict__ cand) {
-  for (int i = threadIdx.x >> 5; i < qn; i += blockDim.x >> 5)
-    warp_select_block(sc + i * pitch, rn, row0, kc,
-                      cand + (static_cast<size_t>(q0 + i) * nblk + blk) * kc);
-}
-
-// Pass 2: one block per query; sorted best-first output.
-__global__ void __launch_bounds__(kThreads) scan_pass2(
-    const u64* __restrict__ cand, int ncand, int k, int sort_n, float* __restrict__ vals,
-    int* __restrict__ rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* buf = reinterpret_cast<u64*>(smem);  // [sort_n], sort_n = pow2 >= k
-  __shared__ SelectScratch ss;
-  const int tid = threadIdx.x;
-  const GlobalKeys key{cand + static_cast<size_t>(blockIdx.x) * ncand};
-
-  const u64 thr = select_threshold(key, ncand, k, ss);
-  const int got = select_collect(key, ncand, thr, buf, ss);
-  for (int i = got + tid; i < sort_n; i += kThreads) buf[i] = 0ull;
-  __syncthreads();
-
-  // bitonic sort, descending
-  for (int size = 2; size <= sort_n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < sort_n / 2; i += kThreads) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const u64 a = buf[lo], b = buf[hi];
-        if ((a < b) == up) {
-          buf[lo] = b;
-          buf[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  float* ov = vals + static_cast<size_t>(blockIdx.x) * k;
-  int* orow = rows + static_cast<size_t>(blockIdx.x) * k;
-  for (int i = tid; i < k; i += kThreads) {
-    const u64 kv = buf[i];
-    if (kv == 0ull) {
-      ov[i] = -INFINITY;
-      orow[i] = -1;
-    } else {
-      ov[i] = order_float(static_cast<uint32_t>(kv >> 32));
-      orow[i] = static_cast<int>(0xffffffffu - static_cast<uint32_t>(kv & 0xffffffffull));
-    }
-  }
-}
-
-inline int n_blocks(int n_sweep) { return (n_sweep + kRows - 1) / kRows; }
-inline int cand_per_block(int k) { return k < kRows ? k : kRows; }
 inline int pow2_at_least(int k) {
   int p = 1;
   while (p < k) p <<= 1;
@@ -320,17 +203,6 @@ inline int pow2_at_least(int k) {
 inline bool common_args_ok(int nq, int n_sweep, int k, int d, int n_filter) {
   return nq >= 1 && n_sweep >= 1 && k >= 1 && k <= kMaxK && d >= 1 && d <= kMaxDim &&
          n_filter >= 1 && n_filter <= kMaxFilter;
-}
-
-inline cudaError_t launch_pass2(const u64* cand, int nq, int ncand, int k, float* vals,
-                                int* rows, cudaStream_t stream) {
-  const int sort_n = pow2_at_least(k);
-  const size_t smem = static_cast<size_t>(sort_n) * sizeof(u64);
-  cudaError_t err = cudaFuncSetAttribute(scan_pass2, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  scan_pass2<<<nq, kThreads, smem, stream>>>(cand, ncand, k, sort_n, vals, rows);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -99,10 +99,8 @@ def _build(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
-    lib.perceive_scan_flat_bf16.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
-    lib.perceive_scan_flat_bf16.restype = i
-    lib.perceive_scan_topk_int8.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p, p]
-    lib.perceive_scan_topk_int8.restype = i
+    lib.perceive_scan_flat_rows.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p]
+    lib.perceive_scan_flat_rows.restype = i
     lib.perceive_scan_topk_slab.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
     lib.perceive_scan_topk_slab.restype = i
     lib.perceive_scan_slab_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p]
@@ -125,8 +123,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.perceive_select_topk.restype = i
     lib.perceive_select_topk_workspace.argtypes = [i, i]
     lib.perceive_select_topk_workspace.restype = z
-    lib.perceive_scan_topk_workspace.argtypes = [i, i, i]
-    lib.perceive_scan_topk_workspace.restype = z
     lib.perceive_scan_topk_max_k.argtypes = []
     lib.perceive_scan_topk_max_k.restype = i
     lib.perceive_scan_topk_max_dim.argtypes = []

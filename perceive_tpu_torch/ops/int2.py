@@ -251,12 +251,17 @@ def _check_on_card(what: str, packed, scales, source_ids, qi8, qscale, allowed) 
 
 def int2_scores(packed, scales, source_ids, qi8, qscale, allowed, n_sweep: int = 0):
     """K5: masked (Q, n_sweep) f32 coarse scores of int8 queries against the
-    packed (D/4, N) matrix with (N,) f32 row scales."""
+    packed (D/4, N) matrix with (N,) f32 row scales.  On the card N must be
+    a multiple of 16 (the kernel reads 16 rows of a plane-row at once; the
+    matrices the package builds have capacities that are multiples of
+    ROW_ALIGN = 512)."""
     global LAUNCHES_SCORES
     _check_int2(packed, scales, source_ids, qi8, qscale, allowed)
     if _device_of(packed, "int2_scores") == "cpu":
         return int2_scores_plain(packed, scales, source_ids, qi8, qscale, allowed, n_sweep)
     _check_on_card("int2_scores", packed, scales, source_ids, qi8, qscale, allowed)
+    if packed.shape[1] % 16:
+        raise ValueError(f"int2_scores: N must be a multiple of 16, got {packed.shape[1]}")
     dev = packed.device
     nq, d = qi8.shape
     n = _sweep_n(packed.shape[1], n_sweep)

@@ -4,9 +4,9 @@ and packed-int4 tiers and over the int2 tier's int8 or int4 companion.
 Port of perceive_tpu/ops/topk.py's scans.  Eight hand-written CUDA kernels,
 each beside its plain PyTorch version and a launch counter:
 
-    K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_flat_bf16.cu
+    K1  scan_topk_flat         bf16/f32, Q < 256            csrc/scan_flat_rows.cu
     K2  scan_topk_slab         bf16, Q >= 256               csrc/scan_slab_rows.cu
-    K3  scan_topk_int8_flat    int8, Q < 256                csrc/scan_topk.cu
+    K3  scan_topk_int8_flat    int8, Q < 256                csrc/scan_flat_rows.cu
     K4  scan_topk_int8_slab    int8, Q >= 256               csrc/scan_slab_rows.cu
     K7  scan_topk_int8t_flat   int8 (D, N) transposed, Q < 256   csrc/scan_flat_cols.cu
     K8  scan_topk_int8t_slab   int8 (D, N) transposed, Q >= 256  csrc/scan_slab_cols.cu
@@ -54,9 +54,8 @@ QUERY_SLAB = 128  # the slab kernels take sweeps of whole slabs
 SLAB_QUERIES = 64  # query chunks of the slab kernels align to this (a consumer warpgroup's queries)
 # queries per sweep; larger batches run as consecutive sweeps
 MAX_QUERY_SLAB = 2048
-# workspace budget per launch (K3 keeps up to min(k, 512) candidates per
-# 512-row block and query; every other scan one list per row range and
-# query); query chunks shrink to fit
+# workspace budget per launch (every scan keeps one list per row range and
+# query); query chunks, or the flat row-major scans' ranges, shrink to fit
 _WORKSPACE_BYTES = 1 << 30
 # the plain versions' (Q, N) temporaries are bounded by this many bytes
 _PLAIN_BYTES = 1 << 30
@@ -353,16 +352,21 @@ def query_chunks(nq: int, ws_bytes, q_align: int, budget: int) -> list[tuple[int
     return [(s, min(nq, s + chunk)) for s in range(0, nq, chunk)]
 
 
-# The launch plans of K1, K2, K4, K7, K8 and K9 (csrc/hopper_common.cuh,
+# The launch plans of K1-K4, K7, K8 and K9 (csrc/hopper_common.cuh,
 # kSortK and kSortCap): rows a tile; each (query, range) keeps a running
 # list in the workspace at every k, of 64 keys (compacted by a sort) up to
 # k = 32 and of 2k keys past it
 SLAB_BF16_ROWS = 128
 SLAB_BF16_SORT_K = 32
 SLAB_BF16_SORT_CAP = 64
-# K1 scores sweeps of up to this many queries on the CUDA cores (and every
-# f32 sweep); wider bf16 sweeps take K2's tensor-core pass 1
-FLAT_CORE_QUERIES = 8
+# K1 and K3 score sweeps of up to this many queries on the CUDA cores (and
+# every f32 sweep, and every sweep whose d is no multiple of the tensor
+# cores' box), by operand; wider sweeps take K2's or K4's tensor-core pass
+# 1.  Measured on an H100 80GB HBM3 at 700 W (`chip_smoke.py --ladder`,
+# PERF.md section 6); int8 at k = 128 over 2,064,384 rows: the CUDA cores
+# win up to 64 queries (2.52 against 2.64 ms at 64), the tensor cores from
+# 96 (2.91 against 3.47)
+FLAT_ROWS_CORE_QUERIES = {"bf16": 8, "int8": 64}
 # K7 and K9 flat score sweeps of up to this many queries on the CUDA cores
 # (and every sweep whose d is no multiple of 128), by decode (the int4
 # decode costs more CUDA-core operations a byte); wider sweeps take K8's
@@ -399,18 +403,23 @@ def keys_select_bytes(nq: int, k: int) -> int:
     return nq * (32 + _KEYS_BINS * 4 + -(-k // 32) * 32 * 8)
 
 
-def _list_plan(nq: int, qt: int, n_sweep: int, k: int, blocks: int, span: int = 4):
+def _list_cap(k: int) -> int:
+    """A (query, range) list's capacity at depth k."""
+    return SLAB_BF16_SORT_CAP if k <= SLAB_BF16_SORT_K else -(-2 * k // 32) * 32
+
+
+def _list_plan(nq: int, qt: int, n_sweep: int, k: int, blocks: int, span: int = 4, most: int = 65_535):
     """(workspace bytes, (qt, row ranges, rows a range, list capacity)) of
     a list-keeping launch of nq queries, qt a block: (query tiles) x
-    (ranges) comes to about ``blocks``, each range at least one row tile
-    and, past k = 32, at least ``span`` x k rows (at 4k its list of 2k keys
-    compacts rarely and a one-block pass 2 has few keys to read; at 2k a
-    list holds no more keys than its range has rows).  Each (query, range)
-    leaves ``cap`` keys for pass 2."""
-    cap = SLAB_BF16_SORT_CAP if k <= SLAB_BF16_SORT_K else -(-2 * k // 32) * 32
+    (ranges) comes to about ``blocks``, at most ``most`` ranges, each range
+    at least one row tile and, past k = 32, at least ``span`` x k rows (at
+    4k its list of 2k keys compacts rarely and a one-block pass 2 has few
+    keys to read; at 2k a list holds no more keys than its range has rows).
+    Each (query, range) leaves ``cap`` keys for pass 2."""
+    cap = _list_cap(k)
     qtiles = -(-nq // qt)
     tiles = -(-n_sweep // SLAB_BF16_ROWS)
-    ranges = max(1, blocks // qtiles)
+    ranges = min(most, max(1, blocks // qtiles))
     if k > SLAB_BF16_SORT_K:
         ranges = min(ranges, max(1, n_sweep // (span * k)))
     ranges = min(ranges, tiles)
@@ -427,16 +436,39 @@ def slab_bf16_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
     return _list_plan(nq, 128 if d <= 384 else 64, n_sweep, k, sms)
 
 
-def flat_bf16_plan(nq: int, d: int, n_sweep: int, k: int, sms: int, f32: bool = False):
-    """K1's launch of nq < 256 queries, as ``slab_bf16_plan``.  Up to
-    FLAT_CORE_QUERIES queries (at f32, or where d is no multiple of 64,
-    always) a block holds the power of two at or above nq, at most 16, on
-    the CUDA cores, two blocks an SM; past that K2's tensor-core pass 1
-    takes a tile of 64 queries (128 past 64 queries where d <= 384, as K2),
-    one block an SM, so a sweep of up to 64 queries reads each row once."""
-    if f32 or nq <= FLAT_CORE_QUERIES or d % 64:
-        return _list_plan(nq, min(16, 1 << max(0, nq - 1).bit_length()), n_sweep, k, 2 * sms)
-    return _list_plan(nq, 64 if nq <= 64 or d > 384 else 128, n_sweep, k, sms)
+def _with_pass2(nq: int, k: int, plan):
+    """A list plan with its pass 2: the multi-block select (``multi``, its
+    scratch after the lists) where a query's ranges x cap keys pass what
+    list_pass2 stages."""
+    ws, (qt, ranges, per, cap) = plan
+    multi = not list_pass2_staged(ranges * cap, k)
+    if multi:
+        ws += keys_select_bytes(nq, k)
+    return ws, (qt, ranges, per, cap, int(multi))
+
+
+def flat_rows_plan(nq: int, d: int, n_sweep: int, k: int, sms: int, operand: str):
+    """The launch of K1 (``operand`` "bf16" or "f32") or K3 ("int8") for nq
+    < 256 queries: (workspace bytes, (queries a block, row ranges, rows a
+    range, list capacity, multi)).  Up to FLAT_ROWS_CORE_QUERIES[operand]
+    queries (at f32, and where d is no multiple of the tensor cores' box,
+    64 dims at bf16 and 128 at int8, always) the power of two at or above
+    nq, at most 16, on the CUDA cores, two blocks an SM; past that K2's or
+    K4's tensor-core pass 1 with a tile of 64 queries (128 past 64, at bf16
+    only where d <= 384, as K2), one block an SM, so a sweep of up to 64
+    queries reads each row once.  Past k = 32 a range holds at least 4k rows
+    at bf16 and f32 and 2k at int8 (as K7's); the ranges are cut so that
+    the lists and the multi-block select's scratch fit _WORKSPACE_BYTES,
+    so any sweep (255 queries at k = 8,192 too) is one launch.  Pass 2 as
+    in ``flat_cols_plan``.  The workspace does not grow with the rows."""
+    box, span = (128, 2) if operand == "int8" else (64, 4)
+    most = max(1, (_WORKSPACE_BYTES - keys_select_bytes(nq, k)) // (nq * _list_cap(k) * 8))
+    if operand == "f32" or nq <= FLAT_ROWS_CORE_QUERIES[operand] or d % box:
+        plan = _list_plan(nq, min(16, _pow2_at_least(nq)), n_sweep, k, 2 * sms, span, most)
+    else:
+        wide = 64 if nq <= 64 or (operand == "bf16" and d > 384) else 128
+        plan = _list_plan(nq, wide, n_sweep, k, sms, span, most)
+    return _with_pass2(nq, k, plan)
 
 
 def slab_s8_plan(nq: int, d: int, n_sweep: int, k: int, sms: int):
@@ -462,13 +494,10 @@ def flat_cols_plan(nq: int, d: int, n_sweep: int, k: int, sms: int, int4: bool):
     workspace, nq x ranges x cap x 8 bytes and that scratch, does not grow
     with the rows."""
     if nq <= FLAT_COLS_CORE_QUERIES["int4" if int4 else "int8"] or d % 128:
-        ws, (qt, ranges, per, cap) = _list_plan(nq, min(16, _pow2_at_least(nq)), n_sweep, k, 2 * sms, 2)
+        plan = _list_plan(nq, min(16, _pow2_at_least(nq)), n_sweep, k, 2 * sms, 2)
     else:
-        ws, (qt, ranges, per, cap) = _list_plan(nq, 64 if nq <= 64 else 128, n_sweep, k, sms, 2)
-    multi = not list_pass2_staged(ranges * cap, k)
-    if multi:
-        ws += keys_select_bytes(nq, k)
-    return ws, (qt, ranges, per, cap, int(multi))
+        plan = _list_plan(nq, 64 if nq <= 64 else 128, n_sweep, k, sms, 2)
+    return _with_pass2(nq, k, plan)
 
 
 @functools.lru_cache(maxsize=None)
@@ -488,18 +517,15 @@ def _kernel_limits() -> tuple[int, int]:
 
 
 def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_sweep: int,
-            lead: tuple, per_query: tuple, q_align: int, row_align: int,
-            budget: int = _WORKSPACE_BYTES, plan=None):
+            lead: tuple, per_query: tuple, q_align: int, row_align: int, plan):
     """Shared body of the CUDA wrappers: check placement and shapes, size
-    the workspace within ``budget`` bytes, and call the C entry ``entry``
+    the workspace within _WORKSPACE_BYTES, and call the C entry ``entry``
     once per query chunk as
     ``entry(*lead, source_ids, q, *per_query, allowed, ..., k, *extra, ...)``;
     ``lead`` and ``per_query`` hold tensors, ints or None (a null pointer),
     and the tensors of ``per_query`` are cut into the same query chunks as
     ``q``.  ``plan(n, d, n_sweep, k)`` gives a launch of n queries its
-    workspace bytes and ``extra`` ints; without it the workspace is n times
-    ``perceive_scan_topk_workspace``'s bytes for one query and ``extra`` is
-    empty.  Returns (vals, rows, launches)."""
+    workspace bytes and ``extra`` ints.  Returns (vals, rows, launches)."""
     dev = matrix.device
     tensors = [("source_ids", source_ids), ("q", q), ("allowed", allowed)]
     tensors += [("argument", t) for t in (*lead, *per_query) if isinstance(t, torch.Tensor)]
@@ -528,12 +554,7 @@ def _launch(entry: str, what: str, matrix, source_ids, q, allowed, k: int, n_swe
     q = q.contiguous()
     per_query = tuple(t.contiguous() if isinstance(t, torch.Tensor) else t for t in per_query)
     allowed = allowed.contiguous()
-    if plan is None:
-        per_q = lib.perceive_scan_topk_workspace(1, ns, k)
-
-        def plan(n, *_):
-            return n * per_q, ()
-    chunks = query_chunks(nq, lambda n: plan(n, d, ns, k)[0], q_align, budget)
+    chunks = query_chunks(nq, lambda n: plan(n, d, ns, k)[0], q_align, _WORKSPACE_BYTES)
     plans = [plan(e - s, d, ns, k) for s, e in chunks]
     ws = torch.empty(max(p[0] for p in plans), dtype=torch.uint8, device=dev)
     stream = _cuda.stream_of(matrix)
@@ -558,15 +579,16 @@ def _device_of(matrix, what: str) -> str:
 def scan_topk_flat(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
     """K1: exact top-k of ``q @ matrix.T`` over a bf16 or f32 matrix, any Q:
     persistent blocks over row ranges (TMA ring, running thresholds), CUDA
-    cores or tensor cores by width (``flat_bf16_plan``)."""
+    cores or tensor cores by width (``flat_rows_plan``)."""
     global LAUNCHES
     _check(matrix, source_ids, q, allowed, k, (torch.bfloat16, torch.float32))
     if _device_of(matrix, "scan_topk_flat") == "cpu":
         return scan_topk_plain(matrix, source_ids, q, allowed, k, n_sweep)
-    f32 = matrix.dtype == torch.float32
-    vals, rows, n = _launch("perceive_scan_flat_bf16", "scan_topk_flat", matrix, source_ids,
-                            q.to(matrix.dtype), allowed, k, n_sweep, (matrix, 0 if f32 else 1), (), 1, 16,
-                            plan=lambda n, d, ns, kk: flat_bf16_plan(n, d, ns, kk, _sm_count(matrix.device), f32))
+    operand = "f32" if matrix.dtype == torch.float32 else "bf16"
+    vals, rows, n = _launch("perceive_scan_flat_rows", "scan_topk_flat", matrix, source_ids,
+                            q.to(matrix.dtype), allowed, k, n_sweep, (matrix, 0 if operand == "f32" else 1, None),
+                            (None,), 1, 16,
+                            lambda n, d, ns, kk: flat_rows_plan(n, d, ns, kk, _sm_count(matrix.device), operand))
     LAUNCHES += n
     return vals, rows
 
@@ -582,20 +604,23 @@ def scan_topk_slab(matrix, source_ids, q, allowed, k: int, n_sweep: int = 0):
     vals, rows, n = _launch("perceive_scan_slab_bf16", "scan_topk_slab", matrix, source_ids,
                             q.to(torch.bfloat16), allowed, k, n_sweep,
                             (matrix,), (), SLAB_QUERIES, 128,
-                            plan=lambda n, d, ns, kk: slab_bf16_plan(n, d, ns, kk, _sm_count(matrix.device)))
+                            lambda n, d, ns, kk: slab_bf16_plan(n, d, ns, kk, _sm_count(matrix.device)))
     LAUNCHES_SLAB += n
     return vals, rows
 
 
 def scan_topk_int8_flat(matrix, scales, source_ids, qi8, qscale, allowed, k: int, n_sweep: int = 0):
-    """K3: exact top-k of int8 scores (see ``scores_int8``), any Q."""
+    """K3: exact top-k of int8 scores (see ``scores_int8``), any Q: K1's
+    kernel with int8 operands (``dp4a`` on the CUDA cores, K4's ``wgmma``
+    pass 1 past the crossover; ``flat_rows_plan``)."""
     global LAUNCHES_INT8
     _check(matrix, source_ids, qi8, allowed, k, (torch.int8,))
     _check_int8(matrix, scales, qi8, qscale)
     if _device_of(matrix, "scan_topk_int8_flat") == "cpu":
         return scan_topk_int8_plain(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
-    vals, rows, n = _launch("perceive_scan_topk_int8", "scan_topk_int8_flat", matrix, source_ids,
-                            qi8, allowed, k, n_sweep, (matrix, scales), (qscale,), 1, 16)
+    vals, rows, n = _launch("perceive_scan_flat_rows", "scan_topk_int8_flat", matrix, source_ids,
+                            qi8, allowed, k, n_sweep, (matrix, 2, scales.contiguous()), (qscale,), 1, 16,
+                            lambda n, d, ns, kk: flat_rows_plan(n, d, ns, kk, _sm_count(matrix.device), "int8"))
     LAUNCHES_INT8 += n
     return vals, rows
 
@@ -611,7 +636,7 @@ def scan_topk_int8_slab(matrix, scales, source_ids, qi8, qscale, allowed, k: int
         return scan_topk_int8_plain(matrix, scales, source_ids, qi8, qscale, allowed, k, n_sweep)
     vals, rows, n = _launch("perceive_scan_topk_slab", "scan_topk_int8_slab", matrix, source_ids,
                             qi8, allowed, k, n_sweep, (matrix, scales), (qscale,), SLAB_QUERIES, 128,
-                            plan=lambda n, d, ns, kk: slab_s8_plan(n, d, ns, kk, _sm_count(matrix.device)))
+                            lambda n, d, ns, kk: slab_s8_plan(n, d, ns, kk, _sm_count(matrix.device)))
     LAUNCHES_INT8_SLAB += n
     return vals, rows
 
@@ -630,7 +655,7 @@ def _cols_scan(what: str, entry: str, int4: bool, mat, scales, source_ids, qi8, 
         return (*plain(mat, scales, source_ids, qi8, qscale, allowed, k, n_sweep), 0)
     _check_tma_cols(mat, what)
     return _launch(entry, what, mat, source_ids, qi8, allowed, k, n_sweep, (mat, mat.shape[1], scales),
-                   (qscale,), q_align, row_align, plan=plan)
+                   (qscale,), q_align, row_align, plan)
 
 
 def _check_tma_cols(mat, what: str) -> None:

@@ -28,7 +28,13 @@ K9 flat (``test_scan_topk_int8t_bit_exact``, ``test_scan_topk_int4_bit_exact``
 at widths on both sides of each crossover and depths through the
 multi-block pass 2; ``test_scan_flat_cols_*``: the adversarial orders,
 every row masked, one live row at the sweep's end, dense ties at k =
-8,192, TMA's column rule) and K11's
+8,192, TMA's column rule), K3 (``test_scan_flat_int8_*``: bit for bit
+at widths on both sides of its crossover and at 64/65 and 255 queries,
+depths 1 to 8,192 through the multi-block pass 2, both filters, dense
+ties, a partial last tile, each case twice back to back), K5
+(``test_int2_scores_widths_bit_exact``: 1, 3, 8 and 33 queries over a
+prefix of the columns, twice back to back; ``test_int2_scores_refuses_*``)
+and K11's
 bf16 path
 (``test_attention_bf16_tensor_cores``: S 100, 384 and 512, DH 16, 32 and
 64, masks with whole padded key tiles, one kept key, or none).
@@ -127,6 +133,50 @@ def test_scan_topk_int8_bit_exact(dev, kernel, nq, k, filt, n_sweep):
     vp, rp = topk.scan_topk_int8_plain(m, scales, src, qi8, qscale, _allowed(dev, filt), k, n_sweep)
     torch.cuda.synchronize()
     assert getattr(topk, counter) == before + 1
+    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+
+
+K3_WIDTHS = [1, 2, 8, 9, 16, 17, 64, 65, 255]
+K3_DEPTHS = [1, 16, 128, 512, 2048, 8192]
+
+
+@pytest.mark.parametrize("nq", K3_WIDTHS)
+@pytest.mark.parametrize("k", K3_DEPTHS)
+@pytest.mark.parametrize("case", ["random", "2src", "dense_ties"])
+def test_scan_flat_int8_widths_and_depths_bit_exact(dev, nq, k, case):
+    """K3 (csrc/scan_flat_rows.cu) bit for bit with its plain version at
+    widths on the CUDA cores and on K4's wgmma pass 1 (both sides of
+    FLAT_ROWS_CORE_QUERIES["int8"] and of the 64-query tile), at depths
+    through the multi-block pass 2, under no filter and a 2-source filter,
+    on rows 8 times over (dense ties: lower row first), over a sweep whose
+    last 128-row tile is partial; each sweep one launch, run twice back to
+    back on reused workspaces with the same answer."""
+    n = 40960
+    n_sweep = n - 77
+    m, scales, src, qi8, qscale = _int8_inputs(dev, n, nq, nq * 31 + k, dup=case == "dense_ties")
+    allowed = _allowed(dev, [0, 2] if case == "2src" else None)
+    before = topk.LAUNCHES_INT8
+    first = topk.scan_topk_int8_flat(m, scales, src, qi8, qscale, allowed, k, n_sweep)
+    second = topk.scan_topk_int8_flat(m, scales, src, qi8, qscale, allowed, k, n_sweep)
+    vp, rp = topk.scan_topk_int8_plain(m, scales, src, qi8, qscale, allowed, k, n_sweep)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES_INT8 == before + 2
+    for vk, rk in (first, second):
+        assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    if case == "dense_ties" and k > 1:
+        same = (vp[:, 1:] == vp[:, :-1]) & torch.isfinite(vp[:, 1:])
+        assert bool(same.any()) and bool((rp[:, 1:][same] > rp[:, :-1][same]).all())
+
+
+def test_scan_flat_int8_deep_wide_sweep_is_one_launch(dev):
+    """255 queries at k = 8,192 over 2,064,384 rows: one K3 launch (the
+    plan cuts its ranges to the workspace budget), bit for bit."""
+    m, scales, src, qi8, qscale = _int8_inputs(dev, 2_064_384, 255, 5)
+    before = topk.LAUNCHES_INT8
+    vk, rk = topk.scan_topk_int8_flat(m, scales, src, qi8, qscale, _allowed(dev), 8192)
+    vp, rp = topk.scan_topk_int8_plain(m, scales, src, qi8, qscale, _allowed(dev), 8192)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES_INT8 == before + 1
     assert torch.equal(vk, vp) and torch.equal(rk, rp)
 
 
@@ -325,6 +375,31 @@ def test_int2_scores_bit_exact(dev, nq, filt, n_sweep):
     torch.cuda.synchronize()
     assert int2.LAUNCHES_SCORES == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nq", [1, 3, 8, 33])
+@pytest.mark.parametrize("filt,n_sweep", [(None, 32764), ([0, 2], 20000), ([1], 4099)])
+def test_int2_scores_widths_bit_exact(dev, nq, filt, n_sweep):
+    """K5 bit for bit at 1, 3, 8 and 33 queries (query tiles of 1, 4, 8 and
+    8 + 1) over a prefix of a 32,768-column matrix (ld > n_sweep), whose
+    last rows end a thread's rows part way (4,099: the scalar stores), run
+    twice back to back with the same answer."""
+    packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, 32768, nq, nq + n_sweep)
+    before = int2.LAUNCHES_SCORES
+    first = int2.int2_scores(packed, s2, src, qi8, qscale, _allowed(dev, filt), n_sweep)
+    second = int2.int2_scores(packed, s2, src, qi8, qscale, _allowed(dev, filt), n_sweep)
+    want = int2.int2_scores_plain(packed, s2, src, qi8, qscale, _allowed(dev, filt), n_sweep)
+    torch.cuda.synchronize()
+    assert int2.LAUNCHES_SCORES == before + 2
+    assert first.shape == (nq, n_sweep) and torch.equal(first, want) and torch.equal(second, want)
+
+
+def test_int2_scores_refuses_unaligned_columns(dev):
+    """K5 reads 16 columns of a plane-row at once: a column count that is
+    not a multiple of 16 raises instead of launching."""
+    packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, 4100, 1, 3)
+    with pytest.raises(ValueError):
+        int2.int2_scores(packed, s2, src, qi8, qscale, _allowed(dev))
 
 
 @pytest.mark.parametrize("case", ["random", "dense_ties", "all_masked", "kc_is_n", "prefix"])

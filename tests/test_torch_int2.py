@@ -84,11 +84,13 @@ def _int2_inputs(n, d, nq, seed):
     return rows, np.ascontiguousarray(p2.T), s2, np.ascontiguousarray(f8.T), s8, src, q
 
 
-@pytest.mark.parametrize("nq,filt,n_sweep", [(1, None, 0), (3, [1, 3], 1536)])
+@pytest.mark.parametrize("nq,filt,n_sweep", [(1, None, 0), (3, [1, 3], 1536), (1, [0, 2], 5120), (8, None, 5120)])
 def test_int2_scores_bit_exact(nq, filt, n_sweep):
     """unpack_int2 and scores_int2 equal the XLA reference; K5's plain
-    version equals the Pallas kernel (interpret mode), masks included."""
-    _, p2, s2, _, _, src, q = _int2_inputs(2048, 128, nq, nq)
+    version equals the Pallas kernel (interpret mode), masks included, also
+    over a sweep of 5,120 rows: no multiple of K5's row tiles on the card
+    (4,096 rows a tile up to 2 queries, 2,048 past that)."""
+    _, p2, s2, _, _, src, q = _int2_inputs(8192 if n_sweep > 2048 else 2048, 128, nq, nq)
     qi8, qs = jax.jit(jax_topk.quantize_queries)(jnp.asarray(q))
     qi8_t, qs_t = _t(np.asarray(qi8), np.asarray(qs))
     np.testing.assert_array_equal(int2.unpack_int2(torch.from_numpy(p2)).numpy(),

@@ -100,14 +100,14 @@ def test_slab_routing_matches_jax(nq):
 # -- the scans ------------------------------------------------------------------
 
 
-def _int8_inputs(d, nq, seed, invalid=0.1, ties=False):
+def _int8_inputs(d, nq, seed, invalid=0.1, ties=False, n=N):
     rng = np.random.default_rng(seed)
-    v = _unit(rng.standard_normal((N, d)))
+    v = _unit(rng.standard_normal((n, d)))
     if ties:  # each row 8 times over: exact score ties
-        v = np.tile(v[: N // 8], (8, 1))
+        v = np.tile(v[: n // 8], (8, 1))
     m, scales = _quantize(v)
-    src = rng.integers(0, 4, N).astype(np.int32)
-    src[rng.random(N) < invalid] = -1
+    src = rng.integers(0, 4, n).astype(np.int32)
+    src[rng.random(n) < invalid] = -1
     q = _unit(rng.standard_normal((nq, d)))
     return m, scales, src, q
 
@@ -144,12 +144,22 @@ INT8_CASES = [
     (128, 256, 16, None, 0, 0.1, False),  # K4's route
     (128, 300, 32, [0, 2], 1024, 0.5, False),  # padded to 384: K4's route
     (128, 256, 64, None, 0, 0.1, True),
+    # deep k over a sweep of more than 4k rows (the escalation ladder's
+    # rungs at one query and at an executor drain's width), both filters,
+    # dense ties; K3's plan takes the multi-block pass 2 at these depths
+    (128, 1, 512, None, 2560, 0.1, False),
+    (128, 16, 512, [0, 2], 0, 0.1, True),
+    (128, 1, 2048, [1, 3], 0, 0.1, True),
+    (128, 16, 2048, None, 9216, 0.1, False),
 ]
+DEEP_ROWS = 10240  # the matrix of the deep cases: a sweep past 4k rows at k = 2,048
 
 
 @pytest.mark.parametrize("d,nq,k,filt,n_sweep,invalid,ties", INT8_CASES)
 def test_int8_scan_matches_pallas_kernel(d, nq, k, filt, n_sweep, invalid, ties):
-    m, scales, src, q = _int8_inputs(d, nq, seed=d + nq + k, invalid=invalid, ties=ties)
+    n = DEEP_ROWS if k >= 512 else N
+    m, scales, src, q = _int8_inputs(d, nq, seed=d + nq + k, invalid=invalid, ties=ties, n=n)
+    assert k < 512 or (n_sweep or n) > 4 * k
     allowed = _allowed(filt)
     got = topk.scan_topk_int8(torch.from_numpy(m), torch.from_numpy(scales), torch.from_numpy(src),
                               torch.from_numpy(q), torch.from_numpy(allowed), k, n_sweep)

@@ -64,7 +64,7 @@ def test_kernel_loader_imports_without_nvcc():
         "import perceive_tpu_torch.ops._cuda as c\n"
         "assert c._lib is None and c.build_seconds is None\n"
         "assert len(c.source_key()) == 16\n"
-        "assert {p.name for p in c.sources()} >= {'scan_topk.cu', 'scan_slab_rows.cu', 'scan_slab_cols.cu', 'scan_flat_cols.cu', 'topk_common.cuh', 'attention.cu',"
+        "assert {p.name for p in c.sources()} >= {'scan_flat_rows.cu', 'scan_slab_rows.cu', 'scan_slab_cols.cu', 'scan_flat_cols.cu', 'topk_common.cuh', 'attention.cu',"
         " 'scan_int2.cu', 'select_topk.cu'}\n",
         env=env,
     )

@@ -246,18 +246,28 @@ def _check_list_plan(nq, n_sweep, k, sms, plan, q_align):
 @pytest.mark.parametrize("n_sweep", PLAN_ROWS)
 @pytest.mark.parametrize("f32", [False, True])
 def test_flat_bf16_plan_sizes_the_workspace(nq, k, n_sweep, f32):
-    """K1's launch plan: up to FLAT_CORE_QUERIES queries (and at f32) a
-    power-of-two tile of at most 16 on the CUDA cores, about two blocks an
-    SM; wider bf16 sweeps K2's tensor-core tiles of 64 or 128, about one
-    block an SM; the checks every list plan shares."""
+    """K1's launch plan (``flat_rows_plan``): up to
+    FLAT_ROWS_CORE_QUERIES["bf16"] queries (and at f32) a power-of-two tile
+    of at most 16 on the CUDA cores, about two blocks an SM; wider bf16
+    sweeps K2's tensor-core tiles of 64 or 128, about one block an SM; the
+    checks every list plan shares, on its lists (the multi-block select's
+    scratch aside)."""
     sms = 132
-    plan = lambda n: topk.flat_bf16_plan(n, 384, n_sweep, k, sms, f32)  # noqa: E731
+    operand = "f32" if f32 else "bf16"
+    plan = lambda n: _lists_of(n, k, topk.flat_rows_plan(n, 384, n_sweep, k, sms, operand))  # noqa: E731
     _, (qt, ranges, _, _) = plan(nq)
-    if f32 or nq <= topk.FLAT_CORE_QUERIES:
+    if f32 or nq <= topk.FLAT_ROWS_CORE_QUERIES["bf16"]:
         assert qt == min(16, 1 << (nq - 1).bit_length()) and -(-nq // qt) * ranges <= max(2 * sms, -(-nq // qt))
     else:
         assert qt == (64 if nq <= 64 else 128) and -(-nq // qt) * ranges <= sms
     _check_list_plan(nq, n_sweep, k, sms, plan, 1)
+
+
+def _lists_of(nq, k, flat_plan):
+    """A flat plan's lists alone: (list bytes, (qt, ranges, rows a range,
+    cap)), the multi-block select's scratch and flag set aside."""
+    ws, (qt, ranges, per, cap, multi) = flat_plan
+    return ws - (topk.keys_select_bytes(nq, k) if multi else 0), (qt, ranges, per, cap)
 
 
 @pytest.mark.parametrize("nq", [256, 512, 2048])
@@ -301,11 +311,85 @@ def test_slab_int8_plans_size_the_workspace(kernel, d, nq, k, n_sweep):
 @pytest.mark.parametrize("d,nq,want", [(384, 8, 8), (384, 9, 64), (384, 64, 64), (384, 65, 128),
                                        (768, 200, 64), (200, 40, 16)])
 def test_flat_bf16_plan_tiles_by_width(d, nq, want):
-    """K1 takes the CUDA cores up to FLAT_CORE_QUERIES queries and where d
-    is no multiple of 64 (K2's boxes are 64 dims), K2's tiles of 64 queries
-    past that, and 128 past 64 queries where d <= 384."""
-    _, (qt, *_) = topk.flat_bf16_plan(nq, d, 958_464, 32, 132)
+    """K1 takes the CUDA cores up to FLAT_ROWS_CORE_QUERIES["bf16"] queries
+    and where d is no multiple of 64 (K2's boxes are 64 dims), K2's tiles of
+    64 queries past that, and 128 past 64 queries where d <= 384."""
+    _, (qt, *_) = topk.flat_rows_plan(nq, d, 958_464, 32, 132, "bf16")
     assert qt == want
+
+
+FLAT_ROWS_ROWS = [2_064_384, 25_165_824, 100_000_000]
+
+
+@pytest.mark.parametrize("operand", ["int8", "bf16"])
+@pytest.mark.parametrize("nq", [1, 16, 17, 64, 255])
+@pytest.mark.parametrize("k", [16, 128, 512, 2048, 8192])
+def test_flat_rows_plan_workspace_does_not_grow_with_rows(operand, nq, k):
+    """K3's (and K1's) launch plan (``flat_rows_plan``): one list per
+    (query, range) and, where pass 2 is the multi-block select, its
+    scratch; about two blocks an SM on the CUDA cores, one on the tensor
+    cores; no launch dimension and no workspace that grows with the rows
+    (K3's first kernel kept min(k, 512) keys per 512-row block and query:
+    every row past k = 512), and every sweep within _WORKSPACE_BYTES."""
+    sms = 132
+    plans = [topk.flat_rows_plan(nq, 384, n, k, sms, operand) for n in FLAT_ROWS_ROWS]
+    for n, (ws, (qt, ranges, per, cap, multi)) in zip(FLAT_ROWS_ROWS, plans):
+        assert ws == nq * ranges * cap * 8 + (topk.keys_select_bytes(nq, k) if multi else 0)
+        assert cap == 64 if k <= 32 else cap >= 2 * k and cap % 32 == 0
+        assert per % 128 == 0 and ranges * per >= n > (ranges - 1) * per
+        assert -(-nq // qt) * ranges <= (2 * sms if qt <= 16 else sms)
+        assert ws <= topk._WORKSPACE_BYTES
+        if k > 32 and operand == "int8":
+            assert per >= 2 * k
+    assert plans[0][0] <= plans[1][0] == plans[2][0]
+
+
+@pytest.mark.parametrize("operand", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("n_sweep", [2_064_384, 25_165_824])
+@pytest.mark.parametrize("nq", [32, 255])
+def test_flat_rows_plan_deep_wide_sweep_is_one_launch(operand, n_sweep, nq):
+    """A sweep of 255 queries at k = 8,192 (the escalation ladder's top
+    rung for an executor drain) is one chunk: the plan cuts its ranges to
+    fit the lists and the multi-block select's scratch in _WORKSPACE_BYTES
+    (K1's former plan split it into launches that each re-read the
+    matrix)."""
+    plan = lambda n: topk.flat_rows_plan(n, 384, n_sweep, 8192, 132, operand)  # noqa: E731
+    assert topk.query_chunks(nq, lambda n: plan(n)[0], 1, topk._WORKSPACE_BYTES) == [(0, nq)]
+    ws, (_, ranges, _, cap, multi) = plan(nq)
+    assert ws <= topk._WORKSPACE_BYTES and multi == 1 and ranges >= 1 and cap == 16384
+
+
+@pytest.mark.parametrize("d", [384, 256, 128, 192, 160, 96])
+@pytest.mark.parametrize("step", [-1, 0, 1])
+def test_flat_rows_plan_routes_int8_at_the_crossover(d, step):
+    """K3: up to FLAT_ROWS_CORE_QUERIES["int8"] queries a power-of-two tile
+    of at most 16 on the CUDA cores; past it K4's wgmma tile of 64 queries
+    (128 past 64), but only where d is a multiple of 128 (K4's s8 boxes);
+    elsewhere the CUDA cores at every width."""
+    cross = topk.FLAT_ROWS_CORE_QUERIES["int8"]
+    for nq in (cross + step, 64 + step, 255):
+        if nq < 1:
+            continue
+        _, (qt, *_) = topk.flat_rows_plan(nq, d, 2_064_384, 128, 132, "int8")
+        if nq <= cross or d % 128:
+            assert qt == min(16, 1 << (nq - 1).bit_length())
+        else:
+            assert qt == (64 if nq <= 64 else 128)
+
+
+@pytest.mark.parametrize("operand", ["int8", "bf16"])
+@pytest.mark.parametrize("nq", [1, 16, 255])
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 64, 128, 512, 2048, 8192])
+@pytest.mark.parametrize("n_sweep", [128, 20_037, 958_464, 2_064_384])
+def test_flat_rows_plan_takes_the_multi_block_select_past_staging(operand, nq, k, n_sweep):
+    """K3's and K1's pass 2 is the multi-block select exactly where a
+    query's ranges x cap keys pass what list_pass2 stages in shared memory
+    beside its sort buffer (232,448 bytes less its select scratch and 1,024
+    spare), as K7's and K9 flat's."""
+    _, (_, ranges, _, cap, multi) = topk.flat_rows_plan(nq, 384, n_sweep, k, 132, operand)
+    sort_n = 1 << max(0, k - 1).bit_length()
+    staged = (((sort_n + 1) & ~1) + ranges * cap) * 8 + 1040 + 1024 <= 232_448
+    assert multi == (not staged) and topk.list_pass2_staged(ranges * cap, k) == staged
 
 
 FLAT_COLS_ROWS = [3_809_280, 25_165_824, 100_000_000]
