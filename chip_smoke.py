@@ -7,7 +7,8 @@
 the rows around it to CASE.npz, for ``tests/audit_case.py`` to reproduce
 off the card in the port and in the JAX package.  ``--ladder`` runs only
 the build and the flat scans' times by depth and by width (K3, K7 and K9
-flat) and K5's by width (``ladders``), and prints no result line.
+flat), and K5's, K6's and K10's at 1 and 8 queries (``ladders``), and
+prints no result line.
 
 Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
@@ -20,7 +21,8 @@ Phases (any failure exits non-zero before the final line):
      crossover to the tensor cores and at 255 queries), a sweep of 2,048
      queries in one K4 launch and of 255 queries at k = 8,192 in one K3
      launch, K3 timed by depth on the escalation ladder and by width on
-     either pass 1, and replayed 40 times on one input;
+     either pass 1, and replayed 40 times on one input; the library call of
+     K4 at 2,048 queries (a 17 GB int32 product) timed alone;
   5. K11 (attention) against its plain version at every encoder bucket
      (timed beside the short-bucket route) and on masks with whole padded
      key tiles and one kept key;
@@ -41,10 +43,16 @@ Phases (any failure exits non-zero before the final line):
      for bit, at the int2 slice's shape (4,194,304 x 384), K7 on both sides
      of its crossover to the tensor cores and on duplicated columns at k =
      8,192 (its multi-block pass 2), a sweep of 2,048 queries in one K8
-     launch, K7 timed by depth on the escalation ladder, and K5 replayed 40
-     times on one input at 1 and 8 queries;
+     launch, K7 timed by depth on the escalation ladder, K5 replayed 40
+     times on one input at 1 and 8 queries, K6 on dense ties and on the
+     rows that overflow its candidate region (1,000 finite scores; 64
+     values in one bin) and timed at kc 1,024 to 16,384, K10 timed at 1 and
+     8 queries, K6 over K10's buffer, each of K6, K10 and K6 over the
+     buffer replayed 40 times on one input; then the library call of K8 at
+     2,048 queries (a 31 GB int32 product) timed alone;
  11. K10 against its plain version, bit for bit, near the int2 tier's
-     upper end (22.5M live rows of 25,165,824 x 384, generated on the card);
+     upper end (22.5M live rows of 25,165,824 x 384, generated on the card),
+     timed at 1 and 8 queries;
  12. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
      AppState whose auto rule picks the int2 tier (coarse pass + int8
      companion), its self-audit's verdict, the same 16 queries through the
@@ -207,11 +215,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device milliseconds a call of ``fn`` takes: its kernels' device time
-    under torch.profiler over ``reps`` calls after a warm-up, over
-    ``reps``.  Unlike ``cuda_ms`` it leaves out the host's work before and
-    between the launches (a wrapper's Python prologue)."""
+def device_times(fn, reps: int = 20) -> dict:
+    """Device milliseconds a call of ``fn`` takes in each kernel (and
+    memset), by name: torch.profiler's ``key_averages()`` over ``reps``
+    calls after a warm-up, over ``reps``.  Unlike ``cuda_ms`` it leaves out
+    the host's work before and between the launches (a wrapper's Python
+    prologue)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -221,7 +230,21 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
+    times = {}
+    for e in prof.key_averages():
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        times[name] = times.get(name, 0.0) + e.device_time_total / reps / 1e3
+    return times
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds a call of ``fn`` takes, all its kernels."""
+    return sum(device_times(fn, reps).values())
+
+
+def device_split(fn) -> str:
+    """``fn``'s device milliseconds by kernel, as a log line."""
+    return "  ".join(f"{name[:24]} {ms:.4f}" for name, ms in device_times(fn).items())
 
 
 def bound(n_bytes: float, ops: float, kind: str, transcendentals: float = 0.0) -> tuple[float, str]:
@@ -369,11 +392,35 @@ def int8_yardstick(m, scales, keep, cols: bool = False):
 
     mt = m if cols else m.T
 
-    def library(qi8, qs, k):
+    def library(qi8, qs, k):  # scaled in place: one (Q, n) f32 beside the int32 product at most
         dots = torch._int_mm(qi8, mt).float() if qi8.shape[0] > 16 else qi8.float() @ mt.float()
-        return torch.topk((dots * scales * qs).masked_fill(~keep, float("-inf")), k)
+        return torch.topk(dots.mul_(scales).mul_(qs).masked_fill_(~keep, float("-inf")), k)
 
     return library
+
+
+def wide_library_ms(card: str, kid: str, library, nq: int, n: int, queries) -> float | None:
+    """The library call of an int8 batch scan at ``nq`` queries over ``n``
+    rows (a (Q, n) int32 product, then its f32 copy), timed alone after the
+    phase's other tensors are freed; None, with the gigabytes it needed and
+    those free, where the card runs out of memory."""
+    import torch
+
+    qi8, qs = queries(nq)
+    need = 8 * nq * n / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    try:
+        ms = cuda_ms(lambda: library(qi8, qs, INT8_KB), reps=3)
+    except torch.cuda.OutOfMemoryError:
+        log(f"{kid} library Q={nq} k={INT8_KB} n_sweep={n}: out of memory (the product and its f32 copy "
+            f"need {need:.1f} GB, {free:.1f} GB free)  [{card}]")
+        torch.cuda.empty_cache()
+        return None
+    log(f"{kid} library Q={nq} k={INT8_KB} n_sweep={n}: {ms:.4f} ms (torch._int_mm + scales + topk; "
+        f"{need:.1f} GB of product and f32 copy, {free:.1f} GB free)  [{card}]")
+    return ms
 
 
 def replay(kid: str, name: str, run, want, times: int = 40) -> None:
@@ -433,7 +480,7 @@ def check_case(name: str, got, want, tol: float) -> float:
 def torch_equal(got, want) -> bool:
     import torch
 
-    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def check_bf16_scans(card: str) -> dict:
@@ -621,7 +668,7 @@ def check_int8_scans(card: str) -> dict:
         t["library_ms"] = cuda_ms(lambda: library(qi8, qs, k)) if nq <= 512 else None
         t["bound_ms"], t["bound_by"] = scan_bound(live, ns, nq, k, 1, "int8")
         times[(kid, nq)] = t
-        lib = "not timed (its (Q, N) int32 product would take 16 GB)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        lib = "timed alone below" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         log(f"{kid} time Q={nq} k={k} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     one_launch("K4", "LAUNCHES_INT8_SLAB", lambda: topk.scan_topk_int8_slab(
@@ -629,7 +676,9 @@ def check_int8_scans(card: str) -> dict:
     k3_ladder(card, m, scales, src, ns, queries)
     qi8, qs = queries(512)
     depth_times(card, "K4", lambda k: topk.scan_topk_int8_slab(m, scales, src, qi8, qs, allowed["all"], k, ns), 512, ns)
-    del m, scales, library
+    del library
+    wide_library_ms(card, "K4", int8_yardstick(m[:ns], scales[:ns], keep), N_BATCH, ns, queries)
+    del m, scales
     torch.cuda.empty_cache()
     return {"K3": {"max_abs_err": 0.0, **times[("K3", 1)]}, "K4": {"max_abs_err": 0.0, **times[("K4", 512)]}}
 
@@ -713,14 +762,23 @@ def check_int2_kernels(card: str) -> dict:
                 if not ok:
                     raise SystemExit(f"K6 disagrees with its plain version (Q={nq}, kc={kc}, {fname})")
     # K6 on dense ties: every score of a row 8 times over, and on a row that
-    # matches nothing
+    # matches nothing; then the region's overflows: a filter that leaves
+    # 1,000 finite scores (the kc-th key's bin holds every -inf row), and 64
+    # values that all fall in one bin
     tied = scores[(8, "all")][:, : n // 8].repeat(1, 8).contiguous()
     tied[7] = float("-inf")
-    for kc in INT2_KCS:
-        got, want = int2.select_topk(tied, kc), int2.select_topk_plain(tied, kc)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise SystemExit(f"K6 disagrees with its plain version on dense ties (kc={kc})")
-    log("K6 dense ties and an all -inf row: bit-exact, lower row first  ok")
+    few = torch.full((2, ns), float("-inf"), device=dev)
+    few[0, torch.randperm(ns, generator=g, device=dev)[:1000]] = scores[(1, "all")][0, :1000]
+    few[1] = 1.0 + (torch.arange(ns, device=dev) % 64).float() * 2.0**-20
+    for name, rows_in in (("dense ties and an all -inf row", tied), ("1,000 finite and one-bin rows", few)):
+        for kc in INT2_KCS + (16384,):
+            got, want = int2.select_topk(rows_in, kc), int2.select_topk_plain(rows_in, kc)
+            if not torch_equal(got, want):
+                raise SystemExit(f"K6 disagrees with its plain version on {name} (kc={kc})")
+        log(f"K6 {name}: bit-exact, lower row first  ok")
+    del few
+    first = int2.select_topk(scores[(1, "all")], 4096)
+    replay("K6", "Q=1 kc=4096", lambda: int2.select_topk(scores[(1, "all")], 4096), first)
 
     k7_widths = crossover_widths((1, 8, 32), "FLAT_COLS_CORE_QUERIES", "int8")
     for kid, fn, widths, ks in (("K7", topk.scan_topk_int8t_flat, k7_widths, KS),
@@ -760,16 +818,8 @@ def check_int2_kernels(card: str) -> dict:
         times[("K5", nq)] = t
         log(f"K5 time Q={nq} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
-    for nq, kc in ((1, 4096), (1, 1024), (8, 4096)):  # K6
-        sc = scores[(nq, "all")]
-        t = {"ms": cuda_ms(lambda: int2.select_topk(sc, kc)),
-             "plain_ms": cuda_ms(lambda: int2.select_topk_plain(sc, kc)),
-             "library_ms": cuda_ms(lambda: torch.topk(sc, kc))}
-        # the scores read once, (score, row) pairs and the floor written once
-        t["bound_ms"], t["bound_by"] = bound(nq * ns * 4 + nq * kc * 8 + nq * 4, 0.0, "int8")
-        times[("K6", nq, kc)] = t
-        log(f"K6 time Q={nq} kc={kc} n={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
-            f"library {t['library_ms']:.4f} ms (torch.topk)  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    for nq, kc in ((1, 4096), (1, 1024), (1, 16384), (8, 4096)):  # K6
+        times[("K6", nq, kc)] = k6_times(card, scores[(nq, "all")], kc)
     library = int8_yardstick(fine[:, :ns], s8[:ns], keep, cols=True)
 
     for kid, fn, nq in (("K7", topk.scan_topk_int8t_flat, 1), ("K7", topk.scan_topk_int8t_flat, 32),
@@ -781,7 +831,7 @@ def check_int2_kernels(card: str) -> dict:
         t["library_ms"] = cuda_ms(lambda: library(qi8, qs, k)) if nq <= 512 else None
         t["bound_ms"], t["bound_by"] = scan_bound(live, ns, nq, k, 1, "int8")
         times[(kid, nq)] = t
-        lib = "not timed (its (Q, N) int32 product would take 34 GB)" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        lib = "timed alone below" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         log(f"{kid} time Q={nq} k={k} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     one_launch("K8", "LAUNCHES_INT8T_SLAB", lambda: topk.scan_topk_int8t_slab(
@@ -791,24 +841,53 @@ def check_int2_kernels(card: str) -> dict:
                 INT8_LADDER, lambda k: scan_bound(live, ns, 1, k, 1, "int8"), lambda k: library(qi8, qs, k))
     qi8, qs = queries(512)
     depth_times(card, "K8", lambda k: topk.scan_topk_int8t_slab(fine, s8, src, qi8, qs, allowed["all"], k, ns), 512, ns)
-    times["K10"] = check_tiletop(card, packed, s2, src, ns, allowed, queries)
+    times["K10"] = check_tiletop(card, packed, s2, src, ns, allowed, queries, replays=True)
     k56 = times[("K5", 1)]["ms"] + times[("K6", 1, 4096)]["ms"]
     log(f"K10 at Q=1 kc=4096 n_sweep={ns}: {times['K10']['ms']:.4f} ms against K5 + K6 (scores written, "
         f"then the exact select) {k56:.4f} ms at the same shape  [{card}]")
-    del packed, fine, library, scores, tied
+    del packed, library, scores, tied
+    wide_library_ms(card, "K8", int8_yardstick(fine[:, :ns], s8[:ns], keep, cols=True), N_BATCH, ns, queries)
+    del fine
     torch.cuda.empty_cache()
     return {"K5": {"max_abs_err": 0.0, **times[("K5", 1)]}, "K6": {"max_abs_err": 0.0, **times[("K6", 1, 4096)]},
             "K7": {"max_abs_err": 0.0, **times[("K7", 1)]}, "K8": {"max_abs_err": 0.0, **times[("K8", 512)]},
             "K10": {"max_abs_err": 0.0, **times["K10"]}}
 
 
+def k6_times(card: str, sc, kc: int, what: str = "") -> dict:
+    """K6 over the (Q, n) scores ``sc`` at depth kc, timed beside its plain
+    version, torch.topk and its bound: the scores read once, the (score,
+    row) pairs and the floor written once."""
+    import torch
+
+    from perceive_tpu_torch.ops import int2
+
+    nq, n = sc.shape
+    t = {"ms": cuda_ms(lambda: int2.select_topk(sc, kc)),
+         "plain_ms": cuda_ms(lambda: int2.select_topk_plain(sc, kc)),
+         "library_ms": cuda_ms(lambda: torch.topk(sc, kc))}
+    t["bound_ms"], t["bound_by"] = bound(nq * n * 4 + nq * kc * 8 + nq * 4, 0.0, "int8")
+    log(f"K6 time Q={nq} kc={kc} n={n}{what}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+        f"library {t['library_ms']:.4f} ms (torch.topk)  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    return t
+
+
+def tiletop_bound(ns: int, nq: int, width: int):
+    """Bound of K10: the sweep's packed bytes, scales and ids read once, the
+    queries once, the (Q, T * M) (score, row) pairs written once; 2 * D
+    int8 operations a row and query."""
+    return bound(ns * (DIM // 4 + 8) + nq * DIM + nq * width * 8, 2.0 * nq * ns * DIM, "int8")
+
+
 def check_tiletop(card: str, packed, s2, src, ns: int, allowed: dict, queries, kc: int = 4096,
-                  time_plain: bool = True) -> dict:
+                  time_plain: bool = True, replays: bool = False) -> dict:
     """K10 against its plain version, vals and rows bit for bit, at Q = 1
     and Q = 8 under both filters over the sweep prefix ``ns`` (the rows
-    carry 5% tombstones); then timed at Q = 1 beside its plain version and
-    its bound.  No single PyTorch call unpacks 2-bit crumbs: library_ms is
-    null, and K5 + K6 at the same shape stand beside it."""
+    carry 5% tombstones); then timed at Q = 1 and Q = 8 beside its plain
+    version and its bound.  No single PyTorch call unpacks 2-bit crumbs:
+    library_ms is null, and K5 + K6 at the same shape stand beside it.
+    With ``replays``, K10 at Q = 1 is replayed 40 times on one input, and
+    K6 over its buffer is held to its plain version, replayed and timed."""
     import torch
 
     from perceive_tpu_torch.ops import int2
@@ -825,20 +904,30 @@ def check_tiletop(card: str, packed, s2, src, ns: int, allowed: dict, queries, k
                 f"filter={fname:<4s} -inf places {fills}: vals and rows {'bit-exact ok' if same else 'FAIL'}")
             if not same:
                 raise SystemExit(f"K10 disagrees with its plain version (n={packed.shape[1]}, Q={nq}, {fname})")
-    qi8, qs = queries(1)
     al = allowed["all"]
-    width = int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc)[0].shape[1]
-    t = {"ms": cuda_ms(lambda: int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc)),
-         "plain_ms": (cuda_ms(lambda: int2.int2_tiletop_plain(packed, s2, src, qi8, qs, al, ns, kc=kc), reps=3)
-                      if time_plain else math.nan),
-         "library_ms": None}
-    # packed bytes, scales and ids of the sweep read once, the query once,
-    # the (Q, T * M) (score, row) pairs written once; 2 * D int8 operations
-    # a row
-    t["bound_ms"], t["bound_by"] = bound(ns * (DIM // 4 + 8) + DIM + width * 8, 2.0 * ns * DIM, "int8")
-    log(f"K10 time Q=1 kc={kc} n_sweep={ns} width={width}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
-        f"library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
-    return t
+    times = {}
+    for nq in (8, 1):
+        qi8, qs = queries(nq)
+        first = int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc)
+        width = first[0].shape[1]
+        t = {"ms": cuda_ms(lambda: int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc)),
+             "plain_ms": (cuda_ms(lambda: int2.int2_tiletop_plain(packed, s2, src, qi8, qs, al, ns, kc=kc), reps=3)
+                          if time_plain else math.nan),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = tiletop_bound(ns, nq, width)
+        times[nq] = t
+        log(f"K10 time Q={nq} kc={kc} n_sweep={ns} width={width}: kernel {t['ms']:.4f} ms  "
+            f"plain {t['plain_ms']:.4f} ms  library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    if replays:  # the Q = 1 input: the main path's shape
+        replay("K10", f"Q=1 kc={kc}", lambda: int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=kc), first)
+        tvals = first[0]
+        got, want = int2.select_topk(tvals, kc), int2.select_topk_plain(tvals, kc)
+        if not torch_equal(got, want):
+            raise SystemExit(f"K6 over K10's buffer disagrees with its plain version (width {width}, kc={kc})")
+        log(f"K6 over K10's buffer Q=1 width={width} kc={kc}: set, order and floor bit-exact ok")
+        replay("K6", f"K10's buffer kc={kc}", lambda: int2.select_topk(tvals, kc), got)
+        k6_times(card, tvals, kc, " (K10's buffer)")
+    return times[1]
 
 
 def check_tiletop_top(card: str, dev) -> None:
@@ -1103,8 +1192,10 @@ def ladders(card: str) -> None:
     shapes (K3 over the int8 slice's 2,064,384-row sweep, K7 over the int2
     slice's 3,809,280-row companion sweep, K9 flat over the int4 slice's
     4,194,304 rows and the tier's own 25,165,824) and each width on either
-    pass 1 (``crossover_times``); K3 at one query and K5 at 1 and 8 queries
-    over the int2 slice's sweep by device time too.  Uses only the
+    pass 1 (``crossover_times``); K3 at one query and K5, K10 and K6 (over
+    K5's scores at kc = 4,096, and at 1,024 and 16,384 at one query, and
+    over K10's buffer) at 1 and 8 queries over the int2 slice's sweep by
+    device time too.  Uses only the
     wrappers' public names, so a copy of this script times an older tree's
     package the same way: run it in each of two trees in turns to compare
     them on one card."""
@@ -1144,6 +1235,23 @@ def ladders(card: str) -> None:
         run = lambda: int2.int2_scores(packed, s2, src, qi8, qs, allowed, ns)  # noqa: E731
         log(f"K5 time Q={nq} n_sweep={ns}: kernel {cuda_ms(run):.4f} ms  device {device_ms(run):.4f} ms  "
             f"bound {int2_bound(ns, nq)[0]:.4f} ms  [{card}]")
+        # K6 over those scores, K10 over the same rows, and K6 over K10's buffer
+        sc = run()
+        for kc in ((4096, 1024, 16384) if nq == 1 else (4096,)):
+            run6 = lambda: int2.select_topk(sc, kc)  # noqa: E731
+            log(f"K6 time Q={nq} kc={kc} n={ns}: events {cuda_ms(run6):.4f} ms  device {device_ms(run6):.4f} ms  "
+                f"torch.topk {cuda_ms(lambda: torch.topk(sc, kc)):.4f} ms  "
+                f"bound {bound(nq * ns * 4 + nq * kc * 8 + nq * 4, 0.0, 'int8')[0]:.4f} ms  [{card}]")
+            log(f"K6 device time by kernel Q={nq} kc={kc} n={ns} (ms): {device_split(run6)}")
+        run10 = lambda: int2.int2_tiletop(packed, s2, src, qi8, qs, allowed, ns, kc=4096)  # noqa: E731
+        tvals = run10()[0]
+        log(f"K10 time Q={nq} kc=4096 n_sweep={ns}: events {cuda_ms(run10):.4f} ms  device {device_ms(run10):.4f} ms  "
+            f"bound {tiletop_bound(ns, nq, tvals.shape[1])[0]:.4f} ms  [{card}]")
+        run6 = lambda: int2.select_topk(tvals, 4096)  # noqa: E731
+        log(f"K6 time Q={nq} kc=4096 n={tvals.shape[1]} (K10's buffer): events {cuda_ms(run6):.4f} ms  "
+            f"device {device_ms(run6):.4f} ms  [{card}]")
+        log(f"K6 device time by kernel Q={nq} kc=4096 n={tvals.shape[1]} (ms): {device_split(run6)}")
+        del sc, tvals
     del packed, s2
     qi8, qs = queries(1)
     library = int8_yardstick(fine[:, :ns], s8[:ns], src[:ns] >= 0, cols=True)

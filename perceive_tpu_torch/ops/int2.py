@@ -286,12 +286,15 @@ def int2_tiletop(packed, scales, source_ids, qi8, qscale, allowed, n_sweep: int 
     M / 128 of each bin (M from ``_tiletop_depth(kc)`` unless ``m_top``
     pins it), by (score, lower row first), then (-inf, the bin's first row)
     once its finite scores run out -> ((Q, T * M) f32, (Q, T * M) int32
-    global rows), bin l of tile t's j-th entry at t * M + j * 128 + l."""
+    global rows), bin l of tile t's j-th entry at t * M + j * 128 + l.  On
+    the card N must be a multiple of 16, as for ``int2_scores``."""
     global LAUNCHES_TILETOP
     _check_int2(packed, scales, source_ids, qi8, qscale, allowed)
     if _device_of(packed, "int2_tiletop") == "cpu":
         return int2_tiletop_plain(packed, scales, source_ids, qi8, qscale, allowed, n_sweep, kc, m_top)
     _check_on_card("int2_tiletop", packed, scales, source_ids, qi8, qscale, allowed)
+    if packed.shape[1] % 16:
+        raise ValueError(f"int2_tiletop: N must be a multiple of 16, got {packed.shape[1]}")
     dev = packed.device
     nq, d = qi8.shape
     n = _sweep_n(packed.shape[1], n_sweep)

@@ -12,8 +12,9 @@ Tolerances: bf16/f32 scan scores 1e-4 (f32 sums in another order); the int8
 scans (K3, K4, and K7, K8 over the transposed companion), the packed-int4
 scans (K9, flat and slab) and the int2 coarse scores (K5) none: scores and
 rows equal the plain version's bit for bit; the exact select (K6) returns the plain version's set, order and floor
-exactly; the tiletop scores (K10) equal theirs bit for bit, vals and rows, and so do the tiletop, window
-and threshold pipelines; attention 1e-2 in bf16 against the f32 math on the same bf16
+exactly (``test_select_topk_matches_plain``: every route of its design, each case twice); the tiletop scores
+(K10) equal theirs bit for bit, vals and rows (``test_int2_tiletop_bit_exact``: every tile size, M and query
+tile, each case twice), and so do the tiletop, window and threshold pipelines; attention 1e-2 in bf16 against the f32 math on the same bf16
 inputs, 1e-5 in f32.  The redesigned kernels have cases of their own: K2
 (``test_scan_slab_bf16_*``: every sweep width and depth, scores that ascend
 along the sweep, all-equal scores, a filter that keeps ~1% of the rows, a
@@ -402,25 +403,89 @@ def test_int2_scores_refuses_unaligned_columns(dev):
         int2.int2_scores(packed, s2, src, qi8, qscale, _allowed(dev))
 
 
-@pytest.mark.parametrize("case", ["random", "dense_ties", "all_masked", "kc_is_n", "prefix"])
-@pytest.mark.parametrize("kc", [512, 1024, 4096])
-def test_select_topk_matches_plain(dev, case, kc):
-    nq, n = 3, 65536
-    packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, n, nq, kc, dup=case == "dense_ties")
-    allowed = _allowed(dev, [7] if case == "all_masked" else None)
-    n_sweep = 40000 if case == "prefix" else 0
-    scores = int2.int2_scores_plain(packed, s2, src, qi8, qscale, allowed, n_sweep)
-    if case == "kc_is_n":
-        scores, kc = scores[:, :kc].contiguous(), kc
+def _select_rows(dev, case, nq, n, seed):
+    """(nq, n) scores for K6's routes: coarse-like (near 0, 5% masked),
+    few finite (1,000 a row, the rest -inf: the kc-th key's bin of one value
+    overflows the region past 65,536 -inf entries), all masked, 64 values
+    all in one bin (a bin of several values that overflows), every score 8
+    times over, or -0.0 beside +0.0 below 200 entries of 1.0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((nq, n), generator=g, device=dev) * 0.05
+    x[torch.rand((nq, n), generator=g, device=dev) < 0.05] = float("-inf")
+    if case == "few_finite":
+        keep = torch.rand((nq, n), generator=g, device=dev) < 1000 / n
+        x = torch.where(keep, torch.randn((nq, n), generator=g, device=dev), float("-inf"))
+    elif case == "all_masked":
+        x.fill_(float("-inf"))
+    elif case == "one_bin":
+        x = 1.0 + (torch.arange(n, device=dev) % 64).float()[None].repeat(nq, 1) * 2.0**-20
+    elif case == "dense_ties":
+        x = x[:, : max(1, n // 8)].repeat(1, 8)[:, :n].contiguous()
+    elif case == "signed_zeros":
+        x = torch.where(torch.rand((nq, n), generator=g, device=dev) < 0.5, -0.0, 0.0)
+        x[:, torch.randperm(n, generator=g, device=dev)[:200]] = 1.0
+    return x.contiguous()
+
+
+# K6's routes: one round of 16,384 scores or many, K10's buffer (79,360);
+# rows misaligned to 16 bytes (n % 4 != 0, Q > 1); kc from 1 to n; the
+# region's overflows (one value in the kc-th key's bin, several values,
+# the entries above its bin past the region at kc = n); the finish's
+# counts past shared memory (more than 4,096 rounds)
+SELECT_CASES = [
+    ("random", 1, 4096, 1), ("random", 8, 4096, 4096), ("random", 33, 4099, 100),
+    ("random", 1, 79360, 4096), ("random", 3, 131072, 16384), ("random", 2, 131073, 4096),
+    ("random", 1, 3809280, 4096), ("random", 8, 3809280, 4096), ("random", 1, 3809280, 16384),
+    ("random", 1, 3809280, 1), ("random", 33, 1000003, 1024), ("random", 2, 1048576, 1048576),
+    ("few_finite", 1, 1048576, 4096), ("few_finite", 8, 100000, 4096), ("all_masked", 8, 1048576, 4096),
+    ("all_masked", 1, 79360, 4096), ("one_bin", 1, 1048576, 4096), ("one_bin", 2, 1048576, 16384),
+    ("dense_ties", 1, 3809280, 16384), ("dense_ties", 33, 65536, 4096), ("signed_zeros", 2, 300001, 5000),
+    ("signed_zeros", 1, 4096, 300),
+    ("random", 1, 67_200_000, 4096),  # past 4,096 rounds: the finish's counts in the workspace
+]
+
+
+@pytest.mark.parametrize("case,nq,n,kc", SELECT_CASES + [(c, 3, 65536, kc) for c in
+                         ("int2_random", "int2_dense_ties", "int2_all_masked", "int2_kc_is_n", "int2_prefix")
+                         for kc in (512, 1024, 4096)])
+def test_select_topk_matches_plain(dev, case, nq, n, kc):
+    """K6 against its plain version (set, row order, floor) on every route,
+    twice back to back with the same answer."""
+    if case.startswith("int2_"):  # K5's plain scores of a random int2 matrix
+        packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, n, nq, kc, dup=case == "int2_dense_ties")
+        allowed = _allowed(dev, [7] if case == "int2_all_masked" else None)
+        scores = int2.int2_scores_plain(packed, s2, src, qi8, qscale, allowed, 40000 if case == "int2_prefix" else 0)
+        if case == "int2_kc_is_n":
+            scores = scores[:, :kc].contiguous()
+    else:
+        scores = _select_rows(dev, case, nq, n, kc + nq)
     before = int2.LAUNCHES_SELECT
-    vk, rk, fk = int2.select_topk(scores, kc)
+    first = int2.select_topk(scores, kc)
+    second = int2.select_topk(scores, kc)
     vp, rp, fp = int2.select_topk_plain(scores, kc)
     torch.cuda.synchronize()
-    assert int2.LAUNCHES_SELECT == before + 1
-    assert torch.equal(rk, rp) and torch.equal(vk, vp) and torch.equal(fk, fp)
-    assert bool((rk[:, 1:] > rk[:, :-1]).all())  # ordered by row
-    if case == "dense_ties":
-        assert int(torch.isfinite(vk).sum()) and bool((vk == fk[:, None]).sum(dim=1).gt(1).any())
+    assert int2.LAUNCHES_SELECT == before + 2
+    for vk, rk, fk in (first, second):
+        assert torch.equal(rk, rp) and torch.equal(vk, vp) and torch.equal(fk, fp)
+        assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))  # -0.0 stays -0.0
+        assert bool((rk[:, 1:] > rk[:, :-1]).all())  # ordered by row
+    if case in ("int2_dense_ties", "dense_ties"):
+        assert bool((first[0] == first[2][:, None]).sum(dim=1).gt(1).any())
+
+
+def test_select_topk_workspace_matches_its_plan(dev):
+    """K6's workspace: per query, pass 1's histogram and tickets, the state,
+    pass 2's histogram, the round table, the finish's counts past 4,096
+    rounds and a region of min(n, 65,536) entries
+    (tests/test_torch_select.py's plan)."""
+    from perceive_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for nq, n in ((1, 4096), (1, 79360), (1, 3809280), (8, 3809280), (33, 1000003), (2, 67_200_000)):
+        rounds = ((n + 6) // 4 + 4095) // 4096  # rounds of 16,384 scores
+        counts = rounds * 6 if rounds > 4096 else 0  # the finish's per-round counts past shared memory
+        want = nq * ((4096 + 4) * 4 + 32 + 2048 * 4 + rounds * 16 + (counts + 3) // 4 * 16 + min(n, 65536) * 8)
+        assert lib.perceive_select_topk_workspace(nq, n) == want
 
 
 # K7's and K9 flat's widths: every CUDA-core tile (1, 2, 8, 16), both sides
@@ -563,20 +628,40 @@ def test_int2_pipeline_int4_companion_matches_plain(dev, nq, k, kc):
     (8, 40960, 0, [0, 2], 1024, 0, "random"),  # 5 tiles of 8,192
     (3, 36864, 0, None, 0, 384, "ties"),  # equal scores in a bin
     (512, 16384, 0, None, 0, 128, "random"),  # 4,096-row tiles at Q = 512
+    (9, 20480, 0, [0, 1], 0, 256, "dead_bins"),  # 4,096-row tiles; a second query tile of one query
+    (1, 10240, 0, None, 0, 384, "ties"),  # 2,048-row tiles: one part of 16 sublanes
+    (2, 3072, 0, [2], 0, 128, "random"),  # 1,024-row tiles
+    (8, 3584, 0, None, 0, 512, "random"),  # 512-row tiles
+    (8, 49152, 24576, [0, 2], 0, 384, "ties"),  # 12,288 at Q = 8: 8 parts of 12 sublanes, a part's last pass of 4
+    (1, 4194304, 3809280, None, 4096, 0, "random"),  # the main path's shape: 310 tiles, M = 256
+    (8, 4194304, 3809280, [1], 4096, 0, "dead_bins"),
 ])
 def test_int2_tiletop_bit_exact(dev, nq, n, n_sweep, filt, kc, m_top, case):
+    """K10 against its plain version, vals and rows bit for bit, at every
+    tile size (512 to 12,288 rows), M 128 to 512, 1 to 512 queries, twice
+    back to back with the same answer."""
     packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, n, nq, nq + n, dup=case == "ties")
     if case == "dead_bins":  # lanes 0-4 hold only source 2, which the filter drops
         src[torch.arange(n, device=dev) % 128 < 5] = 2
     allowed = _allowed(dev, filt)
     before = int2.LAUNCHES_TILETOP
-    vk, rk = int2.int2_tiletop(packed, s2, src, qi8, qscale, allowed, n_sweep, kc=kc, m_top=m_top)
+    first = int2.int2_tiletop(packed, s2, src, qi8, qscale, allowed, n_sweep, kc=kc, m_top=m_top)
+    second = int2.int2_tiletop(packed, s2, src, qi8, qscale, allowed, n_sweep, kc=kc, m_top=m_top)
     vp, rp = int2.int2_tiletop_plain(packed, s2, src, qi8, qscale, allowed, n_sweep, kc=kc, m_top=m_top)
     torch.cuda.synchronize()
-    assert int2.LAUNCHES_TILETOP == before + 1
-    assert torch.equal(vk, vp) and torch.equal(rk, rp)
+    assert int2.LAUNCHES_TILETOP == before + 2
+    for vk, rk in (first, second):
+        assert torch.equal(vk, vp) and torch.equal(rk, rp)
     if case == "dead_bins":
-        assert bool(torch.isneginf(vk).any())
+        assert bool(torch.isneginf(first[0]).any())
+
+
+def test_int2_tiletop_refuses_unaligned_columns(dev):
+    """K10 reads 16 columns of a plane-row at once, as K5 does: a column
+    count that is not a multiple of 16 raises instead of launching."""
+    packed, s2, _, _, src, qi8, qscale = _int2_inputs(dev, 4100, 1, 3)
+    with pytest.raises(ValueError):
+        int2.int2_tiletop(packed, s2, src, qi8, qscale, _allowed(dev), 4096, m_top=128)
 
 
 @pytest.mark.parametrize("select", ["tiletop", "window", "threshold"])
