@@ -24,12 +24,17 @@ Phases (any failure exits non-zero before the final line):
      either pass 1, and replayed 40 times on one input; the library call of
      K4 at 2,048 queries (a 17 GB int32 product) timed alone;
   5. K11 (attention) against its plain version at every encoder bucket
-     (timed beside the short-bucket route) and on masks with whole padded
-     key tiles and one kept key;
-  6. the bf16 slice: an all-MiniLM-L6-v2-width model with seeded random
-     weights embeds a generated corpus into SQLite (filled to 1M rows),
-     AppState builds the searcher on the card, and 16 queries run through
-     the CLI;
+     (timed beside the short-bucket route), at the ingest path's batch of
+     1,024 windows at 512 tokens, and on masks with whole padded key tiles
+     and one kept key;
+  6. the bf16 slice: 2,048 generated documents written as files (beside a
+     hidden, a gitignored and an empty one) are ingested through the CLI's
+     ``source add fs`` and ``source scan`` with an all-MiniLM-L6-v2-width
+     model (seeded random weights) on the card, gated on exact item,
+     embedding-row and matrix-row counts, K11 launched during the scan and
+     the stored vectors against a direct encode; SQLite is filled to 1M
+     rows, AppState builds the searcher on the card, and 16 queries run
+     through the CLI;
   7. the bf16 batch path: 1,024 vector queries from 16 threads through a
      BatchingSearchExecutor, then search_vectors_batch on 2,048 queries
      (half near a stored window, half random) and on 2,048 random ones;
@@ -55,10 +60,14 @@ Phases (any failure exits non-zero before the final line):
      timed at 1 and 8 queries;
  12. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
      AppState whose auto rule picks the int2 tier (coarse pass + int8
-     companion), its self-audit's verdict, the same 16 queries through the
-     CLI, the composed device pipeline held against the composed plain one
-     for every query, hits against an exact f32 top-10
-     (``served_recall_at_10``), the fine phase's gather and dot timed;
+     companion), its self-audit's verdict by stratum (the filler samples
+     must pass the audit's gates; the docs source's one sample, which the
+     ingest order places, is logged beside every document window's
+     overlap), the same 16 queries through the CLI on the audited route
+     and, where the audit demotes, with the audit off (K5, K6, K7), the
+     composed device pipeline held against the composed plain one for every
+     query, hits against an exact f32 top-10 (``served_recall_at_10``), the
+     fine phase's gather and dot timed;
  13. the int2 batch path, as phase 7;
  14. the int2 slice's state with its coarse select pinned to tiletop (K10),
      window and threshold in turn: 16 CLI queries each, the device pipeline
@@ -83,8 +92,9 @@ Phases (any failure exits non-zero before the final line):
  17. the int4 batch path, as phase 13 (slab K9);
  18. the int2 tier with the int4 companion: that state retiered to int2
      under PERCEIVE_TPU_INT2_FINE=int4, its self-audit's verdict (redrawn
-     sample by sample, then a second audit on the audit's next seeded
-     sample), the 16 CLI queries (K5, K6 and flat K9), the composed device pipeline held against
+     sample by sample and by stratum, as in phase 12, then a second audit on
+     the audit's next seeded sample), the 16 CLI queries (K5, K6 and flat
+     K9), the composed device pipeline held against
      the plain one for every query, ``served_recall_at_10``, and one batch
      of each mix.
 Each kernel is timed beside its plain version, one PyTorch call for the same
@@ -283,6 +293,17 @@ def environment():
     log(card)  # name, power limit: as nvidia-smi prints them
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  python {sys.version.split()[0]}")
     return card
+
+
+def build_walker(card: str) -> None:
+    """The fs connector's native walker (g++ into perceive_tpu_torch/_build/),
+    built here so that the ingest scan times the walk and not the build."""
+    from perceive_tpu_torch.native import fastwalk_available
+
+    t0 = time.perf_counter()
+    built = fastwalk_available()
+    log(f"fs walker build+load {time.perf_counter() - t0:.2f} s: "
+        f"{'native' if built else 'unavailable, the Python walk serves'}  [{card}]")
 
 
 def build_kernels(card: str) -> None:
@@ -1283,10 +1304,26 @@ def check_k11(card: str) -> dict:
     """K11 (bf16 tensor-core path) against its plain version at 1e-2 on
     every timed shape and on masks with whole padded key tiles and one kept
     key; timed beside its plain version, SDPA and, at every encoder bucket,
-    the short-bucket route (``xla_attention_plain``)."""
+    the short-bucket route (``xla_attention_plain``).  The last shape is the
+    ingest path's: a batch of EMBED_BATCH_SIZE windows at the 512 bucket
+    (the plain versions run it 64 rows of the batch at a time, which
+    computes the same function in a sixteenth of the memory), logged on its
+    own line; the kernels record keeps (64, 512, 12, 32), as every earlier
+    run recorded it."""
     import torch
 
     from perceive_tpu_torch.ops import attention as attn
+    from perceive_tpu_torch.sources.pipeline import EMBED_BATCH_SIZE
+
+    def by_64(fn):
+        def run(q, k, v, mask):
+            if len(q) <= 64:
+                return fn(q, k, v, mask)
+            return torch.cat([fn(q[i : i + 64], k[i : i + 64], v[i : i + 64], mask[i : i + 64])
+                              for i in range(0, len(q), 64)])
+        return run
+
+    plain, short_route = by_64(attn.attention_plain), by_64(attn.xla_attention_plain)
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1303,7 +1340,7 @@ def check_k11(card: str) -> dict:
 
     def held(name, q, k, v, mask):
         got = attn.attention(q, k, v, mask)
-        want = attn.attention_plain(q.float(), k.float(), v.float(), mask)
+        want = plain(q.float(), k.float(), v.float(), mask)
         torch.cuda.synchronize()
         err = float((got.float() - want).abs().max())
         status = "ok" if err <= 1e-2 else "FAIL"
@@ -1312,7 +1349,8 @@ def check_k11(card: str) -> dict:
             raise SystemExit(f"K11 disagrees with its plain version at {name}")
         return err
 
-    shapes = [(64, s, 12, 32) for s in K11_BUCKETS] + [(8, 512, 12, 64)]
+    ingest = (EMBED_BATCH_SIZE, 512, 12, 32)
+    shapes = [(64, s, 12, 32) for s in K11_BUCKETS] + [(8, 512, 12, 64), ingest]
     for b, s, nh, dh in shapes:
         q, k, v, mask = inputs(b, s, nh, dh)
         worst = max(worst, held(f"B={b} S={s} NH={nh} DH={dh}", q, k, v, mask))
@@ -1329,9 +1367,9 @@ def check_k11(card: str) -> dict:
         add = ((1.0 - mask.to(torch.bfloat16)) * -1e9).to(torch.bfloat16)[:, None, None, :]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         t = {"ms": cuda_ms(lambda: attn.attention(q, k, v, mask)),
-             "plain_ms": cuda_ms(lambda: attn.attention_plain(q, k, v, mask)),
+             "plain_ms": cuda_ms(lambda: plain(q, k, v, mask)),
              "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=add)),
-             "short_route_ms": cuda_ms(lambda: attn.xla_attention_plain(q, k, v, mask))}
+             "short_route_ms": cuda_ms(lambda: short_route(q, k, v, mask))}
         # q and the mask read and the output written once, the K and V rows
         # of kept keys read once; q.k and p.v at 2 ops a product and one
         # exponential for each (query, kept key) pair: masked keys add
@@ -1394,27 +1432,6 @@ def make_docs(rng, vocab: list[str]) -> list[str]:
     return docs
 
 
-def token_windows(tokenizer, texts, chunk_tokens: int, overlap: int):
-    """The ingest pipeline's default chunking (perceive_tpu/sources/
-    pipeline.py chunk_token_windows_batch): windows of the wrap budget with
-    an eighth of it overlapping."""
-    step = max(chunk_tokens - overlap, 1)
-    out = []
-    for enc in tokenizer.encode_untruncated(texts, fast=True):
-        ids = [t for t, sp in zip(enc.ids, enc.special_tokens_mask) if not sp]
-        if len(ids) <= chunk_tokens:
-            out.append([ids])
-            continue
-        wins, start = [], 0
-        while start < len(ids):
-            wins.append(ids[start : start + chunk_tokens])
-            if start + chunk_tokens >= len(ids):
-                break
-            start += step
-        out.append(wins)
-    return out
-
-
 def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, text: str, mid: int, ver: int):
     """``n`` seeded unit-vector rows under ids first_id.. with one embedding
     each, through the columns the ingest pipeline writes; the vectors come
@@ -1440,15 +1457,147 @@ def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, te
             )
 
 
+def write_docs(docs_dir: str, docs: list[str]) -> None:
+    """The documents as files doc{d}.txt, beside three that the walker must
+    not ingest: a hidden file, a file under a directory named in a
+    .gitignore, and an empty file."""
+    os.makedirs(os.path.join(docs_dir, "skipped"))
+    for d, text in enumerate(docs):
+        with open(os.path.join(docs_dir, f"doc{d}.txt"), "w") as f:
+            f.write(text)
+    for name, text in ((".hidden.txt", docs[0]), (".gitignore", "skipped/\n"),
+                       ("skipped/doc.txt", docs[1]), ("empty.txt", "")):
+        with open(os.path.join(docs_dir, name), "w") as f:
+            f.write(text)
+
+
+# stored vs direct encode (bf16 encoder; a window rides other buckets in the
+# two).  On the H100 the sound runs read 4.98e-4 and the planted fault below
+# 9.54e-3 at its worst window: the tolerance sits between them, about 4x
+# from each, and the run fails if the fault does not exceed it
+INGEST_TOL = 2e-3
+FAULT_SHIFT = 2  # the planted fault: each window after the first starts this many tokens late
+
+
+def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
+    """Phase 6's ingest through the port's CLI: ``source add fs`` and
+    ``source scan`` on a fresh database, with an AppState whose searcher
+    takes the pipeline's hooks.  Gated on exact counts (2,048 items, one
+    embedding row and one matrix row per window of the port's chunker: a
+    failed embed batch writes its items without their rows), K11 launched
+    during the scan, and the stored vectors against a direct encode of the
+    same windows, matched by (document, window)."""
+    import importlib.util
+
+    import torch
+
+    from perceive_tpu_torch.cli import AppState
+    from perceive_tpu_torch.cli import main as cli_main
+    from perceive_tpu_torch.native import fastwalk_available
+    from perceive_tpu_torch.ops import attention as attn
+    from perceive_tpu_torch.sources import chunk_config, chunk_token_windows_batch
+
+    docs_dir = os.path.join(workdir, "docs")
+    write_docs(docs_dir, docs)
+    db_path = os.path.join(workdir, "smoke.sqlite3")
+    state = AppState(db_path, model=model, highlights_model=model, device=dev)
+
+    def cli(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["--db", db_path, *argv], state=state)
+        for line in out.getvalue().splitlines():
+            log(f"  cli: {line}")
+        if rc != 0:
+            raise SystemExit(f"{' '.join(argv[:2])} exited {rc}")
+        return out.getvalue()
+
+    cli("source", "add", "fs", docs_dir, "--name", "docs")
+    src = state.source_by_name("docs")
+    attn.LAUNCHES = 0  # the ingest path's count: this scan alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cli("source", "scan", "docs")
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    launches = attn.LAUNCHES
+
+    conn = state.db.read()
+    items = dict(conn.execute("SELECT external_id, id FROM items WHERE source_id = ?", (src.id,)).fetchall())
+    index = {os.path.join(docs_dir, f"doc{d}.txt"): d for d in range(len(docs))}
+    doc_ids = [items.get(ext) for ext in index]
+    wins = chunk_token_windows_batch(model.tokenizer, docs, *chunk_config(src, model.tokenizer))
+    n_win = sum(len(w) for w in wins)
+    rows = conn.execute(
+        """SELECT i.external_id, e.chunk_idx, e.embedding FROM item_embeddings e
+           JOIN items i ON i.id = e.item_id WHERE i.source_id = ?""", (src.id,)).fetchall()
+    n_matrix = len(state.searcher.matrix)
+    log(f"ingest: {len(items)} items, {len(rows)} embedding rows, {n_matrix} matrix rows; "
+        f"{n_win} windows from the port's chunker; K11 launches during the scan: {launches}")
+    if len(items) != len(docs) or None in doc_ids:
+        raise SystemExit(f"the scan wrote {len(items)} items; want exactly the {len(docs)} documents")
+    if len(rows) != n_win:
+        raise SystemExit(f"the scan wrote {len(rows)} embedding rows; want {n_win} (a failed embed batch?)")
+    if n_matrix != n_win:
+        raise SystemExit(f"the searcher's hooks put {n_matrix} rows in the matrix; want {n_win}")
+    if launches == 0:
+        raise SystemExit("the ingest scan launched no attention kernel")
+
+    # the stored vectors against a direct encode of the same windows
+    stored = {(index[ext], c): np.frombuffer(b, dtype="<f4") for ext, c, b in rows}
+    flat = [(d, c, w) for d, ws in enumerate(wins) for c, w in enumerate(ws)]
+    embs = np.concatenate([
+        model.materialize(model.encode_dispatch_token_windows([w for _, _, w in flat[s : s + ENCODE_BATCH]]))
+        for s in range(0, len(flat), ENCODE_BATCH)
+    ])
+    stored_embs = np.stack([stored[(d, c)] for d, c, _ in flat])
+    err = float(np.abs(stored_embs - embs).max())
+    cos = float((stored_embs * embs).sum(axis=1).min())
+    log(f"ingest: stored vectors vs a direct encode of the same windows: max_abs_err {err:.3g} "
+        f"(tol {INGEST_TOL}), min cosine {cos:.6f}")
+    if not err <= INGEST_TOL:
+        raise SystemExit("the stored vectors disagree with a direct encode of their windows")
+    # the gate's power: a chunker whose overlap is FAULT_SHIFT tokens short
+    # starts every window after a document's first that many tokens late
+    ct, co = chunk_config(src, model.tokenizer)
+    late = chunk_token_windows_batch(model.tokenizer, docs, ct, co - FAULT_SHIFT)
+    moved = [(d, c, w) for d, ws in enumerate(late) for c, w in enumerate(ws) if 0 < c < len(wins[d])]
+    fault = np.concatenate([
+        model.materialize(model.encode_dispatch_token_windows([w for _, _, w in moved[s : s + ENCODE_BATCH]]))
+        for s in range(0, len(moved), ENCODE_BATCH)
+    ])
+    at = {(d, c): i for i, (d, c, _) in enumerate(flat)}
+    fault_err = np.abs(fault - embs[[at[(d, c)] for d, c, _ in moved]]).max(axis=1)
+    log(f"ingest: planted fault (windows after a document's first start {FAULT_SHIFT} tokens late): "
+        f"{len(moved)} windows, max_abs_err against the direct encode max {fault_err.max():.3g}, "
+        f"median {np.median(fault_err):.3g}, min {fault_err.min():.3g} (tol {INGEST_TOL})")
+    if not fault_err.max() > INGEST_TOL:
+        raise SystemExit("the stored-vector tolerance would pass the planted chunker fault")
+
+    n_tokens = sum(len(w) + 2 for _, _, w in flat)
+    summary = [line for line in out.splitlines() if line.startswith("Finished in")]
+    log(f"ingest (source scan through the CLI: walk, read, tokenize, encode, SQLite, matrix hooks): "
+        f"{len(docs)} docs ({n_win} windows, {n_tokens} tokens) in {t_scan:.3f} s = "
+        f"{len(docs) / t_scan:.1f} docs/s end to end, not comparable with the encode-only loop of "
+        f"earlier runs; {summary[0] if summary else 'no summary line'}  [{card}]")
+    log(f"ingest host: native walker {'used' if fastwalk_available() else 'unavailable (Python walk)'}; "
+        "importable: " + ", ".join(f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+                                   for m in ("yaml", "zstandard", "lxml", "requests")))
+    next_id, next_seq = conn.execute(
+        "SELECT (SELECT MAX(id) FROM items), (SELECT MAX(seq) FROM item_embeddings)").fetchone()
+    state.close()
+    return {"db_path": db_path, "doc_ids": doc_ids, "doc_windows": [len(w) for w in wins],
+            "embs": stored_embs, "launches": launches, "next_id": next_id + 1, "next_seq": next_seq + 1,
+            "windows": n_win}
+
+
 def build_corpus(card: str, workdir: str, dev) -> dict:
-    """Phase 6's ingest: the model, the documents, their windows encoded on
-    the card, and the SQLite database filled to TOTAL_ROWS rows."""
+    """Phase 6's corpus: the model, the documents ingested through the CLI
+    (``ingest``), and the SQLite database filled to TOTAL_ROWS rows."""
     import torch
 
     from perceive_tpu_torch.db import Database, add_source
-    from perceive_tpu_torch.index.matrix import serialize_embedding
     from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, ModelType, TextTokenizer
-    from perceive_tpu_torch.ops import attention as attn
     from perceive_tpu_torch.types import Source
 
     rng = np.random.default_rng(11)
@@ -1461,52 +1610,21 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
                          device=dev, compute_dtype=torch.bfloat16)
     model.model_id = ModelType.ALL_MINILM_L6_V2.model_id
     docs = make_docs(rng, vocab_list)
+    ing = ingest(card, workdir, dev, model, docs)
+    embs = ing["embs"]
 
-    # ingest encode: tokenize, window, encode on the card
+    # SQLite filled to TOTAL_ROWS through the columns the ingest pipeline writes
     t0 = time.perf_counter()
-    wins = token_windows(tok, docs, tok.wrap_budget, tok.wrap_budget // 8)
-    flat = [(d, c, w) for d, ws in enumerate(wins) for c, w in enumerate(ws)]
-    embs = []
-    for s in range(0, len(flat), ENCODE_BATCH):
-        batch = [w for _, _, w in flat[s : s + ENCODE_BATCH]]
-        embs.append(model.materialize(model.encode_dispatch_token_windows(batch)))
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t0
-    embs = np.concatenate(embs)
-    n_tokens = sum(len(w) + 2 for _, _, w in flat)
-    log(f"ingest encode: {N_DOCS} docs ({len(flat)} windows, {n_tokens} tokens) in {t_enc:.3f} s = "
-        f"{N_DOCS / t_enc:.1f} docs/s  [{card}]")
-    if attn.LAUNCHES == 0:
-        raise SystemExit("ingest encode launched no attention kernel")
-    log(f"attention kernel launches during ingest: {attn.LAUNCHES}")
-
-    # SQLite, through the columns the ingest pipeline writes
-    t0 = time.perf_counter()
-    db_path = os.path.join(workdir, "smoke.sqlite3")
-    db = Database(db_path)
-    src_docs = add_source(db, Source(name="docs", config={"type": "fs"}, location="generated:docs"))
+    db = Database(ing["db_path"])
     src_fill = add_source(db, Source(name="filler", config={"type": "fs"}, location="generated:filler"))
     mid, ver = model.model_id, model.model_version
-    with db.write() as conn:
-        for d, text in enumerate(docs):
-            conn.execute(
-                """INSERT INTO items (id, source_id, external_id, version, hash, content,
-                     process_version, name, modified) VALUES (?,?,?,?,?,?,?,?,?)""",
-                (d + 1, src_docs.id, f"doc{d}.txt", 1, "", text, 0, f"doc {d}", 1_700_000_000 + d),
-            )
-        conn.executemany(
-            """INSERT INTO item_embeddings (item_id, chunk_idx, item_index_version, embedding,
-                 model_id, model_version, seq) VALUES (?,?,?,?,?,?,?)""",
-            [(d + 1, c, 1, serialize_embedding(e), mid, ver, s + 1)
-             for s, ((d, c, _), e) in enumerate(zip(flat, embs))],
-        )
-    n_fill = TOTAL_ROWS - len(flat)
+    n_fill = TOTAL_ROWS - ing["windows"]
     filler_text = " ".join(vocab_list[300:316])
     gen = torch.Generator(device=dev).manual_seed(12)
-    write_filler(db, src_fill.id, N_DOCS + 1, len(flat) + 1, n_fill, gen, filler_text, mid, ver)
+    write_filler(db, src_fill.id, ing["next_id"], ing["next_seq"], n_fill, gen, filler_text, mid, ver)
     db.close()
-    log(f"sqlite corpus: {len(flat)} document rows + {n_fill} filler rows = {TOTAL_ROWS} rows "
-        f"written in {time.perf_counter() - t0:.1f} s")
+    log(f"sqlite corpus: {ing['windows']} document rows + {n_fill} filler rows = {TOTAL_ROWS} rows "
+        f"(filler written in {time.perf_counter() - t0:.1f} s)")
 
     # 16 text queries: 8 documents' own texts, 8 random word lists
     self_docs = [N_LONG + i * ((N_DOCS - N_LONG) // N_SELF_QUERIES) for i in range(N_SELF_QUERIES)]
@@ -1522,10 +1640,12 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
     vecs = (vecs / np.linalg.norm(vecs, axis=1, keepdims=True))[rng.permutation(N_BATCH)]
     vecs_random = rng.standard_normal((N_BATCH, DIM)).astype(np.float32)
     vecs_random /= np.linalg.norm(vecs_random, axis=1, keepdims=True)
-    return {"model": model, "tok": tok, "docs": docs, "db_path": db_path, "gen": gen,
-            "fill_source": src_fill.id, "next_id": N_DOCS + 1 + n_fill, "next_seq": len(flat) + n_fill + 1,
-            "filler_text": filler_text, "self_docs": self_docs, "queries": queries, "vecs": vecs,
-            "vecs_random": vecs_random}
+    return {"model": model, "tok": tok, "docs": docs, "doc_ids": ing["doc_ids"],
+            "doc_windows": ing["doc_windows"], "db_path": ing["db_path"],
+            "gen": gen, "fill_source": src_fill.id, "first_fill_id": ing["next_id"],
+            "next_id": ing["next_id"] + n_fill, "next_seq": ing["next_seq"] + n_fill,
+            "attention_launches": ing["launches"], "filler_text": filler_text, "self_docs": self_docs,
+            "queries": queries, "vecs": vecs, "vecs_random": vecs_random}
 
 
 def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str, gate_self: bool = True):
@@ -1557,15 +1677,16 @@ def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str, gate_self: 
             raise SystemExit(f"a {tier} query launched no {kernel} kernel")
         results.append(res)
 
-    contents = {d + 1: t for d, t in enumerate(docs)}
+    doc_ids = ctx["doc_ids"]
+    contents = {doc_ids[d]: t for d, t in enumerate(docs)}
     for qi, res in enumerate(results):
         if not res:
             raise SystemExit(f"query {qi} returned no results")
         for r in res:
-            text = contents.get(r["id"], ctx["filler_text"] if r["id"] > N_DOCS else None)
+            text = contents.get(r["id"], ctx["filler_text"] if r["id"] >= ctx["first_fill_id"] else None)
             if text is None or not r["snippet"] or r["snippet"] not in text:
                 raise SystemExit(f"query {qi}: snippet of item {r['id']} is not from its document")
-    firsts = sum(results[i][0]["id"] == self_docs[i] + 1 for i in range(N_SELF_QUERIES))
+    firsts = sum(results[i][0]["id"] == doc_ids[self_docs[i]] for i in range(N_SELF_QUERIES))
     log(f"{tier} queries answered: {sum(bool(r) for r in results)}/16; self-queries ranked first: "
         f"{firsts}/{N_SELF_QUERIES}")
     if firsts != N_SELF_QUERIES and gate_self:
@@ -1813,11 +1934,34 @@ def int8_slice(card: str, ctx: dict, dev) -> tuple:
     return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations}
 
 
+def audit_routes(searcher):
+    """The routes a CLI phase of the int2 tier runs: the audited one and,
+    where the self-audit demoted the coarse pass, the same again with the
+    audit disabled by its documented switch (PERCEIVE_TPU_COARSE_AUDIT=0,
+    which trusts the coarse pass), so that the coarse kernels serve too.
+    Yields (route, coarse pass serving); the state keeps the last route."""
+    trusted = searcher.matrix.coarse_trusted
+    yield "audited", trusted
+    if not trusted:
+        prev = os.environ.get("PERCEIVE_TPU_COARSE_AUDIT")
+        os.environ["PERCEIVE_TPU_COARSE_AUDIT"] = "0"
+        try:
+            searcher.audit_coarse()  # disabled: trusts the coarse pass
+        finally:
+            if prev is None:
+                os.environ.pop("PERCEIVE_TPU_COARSE_AUDIT")
+            else:
+                os.environ["PERCEIVE_TPU_COARSE_AUDIT"] = prev
+        yield "audit off", True
+
+
 def int2_slice(card: str, ctx: dict, dev) -> tuple:
     """Phase 12: fill SQLite to INT2_ROWS rows, a fresh AppState (auto tier
-    -> int2 with its int8 companion) and its self-audit, 16 CLI queries
-    (K5, K6 and K7 must all run), the composed device pipeline against the
-    plain one for every query, hits against the exact f32 top-10."""
+    -> int2 with its int8 companion) and its self-audit, gated on its filler
+    stratum (``audit_strata``), 16 CLI queries on each of ``audit_routes``
+    (coarse pass serving: K5, K6 and K7 must all run; demoted: K7), hits
+    against the exact f32 top-10, then the composed device pipeline against
+    the plain one for every query."""
     import torch
 
     from perceive_tpu_torch.cli import AppState
@@ -1844,25 +1988,25 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
     if len(m) != INT2_ROWS or m.device != dev or m.dtype != INT2:
         raise SystemExit(f"searcher holds {len(m)} {m.tier_name} rows on {m.device}; want int2 on {dev}")
     log(f"int2 coarse self-audit: {json.dumps(searcher.coarse_audit)}")
-    if not m.coarse_trusted:
-        raise SystemExit(f"the self-audit demoted the coarse pass ({searcher.coarse_audit}): "
-                         "the CLI path would run no K5 or K6")
-
-    reset_launch_counts()
-    esc0 = searcher.escalations
-    results, p50, p95 = cli_queries(card, state, ctx, "int2", "int2_scores")
-    counts = launch_counts()
-    launches = {name: counts[name] for name in ("int2_scores", "select_topk", "scan_int8t")}
-    escalations = searcher.escalations - esc0
-    log(f"int2 CLI path: escalations {escalations}; launches {launches}")
-    for name, c in launches.items():
-        if c == 0:
-            raise SystemExit(f"the int2 CLI path launched no {name} kernel (audit {searcher.coarse_audit})")
-
-    t = check_int2_pipeline(card, searcher, ctx, dev, "int2")
+    audit_strata(card, searcher, ctx, "int2")
     ctx["exact"], ctx["exact_rows"] = exact_top10(
         searcher, torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]]), dev, with_rows=True)
-    recall = served_recall("int2", results, ctx["exact"])
+
+    for route, coarse in audit_routes(searcher):
+        tier = f"int2 ({route}, coarse pass {'serving' if coarse else 'demoted'})"
+        reset_launch_counts()
+        esc0 = searcher.escalations
+        results, p50, p95 = cli_queries(card, state, ctx, tier, "int2_scores" if coarse else "scan_int8t")
+        counts = launch_counts()
+        launches = {name: counts[name] for name in ("int2_scores", "select_topk", "scan_int8t")}
+        escalations = searcher.escalations - esc0
+        log(f"{tier} CLI path: escalations {escalations}; launches {launches}")
+        for name in ("int2_scores", "select_topk", "scan_int8t") if coarse else ("scan_int8t",):
+            if launches[name] == 0:
+                raise SystemExit(f"the {tier} CLI path launched no {name} kernel (audit {searcher.coarse_audit})")
+        recall = served_recall(tier, results, ctx["exact"])
+
+    t = check_int2_pipeline(card, searcher, ctx, dev, "int2")
     return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations,
                    "recall": recall, "pipeline_ms": t}
 
@@ -1915,7 +2059,7 @@ def check_int2_pipeline(card: str, searcher, ctx: dict, dev, tier: str, select: 
     return t
 
 
-def doc_rows(searcher) -> None:
+def doc_rows(searcher, ctx: dict) -> None:
     """Where the document windows sit in the matrix (SQLite's scan order
     places them; the build query has no ORDER BY), and how they fall into
     the tiletop select's tiles and lane bins at Q = 1."""
@@ -1924,7 +2068,7 @@ def doc_rows(searcher) -> None:
 
     m = searcher.matrix
     keys = m.item_ids[: m.rows]  # chunk keys: item id * CHUNK_STRIDE + chunk
-    rows = np.flatnonzero((keys >= CHUNK_STRIDE) & (keys < (N_DOCS + 1) * CHUNK_STRIDE))
+    rows = np.flatnonzero((keys >= 0) & (keys < ctx["first_fill_id"] * CHUNK_STRIDE))
     tile = int2._pick_tile_int2(m.sweep_rows, 1, m.padded_dim // 4)
     tiles = np.unique(rows // tile)
     per_bin = np.bincount((rows % tile) % 128 + 128 * (rows // tile - tiles[0]), minlength=128 * len(tiles))
@@ -1974,7 +2118,7 @@ def int2_selects(card: str, state, ctx: dict, dev) -> dict:
     m = searcher.matrix
     if not m.coarse_trusted:
         raise SystemExit("the int2 coarse pass is demoted: no select would serve")
-    doc_rows(searcher)
+    doc_rows(searcher, ctx)
     out = {}
     try:
         for select in SELECTS:
@@ -2064,7 +2208,7 @@ def audit_overlaps(searcher, k: int = 10) -> tuple:
     the first fetch, reranked; 8 queries a zero-padded sweep).  Returns
     (sample rows, overlaps, reference rows, served rows); fails unless the
     mean and the worst are the audit's own."""
-    from perceive_tpu_torch.index.searcher import INT2_COARSE_FETCH, _coarse_audit_queries, _k_bucket
+    from perceive_tpu_torch.index.searcher import INT2_COARSE_FETCH, _coarse_audit_queries
 
     m = searcher.matrix
     live_src = m.source_ids[: m.rows]
@@ -2074,7 +2218,23 @@ def audit_overlaps(searcher, k: int = 10) -> tuple:
     sample = np.sort(searcher._stratified_sample(rng, live, live_src, src_ids, src_counts,
                                                  _coarse_audit_queries(len(live), k),
                                                  min(INT2_COARSE_FETCH, max(m.sweep_rows, 1))))
-    vecs = m.host_vectors_for(sample)
+    overlaps, refs, served = row_overlaps(searcher, sample, k)
+    mean = sum(o for o, ref in zip(overlaps, refs) if ref) / max(len(sample), 1)
+    audit = searcher.coarse_audit
+    if round(mean, 6) != audit["overlap"] or round(min(overlaps), 6) != audit["min_overlap"]:
+        raise SystemExit(f"the audit redrawn sample by sample gives overlap {mean} / min {min(overlaps)}, "
+                         f"the audit {audit}")
+    return sample, overlaps, refs, served
+
+
+def row_overlaps(searcher, rows, k: int = 10) -> tuple:
+    """Stored rows as audit queries, each one's top-k overlap measured as the
+    self-audit's phase 3 measures a sample's, at the matrix's current coarse
+    depth and select.  Returns (overlaps, reference rows, served rows)."""
+    from perceive_tpu_torch.index.searcher import _k_bucket
+
+    m = searcher.matrix
+    vecs = m.host_vectors_for(np.asarray(rows))
     vecs = (vecs / np.maximum(np.linalg.norm(vecs, axis=1, keepdims=True), 1e-12)).astype(np.float32)
     qp = searcher._pad_queries(vecs)
     allowed = searcher._allowed_arrays(None)[0]
@@ -2094,12 +2254,55 @@ def audit_overlaps(searcher, k: int = 10) -> tuple:
             refs.append(ref)
             served.append(cr[j][: len(ref)].tolist())
             overlaps.append(len(set(ref) & set(served[-1])) / len(ref) if ref else 1.0)
-    mean = sum(o for o, ref in zip(overlaps, refs) if ref) / max(len(qp), 1)
-    audit = searcher.coarse_audit
-    if round(mean, 6) != audit["overlap"] or round(min(overlaps), 6) != audit["min_overlap"]:
-        raise SystemExit(f"the audit redrawn sample by sample gives overlap {mean} / min {min(overlaps)}, "
-                         f"the audit {audit}")
-    return sample, overlaps, refs, served
+    return overlaps, refs, served
+
+
+def audit_strata(card: str, searcher, ctx: dict, tier: str) -> None:
+    """The last self-audit by stratum, and its gate.  The audit draws by
+    position within each source's rows, and the docs source (2,593 of
+    4,194,304 rows) gets one sample; the matrix orders the docs' rows by
+    item id, which the ingest assigns in the order the readers finish the
+    walk's paths, so which window that sample takes depends on the file
+    names and the readers, not on the program under test.  Gated: the
+    filler samples (seeded rows after the docs, the same in every run) must
+    pass the audit's own gates.  Logged: the docs sample's window and
+    overlap, the window the same draw takes in document order (item ids
+    d + 1) and its overlap over this run's vectors, and the overlap of
+    every document window as an audit query."""
+    from perceive_tpu_torch.index.matrix import CHUNK_STRIDE
+    from perceive_tpu_torch.index.searcher import _coarse_audit_min
+
+    m = searcher.matrix
+    sample, overlaps, _, _ = audit_overlaps(searcher)
+    keys = m.item_ids[: m.rows]
+    fill_key = ctx["first_fill_id"] * CHUNK_STRIDE
+    drows = np.flatnonzero((keys >= 0) & (keys < fill_key))
+    doc_of = {item: d for d, item in enumerate(ctx["doc_ids"])}
+
+    def window(row):  # (document, window) of a matrix row
+        return doc_of[int(keys[row]) // CHUNK_STRIDE], int(keys[row]) % CHUNK_STRIDE
+
+    t0 = time.perf_counter()
+    every = np.asarray(row_overlaps(searcher, drows)[0])
+    t_every = time.perf_counter() - t0
+    at = {window(r): i for i, r in enumerate(drows)}
+    in_doc_order = [(d, c) for d, n in enumerate(ctx["doc_windows"]) for c in range(n)]
+    filler = np.asarray([o for r, o in zip(sample, overlaps) if keys[r] >= fill_key])
+    for row, o in zip(sample, overlaps):
+        if keys[row] >= fill_key:
+            continue
+        p = int(np.searchsorted(drows, row))
+        (d, c), (d0, c0) = window(row), in_doc_order[p]
+        log(f"{tier} self-audit, docs stratum: sample {p} of the docs' {len(drows)} rows is row {row} = document "
+            f"{d} window {c}, overlap {o:.1f}; in document order the same draw takes document {d0} window {c0}, "
+            f"overlap {every[at[(d0, c0)]]:.1f} over this run's vectors")
+    floor, worst = _coarse_audit_min(), searcher._COARSE_AUDIT_MIN_SINGLE
+    log(f"{tier} self-audit: {len(sample) - len(filler)} docs and {len(filler)} filler samples; filler overlap "
+        f"mean {filler.mean():.4f} / min {filler.min():.1f} (gates {floor} / {worst}); every document window as "
+        f"an audit query ({t_every:.1f} s): mean overlap {every.mean():.4f}, {int((every < 1).sum())} of "
+        f"{len(every)} under 1, {int((every < worst).sum())} under {worst} (min {every.min():.1f})  [{card}]")
+    if not (filler.mean() >= floor and filler.min() >= worst):
+        raise SystemExit(f"the {tier} coarse pass fails the self-audit's gates on the filler samples")
 
 
 def write_audit_case(searcher, path: str, row: int, overlap: float, ref, served, k: int = 10) -> dict:
@@ -2155,12 +2358,11 @@ def int2_int4_slice(card: str, state, ctx: dict, dev, audit_case: str = "") -> N
     PERCEIVE_TPU_INT2_FINE=int4 (the companion takes the int4 tier's bytes;
     only the host mirror is re-read) and its self-audit; 16 CLI queries on
     the route the verdict gives (trusted: K5, K6 and flat K9 must run;
-    demoted: the companion sweep, flat K9); where the audit demotes, the 16
-    queries again with the audit disabled by its documented switch
-    (PERCEIVE_TPU_COARSE_AUDIT=0, which trusts the coarse pass), so that K5,
-    K6 and flat K9 serve them; every served set held against the exact f32
-    top-10; the composed device pipeline against the plain one; one batch of
-    each mix."""
+    demoted: the companion sweep, flat K9) of ``audit_routes``, so that
+    where the audit demotes, K5, K6 and flat K9 serve the 16 queries again
+    with the audit off; every served set held against the exact f32 top-10;
+    the composed device pipeline against the plain one; one batch of each
+    mix."""
     from perceive_tpu_torch.index.matrix import INT2
 
     searcher = state.searcher
@@ -2179,6 +2381,7 @@ def int2_int4_slice(card: str, state, ctx: dict, dev, audit_case: str = "") -> N
                if overlaps[i] < 1.0]
         log(f"int2+int4 self-audit sample by sample: {len(low)} of {len(sample)} under overlap 1 "
             f"(row, overlap): {low[:16]}")
+        audit_strata(card, searcher, ctx, "int2+int4")
         if audit_case and low:
             i = int(np.flatnonzero(sample == low[0][0])[0])
             case = write_audit_case(searcher, audit_case, low[0][0], low[0][1], refs[i], served[i])
@@ -2188,20 +2391,7 @@ def int2_int4_slice(card: str, state, ctx: dict, dev, audit_case: str = "") -> N
                 f"{len(case['rows'])} rows around it written to {audit_case}")
         searcher.audit_coarse()  # a second witness: the audit's next seeded sample
         log(f"int2+int4 coarse self-audit on its next sample: {json.dumps(searcher.coarse_audit)}")
-        routes = [("audited", m.coarse_trusted)]
-        if not m.coarse_trusted:
-            routes.append(("audit off", True))
-        for route, coarse in routes:
-            if route == "audit off":
-                prev = os.environ.get("PERCEIVE_TPU_COARSE_AUDIT")
-                os.environ["PERCEIVE_TPU_COARSE_AUDIT"] = "0"
-                try:
-                    searcher.audit_coarse()  # disabled: trusts the coarse pass
-                finally:
-                    if prev is None:
-                        os.environ.pop("PERCEIVE_TPU_COARSE_AUDIT")
-                    else:
-                        os.environ["PERCEIVE_TPU_COARSE_AUDIT"] = prev
+        for route, coarse in audit_routes(searcher):
             tier = f"int2+int4 ({route}, coarse pass {'serving' if coarse else 'demoted'})"
             reset_launch_counts()
             esc0 = searcher.escalations
@@ -2237,12 +2427,11 @@ def main(argv=None) -> int:
         ladders(card)
         return 0
 
-    from perceive_tpu_torch.ops import attention as attn
-
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     with phase("build"):
         build_kernels(card)
+        build_walker(card)
     with phase("K1, K2 against their plain version"):
         bf16 = check_bf16_scans(card)
     with phase("K3, K4 against their plain version"):
@@ -2260,12 +2449,12 @@ def main(argv=None) -> int:
     # and read just after it; the comparisons above do not count
     launches = {}
     with tempfile.TemporaryDirectory() as workdir:
-        with phase("bf16 slice: ingest, 1M rows, 16 CLI queries"):
+        with phase("bf16 slice: ingest through source add fs + source scan, 1M rows, 16 CLI queries"):
             reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             ctx = build_corpus(card, workdir, dev)
             state, bf16_sl = bf16_slice(card, ctx, dev)
-            launches["scan_topk"], launches["attention"] = bf16_sl["launches"], attn.LAUNCHES
+            launches["scan_topk"], launches["attention"] = bf16_sl["launches"], ctx["attention_launches"]
         with phase("bf16 batch path"):
             bf16_batch = batch_path(card, state, ctx, "bf16", "scan_slab")
             launches["scan_slab"] = bf16_batch["launches"]["scan_slab"]

@@ -214,6 +214,9 @@ class AppState:
                 )
             conn.execute("INSERT OR REPLACE INTO config (key, value) VALUES (?, '1')", (marker,))
 
+    def refresh_sources(self) -> None:
+        self.sources = list_sources(self.db)
+
     def source_by_name(self, name: str) -> Optional[Source]:
         for s in self.sources:
             if s.name == name or str(s.id) == name:

@@ -153,6 +153,9 @@ class Searcher:
         self._audit_seq = 0
         self._src_rows_at_audit: dict[int, int] = {}
         self._src_churn: dict[int, int] = {}
+        # retier/audit deferred by maintenance=False hook calls (the ingest
+        # write stage: never inside its open SQLite write transaction)
+        self._maintenance_due = False
 
     # -- build ---------------------------------------------------------------
 
@@ -243,10 +246,23 @@ class Searcher:
 
     # -- incremental updates -------------------------------------------------
 
-    def upsert_embeddings(self, item_ids: Sequence, source_ids: Sequence[int], vectors: np.ndarray) -> None:
+    def upsert_embeddings(
+        self,
+        item_ids: Sequence,
+        source_ids: Sequence[int],
+        vectors: np.ndarray,
+        *,
+        maintenance: bool = True,
+    ) -> None:
         """Stream vectors into the matrix.  ``item_ids`` entries are item ids
         (chunk 0) or (item_id, chunk_idx) pairs; chunk keys an item no longer
-        has are tombstoned."""
+        has are tombstoned.
+
+        ``maintenance=False`` defers the retier/coarse-audit pass to a later
+        :meth:`run_deferred_maintenance`: the ingest write stage calls this
+        hook inside its open SQLite write transaction, and a retier restages
+        the whole matrix and an audit runs many sweeps, neither of which may
+        hold the write lock."""
         keys: list[int] = []
         per_item: dict[int, set[int]] = {}
         for e in item_ids:
@@ -260,11 +276,40 @@ class Searcher:
             self.matrix.remove(stale)
         self.matrix.upsert(keys, source_ids, vectors)
         self._note_src_churn(source_ids)
-        self._maybe_retier()
-        self._audit_coarse_if_stale()
+        if maintenance:
+            self._maybe_retier()
+            self._audit_coarse_if_stale()
+        else:
+            self._maintenance_due = True
 
-    def remove_items(self, item_ids: Sequence[int]) -> int:
-        """Tombstone every chunk of each item."""
+    def run_deferred_maintenance(self) -> None:
+        """Run the retier/audit pass deferred by ``maintenance=False`` hook
+        calls.  Idempotent; the ingest write stage calls it after each
+        batch's transaction commits."""
+        if self._maintenance_due:
+            self._maintenance_due = False
+            self._maybe_retier()
+            self._audit_coarse_if_stale()
+
+    def pipeline_hooks(self):
+        """(on_embeddings, on_removed) for the ingest write stage: as
+        upsert_embeddings/remove_items, with the retier/audit deferred to an
+        ``after_commit`` attribute that the write stage invokes once the
+        batch's SQLite transaction has committed."""
+
+        def on_embeddings(item_ids, source_ids, vectors):
+            self.upsert_embeddings(item_ids, source_ids, vectors, maintenance=False)
+
+        def on_removed(item_ids):
+            self.remove_items(item_ids, maintenance=False)
+
+        on_embeddings.after_commit = self.run_deferred_maintenance
+        on_removed.after_commit = self.run_deferred_maintenance
+        return on_embeddings, on_removed
+
+    def remove_items(self, item_ids: Sequence[int], *, maintenance: bool = True) -> int:
+        """Tombstone every chunk of each item.  ``maintenance=False`` defers
+        the audit as in :meth:`upsert_embeddings`."""
         m = self.matrix
         keys = [k for iid in item_ids for k in m.keys_of_group(int(iid))]
         if keys:  # per-source churn, read before the tombstones wipe the ids
@@ -272,7 +317,10 @@ class Searcher:
                 self._note_src_churn([int(m.source_ids[m.row_of[k]]) for k in keys if k in m.row_of])
         n = m.remove(keys)
         if n:
-            self._audit_coarse_if_stale()
+            if maintenance:
+                self._audit_coarse_if_stale()
+            else:
+                self._maintenance_due = True
         return n
 
     def _maybe_retier(self) -> None:

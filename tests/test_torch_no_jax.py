@@ -16,12 +16,20 @@ def _run(code: str, env=None):
     )
 
 
+SOURCE_MODULES = (
+    "perceive_tpu_torch.sources, perceive_tpu_torch.sources.fs, perceive_tpu_torch.sources.pipeline, "
+    "perceive_tpu_torch.sources.reprocess, perceive_tpu_torch.sources.parse_html, "
+    "perceive_tpu_torch.sources.readability, perceive_tpu_torch.sources.chromium_history, "
+    "perceive_tpu_torch.sources.chromium_bookmarks"
+)
 PORT_MODULES = (
     "perceive_tpu_torch, perceive_tpu_torch.cli, perceive_tpu_torch.cli.state, "
     "perceive_tpu_torch.index.searcher, perceive_tpu_torch.index.executor, perceive_tpu_torch.db, "
     "perceive_tpu_torch.models, perceive_tpu_torch.ops.topk, perceive_tpu_torch.ops.int2, "
     "perceive_tpu_torch.ops.attention, perceive_tpu_torch.index.matrix, "
-    "perceive_tpu_torch.utils.coalesce, perceive_tpu_torch.paths, perceive_tpu_torch.types"
+    "perceive_tpu_torch.utils.coalesce, perceive_tpu_torch.paths, perceive_tpu_torch.types, "
+    "perceive_tpu_torch.utils, perceive_tpu_torch.native, perceive_tpu_torch.cli.commands, "
+    "perceive_tpu_torch.cli.main, " + SOURCE_MODULES
 )
 
 
@@ -52,6 +60,20 @@ def test_port_imports_no_jax_or_tokenizers():
         "import sys\n"
         f"import {PORT_MODULES}\n"
         "bad = [m for m in ('jax', 'jaxlib', 'tokenizers') if m in sys.modules]\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_connectors_import_no_optional_packages():
+    """A machine that runs the port may lack yaml, zstandard, lxml and requests: the
+    connectors import each at its first use, never at import."""
+    res = _run(
+        "import sys\n"
+        f"import {SOURCE_MODULES}, perceive_tpu_torch.native, perceive_tpu_torch.cli.commands\n"
+        "bad = [m for m in ('yaml', 'zstandard', 'lxml', 'requests', 'jax') if m in sys.modules]\n"
+        "bad += sorted(m for m in sys.modules if m == 'perceive_tpu' or m.startswith('perceive_tpu.'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
