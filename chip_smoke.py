@@ -38,9 +38,12 @@ Phases (any failure exits non-zero before the final line):
   7. the bf16 batch path: 1,024 vector queries from 16 threads through a
      BatchingSearchExecutor, then search_vectors_batch on 2,048 queries
      (half near a stored window, half random) and on 2,048 random ones;
+     then the CLI's ``snapshot`` saves a format-v2 base of the 1M rows;
   8. the int8 slice: 1M more filler rows (2M in all), a fresh AppState whose
-     auto rule picks the int8 tier, the same 16 queries through the CLI,
-     hits held against an exact f32 top-10 over the host mirror;
+     auto rule picks the int8 tier, built from the bf16 base (another
+     tier: its f32 rows stream) and the rows written since, replayed from
+     SQLite (exactly the 1M new rows), the same 16 queries through the
+     CLI, hits held against an exact f32 top-10 over the host mirror;
   9. the int8 batch path, as phase 7;
  10. K5 (int2 coarse scores), K6 (exact top-kc select), K7 and K8 (int8
      scans over the transposed companion) and K10 (coarse scores kept per
@@ -60,7 +63,7 @@ Phases (any failure exits non-zero before the final line):
      timed at 1 and 8 queries;
  12. the int2 slice: 2,194,304 more filler rows (4,194,304 in all), a fresh
      AppState whose auto rule picks the int2 tier (coarse pass + int8
-     companion), its self-audit's verdict by stratum (the filler samples
+     companion), built cold (the bf16 base removed), its self-audit's verdict by stratum (the filler samples
      must pass the audit's gates; the docs source's one sample, which the
      ingest order places, is logged beside every document window's
      overlap), the same 16 queries through the CLI on the audited route
@@ -75,7 +78,12 @@ Phases (any failure exits non-zero before the final line):
      (gated at 0.99 for window and threshold, reported for tiletop, whose
      lane bins drop rows), tiletop's candidate recall beside the exact
      select's;
- 15. K9 (packed-int4 scan + top-k, flat and slab) against its plain version,
+ 15. the int2 adopt: the CLI's ``snapshot`` saves that state (a full base
+     with the int2 payload), and a fresh AppState adopts it with 0 rows from
+     SQLite: device tensors, host mirror, ids, scale_hw/norm_hw and the
+     self-audit's verdict equal the cold build's, and 16 CLI queries on
+     each route give the cold build's hits (K5, K6 and K7 launched);
+ 16. K9 (packed-int4 scan + top-k, flat and slab) against its plain version,
      bit for bit, at the int4 tier's own size (25,165,824 x 384, past the
      int2 tier's 24M, generated on the card), with K7 and K8 timed on the
      same rows unpacked to int8 beside it, a sweep of 2,048 queries in one
@@ -86,17 +94,23 @@ Phases (any failure exits non-zero before the final line):
      bit and timed at 34,603,008 rows, and on the same rows unpacked to the companion's (D, N) int8
      layout and transposed to (N, D) rows, K8 and K4: the three agree bit
      for bit (and with the plain version on a filter), each timed once;
- 16. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
-     slice's corpus, the same 16 queries through the CLI (flat K9), hits
+ 17. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
+     slice's corpus, streamed from the int2 base (another tier) with 0 rows
+     from SQLite, the same 16 queries through the CLI (flat K9), hits
      against the exact f32 top-10 (``served_recall_at_10``);
- 17. the int4 batch path, as phase 13 (slab K9);
- 18. the int2 tier with the int4 companion: that state retiered to int2
+ 18. the int4 batch path, as phase 13 (slab K9);
+ 19. the int2 tier with the int4 companion: that state retiered to int2
      under PERCEIVE_TPU_INT2_FINE=int4, its self-audit's verdict (redrawn
      sample by sample and by stratum, as in phase 12, then a second audit on
      the audit's next seeded sample), the 16 CLI queries (K5, K6 and flat
      K9), the composed device pipeline held against
      the plain one for every query, ``served_recall_at_10``, and one batch
-     of each mix.
+     of each mix;
+ 20. the delta: the int2 base adopted again, the docs source's rows
+     removed and 300 filler rows upserted through the Searcher's ingest
+     hooks (the database changed to match: the docs items hidden),
+     ``snapshot`` answering "delta", and a build from base + delta holding
+     the live keys and the hits of a searcher built cold from SQLite.
 Each kernel is timed beside its plain version, one PyTorch call for the same
 function (``library_ms``: a yardstick the port never calls; null where no
 single call computes it) and its bound.
@@ -112,6 +126,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1717,6 +1732,96 @@ def hits_match(got, want, tol: float) -> bool:
     return True
 
 
+@contextlib.contextmanager
+def build_route():
+    """What the Searcher builds inside the block read: the rows
+    ``Searcher._load`` streamed from SQLite, the answers of
+    ``_load_snapshot`` (a snapshot was used) and of ``_adopt_snapshot_fh``
+    (it was adopted as stored; else its f32 rows were streamed).  The
+    builds' own phase lines (PERCEIVE_TPU_DEBUG_STARTUP) are logged."""
+    from perceive_tpu_torch.index.matrix import EmbeddingMatrix
+    from perceive_tpu_torch.index.searcher import Searcher
+
+    route = {"sqlite_rows": 0, "snapshot": [], "adopted": []}
+    load, load_snapshot, adopt = Searcher._load, Searcher._load_snapshot, EmbeddingMatrix._adopt_snapshot_fh
+
+    def counted(self, db, extra_sql, params, **kw):
+        n = load(self, db, extra_sql, params, **kw)
+        route["sqlite_rows"] += n
+        return n
+
+    def snapshot(self, db):
+        route["snapshot"].append(load_snapshot(self, db))
+        return route["snapshot"][-1]
+
+    def adopted(self, path, fh):
+        route["adopted"].append(adopt(self, path, fh))
+        return route["adopted"][-1]
+
+    err = io.StringIO()
+    prev = os.environ.get("PERCEIVE_TPU_DEBUG_STARTUP")
+    os.environ["PERCEIVE_TPU_DEBUG_STARTUP"] = "1"
+    Searcher._load, Searcher._load_snapshot, EmbeddingMatrix._adopt_snapshot_fh = counted, snapshot, adopted
+    try:
+        with contextlib.redirect_stderr(err):
+            yield route
+    finally:
+        Searcher._load, Searcher._load_snapshot, EmbeddingMatrix._adopt_snapshot_fh = load, load_snapshot, adopt
+        if prev is None:
+            os.environ.pop("PERCEIVE_TPU_DEBUG_STARTUP")
+        else:
+            os.environ["PERCEIVE_TPU_DEBUG_STARTUP"] = prev
+        for line in err.getvalue().splitlines():
+            log(f"  {line}")
+    log(f"build route: snapshot used {route['snapshot']}, adopted {route['adopted']}, "
+        f"{route['sqlite_rows']} rows streamed from SQLite")
+
+
+def check_route(route: dict, tier: str, adopted: bool, sqlite_rows: int) -> None:
+    """Fails unless the build took a snapshot, adopted it (or streamed its
+    f32 rows) as ``adopted`` says, and streamed exactly ``sqlite_rows``
+    rows from SQLite."""
+    if route["snapshot"] != [True] or route["adopted"] != [adopted] or route["sqlite_rows"] != sqlite_rows:
+        raise SystemExit(f"the {tier} build took the route {route}; want a snapshot "
+                         f"{'adopted' if adopted else 'streamed'} and {sqlite_rows} rows from SQLite")
+
+
+def cli_snapshot(card: str, state, ctx: dict, path: str, want: str) -> dict:
+    """``snapshot PATH`` through the CLI; the matrix must answer ``want``
+    ("full" or "delta").  Logs the free disk of the workdir before it, the
+    save's seconds and the files' sizes; a save that fails (for want of
+    space too) fails the run."""
+    from perceive_tpu_torch.cli import main as cli_main
+    from perceive_tpu_torch.index.matrix import EmbeddingMatrix
+
+    du = shutil.disk_usage(os.path.dirname(path))
+    log(f"workdir disk before the save: {du.free / 2**30:.1f} GiB free of {du.total / 2**30:.1f} GiB")
+    forms = []
+    save = EmbeddingMatrix.save_snapshot
+
+    def spy(self, p, **kw):
+        forms.append(save(self, p, **kw))
+        return forms[-1]
+
+    out, err = io.StringIO(), io.StringIO()
+    EmbeddingMatrix.save_snapshot = spy
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(["--db", ctx["db_path"], "snapshot", path], state=state)
+    finally:
+        EmbeddingMatrix.save_snapshot = save
+    secs = time.perf_counter() - t0
+    if rc != 0 or forms != [want]:
+        raise SystemExit(f"snapshot exited {rc} answering {forms}, want {want!r}: {out.getvalue()} {err.getvalue()}")
+    m = state.searcher.matrix
+    size = os.path.getsize(path)
+    delta = os.path.getsize(path + ".delta") if os.path.exists(path + ".delta") else 0
+    log(f"snapshot ({want}) of {len(m)} {m.tier_name} rows in {secs:.1f} s: base {size / 2**30:.3f} GiB, "
+        f"delta {delta / 2**20:.3f} MiB; {out.getvalue().strip()}  [{card}]")
+    return {"seconds": secs, "base_bytes": size, "delta_bytes": delta}
+
+
 def batch_breakdown(searcher, qs) -> tuple:
     """One search_vectors_batch -> (its hits, the host seconds spent in the
     sweeps (launch to copy back), in the f32 rerank, in the rest, and in
@@ -1888,7 +1993,8 @@ def exact_top10(searcher, qvs, dev, with_rows: bool = False):
 
 def int8_slice(card: str, ctx: dict, dev) -> tuple:
     """Phase 8: fill SQLite to INT8_ROWS rows, a fresh AppState (auto tier
-    -> int8), 16 CLI queries, hits held against the exact f32 top-10."""
+    -> int8) from the bf16 base plus exactly the rows written since, 16 CLI
+    queries, hits held against the exact f32 top-10."""
     import torch
 
     from perceive_tpu_torch.cli import AppState
@@ -1906,12 +2012,16 @@ def int8_slice(card: str, ctx: dict, dev) -> tuple:
     ctx["next_seq"] += n_more
     log(f"sqlite corpus: {n_more} more filler rows = {INT8_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
 
+    # the bf16 base (phase 7) is of another tier: its f32 rows stream, and
+    # only the rows written since replay from SQLite
     t0 = time.perf_counter()
-    state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
+    with build_route() as route:
+        state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
     searcher = state.searcher
     m = searcher.matrix
-    log(f"AppState build: {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
+    log(f"AppState build from the bf16 base: {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
         f"capacity {m.capacity} in {time.perf_counter() - t0:.1f} s  [{card}]")
+    check_route(route, "int8", adopted=False, sqlite_rows=n_more)
     if len(m) != INT8_ROWS or m.device != dev or m.dtype != torch.int8:
         raise SystemExit(f"searcher holds {len(m)} {m.tier_name} rows on {m.device}; want int8 on {dev}")
 
@@ -1957,7 +2067,7 @@ def audit_routes(searcher):
 
 def int2_slice(card: str, ctx: dict, dev) -> tuple:
     """Phase 12: fill SQLite to INT2_ROWS rows, a fresh AppState (auto tier
-    -> int2 with its int8 companion) and its self-audit, gated on its filler
+    -> int2 with its int8 companion) built cold, and its self-audit, gated on its filler
     stratum (``audit_strata``), 16 CLI queries on each of ``audit_routes``
     (coarse pass serving: K5, K6 and K7 must all run; demoted: K7), hits
     against the exact f32 top-10, then the composed device pipeline against
@@ -1979,15 +2089,22 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
     ctx["next_seq"] += n_more
     log(f"sqlite corpus: {n_more} more filler rows = {INT2_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
 
+    # the bf16 base has served the int8 build: without it this build is cold
+    os.unlink(ctx["snap"])
     t0 = time.perf_counter()
-    state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
+    with build_route() as route:
+        state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
     searcher = state.searcher
     m = searcher.matrix
-    log(f"AppState build: {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
-        f"capacity {m.capacity} in {time.perf_counter() - t0:.1f} s  [{card}]")
+    cold_s = time.perf_counter() - t0
+    log(f"AppState build (cold): {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
+        f"capacity {m.capacity} in {cold_s:.1f} s  [{card}]")
+    if route["snapshot"] != [False] or route["sqlite_rows"] != INT2_ROWS:
+        raise SystemExit(f"the int2 build was not cold: {route}")
     if len(m) != INT2_ROWS or m.device != dev or m.dtype != INT2:
         raise SystemExit(f"searcher holds {len(m)} {m.tier_name} rows on {m.device}; want int2 on {dev}")
     log(f"int2 coarse self-audit: {json.dumps(searcher.coarse_audit)}")
+    ctx["int2_cold"] = {"seconds": cold_s, "audit": dict(searcher.coarse_audit), "results": {}}
     audit_strata(card, searcher, ctx, "int2")
     ctx["exact"], ctx["exact_rows"] = exact_top10(
         searcher, torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]]), dev, with_rows=True)
@@ -2005,6 +2122,7 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
             if launches[name] == 0:
                 raise SystemExit(f"the {tier} CLI path launched no {name} kernel (audit {searcher.coarse_audit})")
         recall = served_recall(tier, results, ctx["exact"])
+        ctx["int2_cold"]["results"][route] = [[(r["id"], r["score"]) for r in res] for res in results]
 
     t = check_int2_pipeline(card, searcher, ctx, dev, "int2")
     return state, {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations,
@@ -2152,6 +2270,149 @@ def int2_selects(card: str, state, ctx: dict, dev) -> dict:
     return out
 
 
+def int2_adopt(card: str, state, ctx: dict, dev):
+    """Phase 15: the cold-built int2 state (phases 12-14) saved through the
+    CLI's ``snapshot`` (a full v2 base with the int2 payload), closed, and a
+    fresh AppState (auto tier -> int2) that must adopt the base with 0 rows
+    from SQLite: its device tensors (coarse, companion, both scales, source
+    ids) equal the cold build's bit for bit, and so do its host mirror, ids,
+    scale_hw and norm_hw and its self-audit's verdict; then 16 CLI queries on
+    each of ``audit_routes`` give the cold build's hits, with K5, K6 and K7
+    launched on the coarse-serving route."""
+    import torch
+
+    from perceive_tpu_torch.cli import AppState
+    from perceive_tpu_torch.index.matrix import INT2
+
+    cold = state.searcher
+    m0 = cold.matrix
+    (coarse0, fine0), src0, (cs0, fs0) = m0.device_view()
+    saved = cli_snapshot(card, state, ctx, ctx["snap"], "full")
+    state.close()
+    t0 = time.perf_counter()
+    with build_route() as route:
+        state = AppState(ctx["db_path"], model=ctx["model"], highlights_model=ctx["model"], device=dev)
+    adopt_s = time.perf_counter() - t0
+    searcher = state.searcher
+    m = searcher.matrix
+    log(f"AppState build adopting the int2 base: {len(m)} rows, tier {m.tier_name} in {adopt_s:.1f} s; the cold "
+        f"build took {ctx['int2_cold']['seconds']:.1f} s and the save {saved['seconds']:.1f} s for "
+        f"{saved['base_bytes'] / 2**30:.3f} GiB  [{card}]")
+    check_route(route, "int2", adopted=True, sqlite_rows=0)
+    if len(m) != INT2_ROWS or m.device != dev or m.dtype != INT2:
+        raise SystemExit(f"the adopted searcher holds {len(m)} {m.tier_name} rows on {m.device}")
+    (coarse, fine), src, (cs, fs) = m.device_view()
+    for name, a, b in (("coarse", coarse, coarse0), ("companion", fine, fine0), ("coarse scales", cs, cs0),
+                       ("companion scales", fs, fs0), ("source ids", src, src0)):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise SystemExit(f"the adopted {name} {tuple(a.shape)} {a.dtype} differs from the cold build's "
+                             f"{tuple(b.shape)} {b.dtype}")
+    host = (np.array_equal(m._host_vectors, m0._host_vectors) and np.array_equal(m.item_ids, m0.item_ids)
+            and np.array_equal(m.source_ids, m0.source_ids) and m.row_of == m0.row_of)
+    stats = (np.float32(m.scale_hw), np.float32(m.norm_hw)) == (np.float32(m0.scale_hw), np.float32(m0.norm_hw))
+    if not host or not stats:
+        raise SystemExit(f"the adopted host state differs from the cold build's (mirror and ids {host}, "
+                         f"scale_hw/norm_hw {stats})")
+    if searcher.coarse_audit != ctx["int2_cold"]["audit"]:
+        raise SystemExit(f"the adopted state's self-audit {searcher.coarse_audit} differs from the cold build's "
+                         f"{ctx['int2_cold']['audit']}")
+    log(f"the adopted int2 state equals the cold build's: coarse {tuple(coarse.shape)}, companion "
+        f"{tuple(fine.shape)} {fine.dtype}, scales and source ids bit for bit, the host mirror, ids, "
+        f"scale_hw/norm_hw and the self-audit {json.dumps(searcher.coarse_audit)}")
+    del cold, m0, coarse0, fine0, src0, cs0, fs0
+    gc.collect()
+    for route_name, serving in audit_routes(searcher):
+        tier = f"int2 adopted ({route_name}, coarse pass {'serving' if serving else 'demoted'})"
+        reset_launch_counts()
+        results, _, _ = cli_queries(card, state, ctx, tier, "int2_scores" if serving else "scan_int8t")
+        counts = launch_counts()
+        launches = {name: counts[name] for name in ("int2_scores", "select_topk", "scan_int8t")}
+        log(f"{tier} CLI path: launches {launches}")
+        for name in ("int2_scores", "select_topk", "scan_int8t") if serving else ("scan_int8t",):
+            if launches[name] == 0:
+                raise SystemExit(f"the {tier} CLI path launched no {name} kernel")
+        got = [[(r["id"], r["score"]) for r in res] for res in results]
+        if got != ctx["int2_cold"]["results"][route_name]:
+            raise SystemExit(f"{tier}: hits differ from the cold build's")
+        log(f"{tier}: hits equal the cold build's for 16/16 queries")
+    return state
+
+
+def delta_gate(card: str, ctx: dict, dev) -> None:
+    """Phase 20: a fresh AppState adopts the int2 base again; the docs
+    source's rows are removed and 300 new filler rows upserted through the
+    Searcher's ingest hooks, with the database changed to match (the docs
+    items hidden: deleting them would make SQLite scan item_embeddings once
+    per item, whose foreign key to items has no index of its own);
+    ``snapshot`` must answer "delta"; a new AppState built from base + delta
+    holds the live keys of a searcher built cold from SQLite (at f32: its
+    sweep is exact, so no quantizer stages), and its hits on the 16 queries
+    match that searcher's."""
+    import torch
+
+    from perceive_tpu_torch.cli import AppState
+    from perceive_tpu_torch.db import Database
+    from perceive_tpu_torch.index.matrix import INT2
+    from perceive_tpu_torch.index.searcher import Searcher
+
+    model = ctx["model"]
+    t0 = time.perf_counter()
+    with build_route() as route:
+        state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
+    log(f"AppState build adopting the int2 base in {time.perf_counter() - t0:.1f} s  [{card}]")
+    check_route(route, "int2", adopted=True, sqlite_rows=0)
+    searcher = state.searcher
+    docs = state.source_by_name("docs")
+    doc_items = [r[0] for r in state.db.read().execute("SELECT id FROM items WHERE source_id = ?", (docs.id,))]
+    n_new = 300
+    write_filler(state.db, ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_new, ctx["gen"],
+                 ctx["filler_text"], model.model_id, model.model_version)
+    new_ids = list(range(ctx["next_id"], ctx["next_id"] + n_new))
+    ctx["next_id"] += n_new
+    ctx["next_seq"] += n_new
+    blobs = state.db.read().execute(
+        """SELECT embedding FROM item_embeddings WHERE model_id = ? AND model_version = ? AND item_id >= ?
+           ORDER BY item_id""", (model.model_id, model.model_version, new_ids[0])).fetchall()
+    vecs = np.frombuffer(b"".join(b[0] for b in blobs), dtype="<f4").reshape(n_new, DIM)
+    with state.db.write() as conn:
+        conn.execute("UPDATE items SET hidden_at = ? WHERE source_id = ?", (int(time.time()), docs.id))
+    on_emb, on_rm = searcher.pipeline_hooks()
+    rows_before = len(searcher.matrix)
+    on_rm(doc_items)
+    on_emb(new_ids, [ctx["fill_source"]] * n_new, vecs)
+    on_emb.after_commit()
+    m = searcher.matrix
+    log(f"through the hooks: {len(doc_items)} docs items hidden and removed ({rows_before - len(m) + n_new} rows), "
+        f"{n_new} filler rows upserted: {len(m)} rows")
+    cli_snapshot(card, state, ctx, ctx["snap"], "delta")
+    state.close()
+    del state, searcher, m
+    gc.collect()
+
+    t0 = time.perf_counter()
+    with build_route() as route:
+        state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
+    log(f"AppState build from base + delta in {time.perf_counter() - t0:.1f} s  [{card}]")
+    check_route(route, "int2", adopted=True, sqlite_rows=0)
+    db = Database(ctx["db_path"])
+    t0 = time.perf_counter()
+    cold = Searcher.build(db, model.model_id, model.model_version, model.dim, device=dev, dtype=torch.float32,
+                          use_snapshot=False)
+    log(f"cold reference build from SQLite: {len(cold.matrix)} rows in {time.perf_counter() - t0:.1f} s  [{card}]")
+    m = state.searcher.matrix
+    if set(m.row_of) != set(cold.matrix.row_of) or m.dtype != INT2:
+        raise SystemExit(f"base + delta holds {len(m)} {m.tier_name} keys; the cold build {len(cold.matrix)}")
+    for qi, q in enumerate(ctx["queries"]):
+        qv = query_vector(ctx, q, dev).cpu().numpy()[0]
+        got, want = state.searcher.search_vector(qv, 10), cold.search_vector(qv, 10)
+        if not hits_match(got, want, 1e-5):
+            raise SystemExit(f"query {qi}: base + delta hits differ from the cold build's:\n{got}\n{want}")
+    log(f"base + delta equals the cold build: {len(m)} live keys; the hits of 16/16 queries match the f32 "
+        f"sweep's (ids in order, scores within 1e-5)")
+    db.close()
+    state.close()
+
+
 def served_recall(tier: str, results, exact, gate: bool = True) -> float:
     """The share of the exact f32 top-10 ids the CLI served, over the 16
     queries; fails (where ``gate``) under 0.99 or where a served score of
@@ -2172,8 +2433,8 @@ def served_recall(tier: str, results, exact, gate: bool = True) -> float:
 
 
 def int4_slice(card: str, ctx: dict, dev) -> tuple:
-    """Phase 16: a fresh AppState pinned to the int4 tier on the int2
-    slice's corpus, 16 CLI queries (flat K9 must run), hits against the
+    """Phase 17: a fresh AppState pinned to the int4 tier on the int2
+    slice's corpus, streamed from the int2 base with 0 rows from SQLite, 16 CLI queries (flat K9 must run), hits against the
     exact f32 top-10."""
     from perceive_tpu_torch.cli import AppState
 
@@ -2181,13 +2442,16 @@ def int4_slice(card: str, ctx: dict, dev) -> tuple:
     model = ctx["model"]
     os.environ["PERCEIVE_TPU_MATRIX_DTYPE"] = "int4"
     try:
-        state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
+        with build_route() as route:
+            state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
     finally:
         os.environ.pop("PERCEIVE_TPU_MATRIX_DTYPE")
     searcher = state.searcher
     m = searcher.matrix
-    log(f"AppState build: {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
+    log(f"AppState build from the int2 base: {len(m)} rows, tier {m.tier_name}, sweep_rows {m.sweep_rows}, "
         f"capacity {m.capacity} in {time.perf_counter() - t0:.1f} s  [{card}]")
+    # the base is int2: its f32 rows stream, and nothing was written since
+    check_route(route, "int4", adopted=False, sqlite_rows=0)
     if len(m) != INT2_ROWS or m.device != dev or not m.packed4:
         raise SystemExit(f"searcher holds {len(m)} {m.tier_name} rows on {m.device}; want int4 on {dev}")
 
@@ -2354,7 +2618,7 @@ def write_audit_case(searcher, path: str, row: int, overlap: float, ref, served,
 
 
 def int2_int4_slice(card: str, state, ctx: dict, dev, audit_case: str = "") -> None:
-    """Phase 18: the int4 state retiered to int2 under
+    """Phase 19: the int4 state retiered to int2 under
     PERCEIVE_TPU_INT2_FINE=int4 (the companion takes the int4 tier's bytes;
     only the host mirror is re-read) and its self-audit; 16 CLI queries on
     the route the verdict gives (trusted: K5, K6 and flat K9 must run;
@@ -2458,10 +2722,13 @@ def main(argv=None) -> int:
         with phase("bf16 batch path"):
             bf16_batch = batch_path(card, state, ctx, "bf16", "scan_slab")
             launches["scan_slab"] = bf16_batch["launches"]["scan_slab"]
+        with phase("bf16 snapshot: a v2 base of the 1M rows through the CLI"):
+            ctx["snap"] = os.path.join(workdir, "matrix.npz")
+            cli_snapshot(card, state, ctx, ctx["snap"], "full")
         state.close()
         del state
         torch.cuda.empty_cache()
-        with phase("int8 slice: 2M rows, 16 CLI queries"):
+        with phase("int8 slice: 2M rows, built from the bf16 base and 1M rows replayed, 16 CLI queries"):
             state, int8_sl = int8_slice(card, ctx, dev)
             launches["scan_int8"] = int8_sl["launches"]
         with phase("int8 batch path"):
@@ -2471,7 +2738,7 @@ def main(argv=None) -> int:
         del state  # release the int8 tier's mirror and device matrix
         gc.collect()
         torch.cuda.empty_cache()
-        with phase("int2 slice: 4.19M rows, 16 CLI queries"):
+        with phase("int2 slice: 4.19M rows, a cold build, 16 CLI queries"):
             state, int2_sl = int2_slice(card, ctx, dev)
             launches.update(int2_sl["launches"])
         with phase("int2 batch path"):
@@ -2481,11 +2748,13 @@ def main(argv=None) -> int:
         with phase("int2 pinned selects: tiletop, window, threshold, 16 CLI queries each"):
             selects = int2_selects(card, state, ctx, dev)
             launches["int2_tiletop"] = selects["tiletop"]["launches"]["int2_tiletop"]
+        with phase("int2 adopt: snapshot, a fresh AppState adopting it, 16 CLI queries per route"):
+            state = int2_adopt(card, state, ctx, dev)
         state.close()
         del state
         gc.collect()
         torch.cuda.empty_cache()
-        with phase("int4 slice: the 4.19M-row corpus pinned to int4, 16 CLI queries"):
+        with phase("int4 slice: the 4.19M-row corpus pinned to int4, streamed from the int2 base, 16 CLI queries"):
             state, int4_sl = int4_slice(card, ctx, dev)
             launches["scan_int4"] = int4_sl["launches"]
         with phase("int4 batch path"):
@@ -2494,6 +2763,11 @@ def main(argv=None) -> int:
         with phase("int2 with the int4 companion: retier, self-audit, 16 CLI queries, a batch of each mix"):
             int2_int4_slice(card, state, ctx, dev, args.audit_case)
         state.close()
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        with phase("delta: the adopted int2 state changed through the hooks, a delta, a build from it"):
+            delta_gate(card, ctx, dev)
     note_peak()
     log(f"max_memory_allocated {PEAK_BYTES[0] / 2**30:.3f} GiB  [{card}]")
     log(f"kernel launches on the main paths: {launches}")

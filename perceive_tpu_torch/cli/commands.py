@@ -1,5 +1,5 @@
-"""CLI command handlers: the ``source`` commands, ``refresh`` and ``search``
-of perceive_tpu/cli/commands.py.
+"""CLI command handlers: the ``source`` commands, ``refresh``, ``search`` and
+``snapshot`` of perceive_tpu/cli/commands.py.
 
 Fixes over the reference are the JAX package's: working `refresh`
 (cmd.rs:31 stub) and `source edit` (cmd/source.rs:114 stub).
@@ -168,8 +168,43 @@ def _run_scan(state, src: Source, compare_strategy: Optional[ItemCompareStrategy
         f"(scan {s['scan_time']}s read {s['read_time']}s encode {s['encode_time']}s "
         f"write {s['write_time']}s)"
     )
-    # no _autosave_snapshot(state) here as in the JAX package: the port has no snapshots yet
+    # persist only when the scan changed the index: a periodic refresh of an
+    # unchanged corpus must not rewrite the snapshot every tick
+    if ok and (s["added"] or s["changed"] or removed):
+        _autosave_snapshot(state)
     return ok
+
+
+# Persist the device matrix after scans once the corpus is big enough that a
+# cold rebuild (a full BLOB scan) is slower than a snapshot load.
+SNAPSHOT_MIN_ROWS = 50_000
+
+
+def _snapshot_path(state) -> str:
+    from ..paths import data_dir
+
+    return str(data_dir() / f"matrix-{state.model.model_id}-{state.model.model_version}.npz")
+
+
+def _autosave_snapshot(state, min_rows: Optional[int] = None) -> None:
+    # the module global is read at call time, so the threshold stays tunable
+    min_rows = SNAPSHOT_MIN_ROWS if min_rows is None else min_rows
+    if state.searcher is None or len(state.searcher.matrix) < min_rows:
+        return
+    try:
+        state.searcher.save_snapshot(state.db, _snapshot_path(state))
+    except Exception as e:  # noqa: BLE001 — a snapshot is an optimization
+        print(f"snapshot save failed: {e}", file=sys.stderr)
+
+
+def snapshot_cmd(state, args) -> None:
+    """Save the device matrix for a fast startup."""
+    if state.searcher is None:
+        print("searcher not built", file=sys.stderr)
+        return
+    path = args.path or _snapshot_path(state)
+    state.searcher.save_snapshot(state.db, path)
+    print(f"Saved {len(state.searcher.matrix)} vectors to {path}")
 
 
 def source_scan(state, args) -> None:

@@ -2,8 +2,9 @@
 
 Port of perceive_tpu/cli/main.py, holding the ``source`` subcommands
 (add fs|browser-history|bookmarks, list, scan, reprocess, rebuild-search,
-remove, edit), ``refresh`` and ``search``, with the JAX package's flags and
-defaults.  The other subcommands are later work (ROADMAP.md queue 1).
+remove, edit), ``refresh``, ``search`` and ``snapshot``, with the JAX
+package's flags and defaults.  The other subcommands are later work
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -111,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     pq.add_argument("--source", help="restrict to one source by name")
     pq.add_argument("--like", help="item id: find items similar to this one")
     pq.add_argument("--json", action="store_true", help="machine-readable output")
+
+    # snapshot
+    psnap = sub.add_parser("snapshot", help="save the device matrix for fast startup")
+    psnap.add_argument("path", nargs="?", default=None)
     return p
 
 
@@ -132,6 +137,8 @@ def dispatch(state, args) -> None:
         commands.refresh(state, args)
     elif args.command == "search":
         commands.search(state, args)
+    elif args.command == "snapshot":
+        commands.snapshot_cmd(state, args)
 
 
 def main(argv: Optional[Sequence[str]] = None, state=None) -> int:

@@ -21,7 +21,11 @@ The stored bytes and keys are the JAX package's: f32 little-endian BLOBs,
 of ROW_ALIGN, widths padded to LANE_ALIGN, the same prefix-sweep ladder,
 and the int8 tier's per-row symmetric quantization (``_quantize``), the
 int4 tier's nibble packing (``_quantize4``) and the int2 tier's 2-bit
-packing (``_quantize2``).  Snapshots are later work (ROADMAP.md queue 1).
+packing (``_quantize2``).  Snapshots are the JAX package's format v2, byte
+for byte (``save_snapshot``): a zip of .npy members with the f32 rows and,
+at the quantized tiers, the stored payload that ``adopt_snapshot`` copies
+into the device layouts without re-quantizing; a delta file carries the
+rows changed and the keys removed since its base.
 
 Device updates happen in place on the current stream, so a sweep enqueued
 before an update reads the old rows and one enqueued after reads the new
@@ -32,7 +36,9 @@ its sweep and its host-side decode.
 from __future__ import annotations
 
 import os
+import sys
 import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -248,6 +254,28 @@ class HostMirror:
             pass
 
 
+# bytes per chunk of the adopt's mirror copy (_mirror_copy_from)
+_MIRROR_COPY_CHUNK_BYTES = 64 * 2**20
+
+# rows a transposed copy moves at a time: numpy's strided copy of a whole
+# (1M, 384) int8 chunk into (384, N) columns runs about 15x slower
+_TRANSPOSE_BLOCK_ROWS = 8192
+
+
+def _put_transposed(dst: np.ndarray, lo: int, rows: np.ndarray) -> None:
+    """``dst[:, lo:lo + len(rows)] = rows.T``, a block of rows at a time."""
+    for b in range(0, len(rows), _TRANSPOSE_BLOCK_ROWS):
+        blk = rows[b : b + _TRANSPOSE_BLOCK_ROWS]
+        dst[:, lo + b : lo + b + len(blk)] = blk.T
+
+
+class SnapshotDeviceError(RuntimeError):
+    """Copying an adopted snapshot's payload to the device failed.  Unlike a
+    corrupt or foreign file, which falls back to a load from SQLite, this
+    is a fault of the device (out of memory, a layout the checks missed)
+    and reaches the caller."""
+
+
 _STORED_DTYPES = (torch.bfloat16, torch.float32, torch.int8, INT4, INT2)
 
 
@@ -368,6 +396,8 @@ class EmbeddingMatrix:
         self.capacity = _round_up(max(capacity, row_align), row_align)
         self.device = torch.device(device)
         self._lock = threading.RLock()
+        # serializes save_snapshot as a whole (never held by queries)
+        self._snapshot_io_lock = threading.Lock()
 
         self.rows = 0  # high-water mark of allocated rows
         self._free: list[int] = []
@@ -401,6 +431,10 @@ class EmbeddingMatrix:
         self._mirror = HostMirror(self.capacity, self.padded_dim)
         self._dirty = True  # full upload needed (first sync / growth)
         self._dirty_rows: set[int] = set()
+        # rows changed and keys removed since the last full snapshot (the
+        # delta form); None = too much churn, the next save is a full base
+        self._delta_rows: Optional[set[int]] = set()
+        self._delta_removed: set[int] = set()
         self._device_vectors: Optional[torch.Tensor] = None
         self._device_source_ids: Optional[torch.Tensor] = None
         self._device_scales: Optional[torch.Tensor] = None  # int8, int4 and int2 tiers
@@ -520,8 +554,8 @@ class EmbeddingMatrix:
             hi = min(lo + chunk, cap)
             vals = self._mirror.read_f32(slice(lo, hi))
             for (quantize, _, _), (m, sc) in zip(layouts, staged):
-                packed, scales = quantize(vals)
-                m[:, lo:hi], sc[lo:hi] = packed.T, scales
+                packed, sc[lo:hi] = quantize(vals)
+                _put_transposed(m, lo, packed)
         (m, sc), *companion = [(torch.from_numpy(m).to(self.device), torch.from_numpy(sc).to(self.device))
                                for m, sc in staged]
         self._device_vectors, self._device_scales = m, sc
@@ -640,6 +674,7 @@ class EmbeddingMatrix:
             self._mirror.write(rows, vectors, self.dim)
             if not self._dirty:
                 self._dirty_rows.update(rows.tolist())
+            self._note_delta(rows)
             if len(item_ids):
                 self.mutation_gen += 1
             if self.quantized and len(vectors):
@@ -667,6 +702,8 @@ class EmbeddingMatrix:
                     self.item_ids[row] = -1
                     if not self._dirty:
                         self._dirty_rows.add(int(row))
+                    self._note_delta((int(row),))
+                    self._note_removed(key)
                     self._free.append(int(row))
                     n += 1
             if n:
@@ -706,10 +743,38 @@ class EmbeddingMatrix:
                     if not self._dirty:
                         self._dirty_rows.update(dsts.tolist())
                         self._dirty_rows.update(srcs.tolist())
+                    self._note_delta(dsts)
+                    self._note_delta(srcs)
                     moved = len(srcs)
                 self.rows = live
             self._free = [int(r) for r in np.nonzero(self.item_ids[: self.rows] < 0)[0]]
             return moved
+
+    def _note_delta(self, rows) -> None:
+        """Track rows changed since the last full snapshot; past the churn
+        threshold the sets drop and the next save is a full base."""
+        if self._delta_rows is None:
+            return
+        self._delta_rows.update(int(r) for r in rows)
+        self._delta_overflow_check()
+
+    def _note_removed(self, key: int) -> None:
+        """Track a key removed since the last full snapshot: a delta must
+        carry removals, or ``load_snapshot`` (which has no database to
+        reconcile against) would resurrect the item."""
+        if self._delta_rows is None:
+            return
+        self._delta_removed.add(int(key))
+        self._delta_overflow_check()
+
+    def _delta_overflow_check(self) -> None:
+        if (
+            self._delta_rows is not None
+            and len(self._delta_rows) + len(self._delta_removed)
+            > min(max(self.rows, 1024) // 4, 2_000_000)
+        ):
+            self._delta_rows = None
+            self._delta_removed = set()
 
     def _note_quant_stats(self, vectors: np.ndarray) -> None:
         """Raise the high-water quantization step and row norm with a batch
@@ -748,6 +813,29 @@ class EmbeddingMatrix:
                     if len(v):
                         self._note_quant_stats(v)
 
+    def clear(self) -> None:
+        """Drop every row and the delta tracking (a failed snapshot load
+        falls back to a rebuild from SQLite, which must not inherit the
+        partly loaded rows)."""
+        with self._lock:
+            self.rows = 0
+            self._free.clear()
+            self.row_of.clear()
+            self.groups.clear()
+            self.multi_chunk_groups = 0
+            self.item_ids[:] = -1
+            self.source_ids[:] = -1
+            self._dirty = True
+            self._dirty_rows.clear()
+            # None, not fresh sets: the rebuild's mutations are not relative
+            # to any base on disk, and a delta written against the old base
+            # would omit the removals recorded only in the discarded state
+            self._delta_rows = None
+            self._delta_removed = set()
+            # every row index is open to reuse again: in-flight searches retry
+            self.reuse_gen += 1
+            self.mutation_gen += 1
+
     def keys_of_group(self, item_id: int) -> list[int]:
         """All chunk keys currently stored for an item."""
         g = self.groups.get(item_id)
@@ -767,9 +855,11 @@ class EmbeddingMatrix:
             self.item_ids[rows] = -1
             if not self._dirty:
                 self._dirty_rows.update(rows.tolist())
+            self._note_delta(rows)
             for key in keys:
                 self.row_of.pop(key, None)
                 self._drop_key(key)
+                self._note_removed(key)
             self._free.extend(int(r) for r in rows)
             self.mutation_gen += 1
             self._maybe_compact()
@@ -777,3 +867,716 @@ class EmbeddingMatrix:
 
     def __len__(self) -> int:
         return len(self.row_of)
+
+    # -- snapshots (format v2, the vector_shards manifest) ----------------------
+
+    @property
+    def dtype_name(self) -> str:
+        """The ``tier`` string a snapshot stores and ``adopt_snapshot`` gates
+        on, the JAX package's: ``bfloat16``, ``float32``, ``int8``, ``int4``
+        or ``int2`` (never ``tier_name``'s ``int2+int8fine``)."""
+        return self.dtype if isinstance(self.dtype, str) else str(self.dtype).removeprefix("torch.")
+
+    def save_snapshot(self, path: str, *, incremental: bool = True, payload: bool = True) -> str:
+        """Persist the matrix to ``path`` (an .npz) for a fast startup.
+        Returns "full" or "delta".
+
+        * **full** (format v2): the f32 rows, and with ``payload`` at a
+          quantized tier the stored payload (tier bytes and scales), which a
+          reload at the same tier adopts as is.  Written in row chunks with
+          the lock held per chunk copy only, never across file writes: rows
+          changed after their chunk was copied are newer than the manifest's
+          max_seq and replay on load, and a tombstone reused mid-save (which
+          could pair a vector with the wrong key) fails the publish check,
+          so the save retries and finally holds the lock throughout.
+        * **delta**: with a base on disk and little churn since, only the
+          rows changed and keys removed since the base go to ``path +
+          ".delta"`` (cumulative, replaced at each save).
+        * Both assemble at a temp path and ``os.replace``: a crash mid-save
+          leaves the previous snapshot whole.  Each base carries a random
+          ``base_token`` and each delta its base's token, so a delta is only
+          ever applied to the base it extends.
+        """
+        # two concurrent saves would share the temp file
+        with self._snapshot_io_lock:
+            return self._save_snapshot_locked(path, incremental=incremental, payload=payload)
+
+    def _save_snapshot_locked(self, path: str, *, incremental: bool, payload: bool = True) -> str:
+        delta_path = path + ".delta"
+        with self._lock:
+            has_delta_tracking = self._delta_rows is not None
+        token, fmt, tier = self._snapshot_base_info(path)
+        if incremental and has_delta_tracking and token is not None:
+            if payload and (fmt < 2 or tier != self.dtype_name):
+                # a pre-v2 base, or one of another tier (a retier since):
+                # a delta would extend a base that adopt refuses, so write
+                # a full base in the current tier instead
+                pass
+            # _write_delta re-checks the tracking under its lock: an
+            # overflow racing the check above demotes to a full save
+            elif self._write_delta(delta_path, token):
+                return "delta"
+        new_token = os.urandom(16).hex()
+        for attempt in range(3):
+            if self._write_full_snapshot(path, locked=attempt == 2, token=new_token, payload=payload):
+                break
+        # a leftover delta belongs to the previous base (its token no longer
+        # matches, so a load ignores it even if this unlink never happens)
+        if os.path.exists(delta_path):
+            os.unlink(delta_path)
+        return "full"
+
+    @staticmethod
+    def _snapshot_base_info(path: str):
+        """(base_token, fmt, tier) of a base from one parse of its zip
+        directory; (None, 0, None) for a missing, legacy or corrupt file."""
+        token, fmt, tier = None, 0, None
+        try:
+            with np.load(path) as z:
+                files = set(getattr(z, "files", []))
+                if "base_token" in files:
+                    token = str(z["base_token"])
+                if "fmt" in files:
+                    fmt = int(z["fmt"])
+                if "tier" in files:
+                    tier = str(z["tier"])
+        except Exception:  # noqa: BLE001 — any unreadable base counts as none
+            pass
+        return token, fmt, tier
+
+    @classmethod
+    def _snapshot_token(cls, path: str):
+        return cls._snapshot_base_info(path)[0]
+
+    @staticmethod
+    def _replace_into(path: str, write_fn) -> None:
+        """Assemble a file at a temp sibling, then atomically replace."""
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            write_fn(tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+    def _write_full_snapshot(self, path: str, *, locked: bool, token: str, payload: bool = True) -> bool:
+        """Stream a full base.  True when it was published, False when a
+        tombstone reuse raced the stream (nothing on disk was replaced; the
+        caller retries).
+
+        The delta tracking restarts in the same lock acquisition that
+        captures the row state: a remove landing during the stream must
+        reach the next delta, since the captured base still holds its key.
+        An attempt that does not publish merges the old sets back, so the
+        old base's delta stays cumulative."""
+        import contextlib
+        import zipfile
+
+        from numpy.lib import format as npf
+
+        outer = self._lock if locked else contextlib.nullcontext()
+        with outer:
+            with self._lock:
+                gen = self.reuse_gen
+                rows = self.rows
+                item_ids = self.item_ids[:rows].copy()
+                source_ids = self.source_ids[:rows].copy()
+                scale_hw, norm_hw = self.scale_hw, self.norm_hw
+                old_delta_rows = self._delta_rows
+                old_delta_removed = self._delta_removed
+                self._delta_rows = set()
+                self._delta_removed = set()
+
+            published = False
+            try:
+
+                def stream_quantized(zf, name: str, descr: str, width: int, quant_fn) -> np.ndarray:
+                    """One payload member: mirror row chunks (the full padded
+                    width: the quantizers cut their planes out of it)
+                    quantized under short locks and written; returns the
+                    per-row scales.  A row changed mid-stream diverges here
+                    as in the f32 member and replays over both on load."""
+                    scales = np.empty((rows,), np.float32)
+                    with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                        npf.write_array_header_1_0(
+                            f, {"descr": descr, "fortran_order": False, "shape": (rows, width)}
+                        )
+                        for lo in range(0, rows, self._SYNC_CHUNK_ROWS):
+                            hi = min(lo + self._SYNC_CHUNK_ROWS, rows)
+                            with self._lock:
+                                chunk = self._mirror.read_f32(slice(lo, hi))
+                            q, s = quant_fn(chunk)
+                            f.write(np.ascontiguousarray(q).tobytes())
+                            scales[lo:hi] = s
+                    return scales
+
+                def write(tmp: str) -> None:
+                    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+                        for name, arr in (
+                            ("dim", np.int64(self.dim)),
+                            ("fmt", np.int64(2)),
+                            ("tier", np.str_(self.dtype_name)),
+                            ("scale_hw", np.float32(scale_hw)),
+                            ("norm_hw", np.float32(norm_hw)),
+                            ("base_token", np.str_(token)),
+                            ("item_ids", item_ids),
+                            ("source_ids", source_ids),
+                        ):
+                            with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                                npf.write_array(f, np.asarray(arr), allow_pickle=False)
+                        # the f32 rows stream chunk by chunk under a short lock
+                        with zf.open("vectors.npy", "w", force_zip64=True) as f:
+                            npf.write_array_header_1_0(
+                                f, {"descr": "<f4", "fortran_order": False, "shape": (rows, self.dim)}
+                            )
+                            for lo in range(0, rows, self._SYNC_CHUNK_ROWS):
+                                hi = min(lo + self._SYNC_CHUNK_ROWS, rows)
+                                with self._lock:
+                                    chunk = self._mirror.read_f32(slice(lo, hi), self.dim)
+                                f.write(np.ascontiguousarray(chunk).tobytes())
+                        if payload and self.quantized and rows:
+                            pd = self.padded_dim
+                            if self.packed2:
+                                fb = int2_fine_bits(self.capacity, pd, self.device)
+                                names = [
+                                    ("q_coarse", "|u1", pd // 4, lambda v: _quantize2(v, self.dim)),
+                                    ("q_fine", "|i1" if fb == 8 else "|u1", pd if fb == 8 else pd // 2,
+                                     _quantize if fb == 8 else _quantize4),
+                                ]
+                            elif self.packed4:
+                                names = [("q_vectors", "|u1", pd // 2, _quantize4)]
+                            else:  # int8
+                                names = [("q_vectors", "|i1", pd, _quantize)]
+                            for name, descr, width, fn in names:
+                                s = stream_quantized(zf, name, descr, width, fn)
+                                with zf.open(name + "_scales.npy", "w", force_zip64=True) as f:
+                                    npf.write_array(f, s, allow_pickle=False)
+
+                tmp = f"{path}.tmp.{os.getpid()}"
+                try:
+                    write(tmp)
+                    # every reuse_gen bump holds the lock, so an unchanged gen
+                    # here proves no tombstone was reused before the replace
+                    with self._lock:
+                        if self.reuse_gen == gen:
+                            os.replace(tmp, path)
+                            published = True
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+            finally:
+                if not published:
+                    with self._lock:
+                        if old_delta_rows is None:
+                            # tracking had overflowed before the capture: stay
+                            # in forced-full-save mode
+                            self._delta_rows = None
+                            self._delta_removed = set()
+                        elif self._delta_rows is not None:
+                            self._delta_rows |= old_delta_rows
+                            self._delta_removed |= old_delta_removed
+                            self._delta_overflow_check()
+            return published
+
+    def _write_delta(self, delta_path: str, token: str) -> bool:
+        """Cumulative delta since the last full base: the (chunk keys,
+        source ids, f32 rows) of every row changed since it and the keys
+        removed since it, applied on load by remove-then-upsert (so row
+        numbers need not match the base's).  Carries the base's token.
+
+        The changed rows, the removed keys and the row contents are captured
+        under one lock acquisition: a remove between two acquisitions could
+        miss ``removed_keys`` while the base still holds the key.  Returns
+        False (nothing written; the caller saves a full base) when the
+        tracking overflowed since the caller's check."""
+        with self._lock:
+            if self._delta_rows is None:
+                return False
+            idx = np.asarray(sorted(self._delta_rows), dtype=np.int64)
+            removed = sorted(self._delta_removed)
+            item_ids = self.item_ids[idx].copy()
+            source_ids = self.source_ids[idx].copy()
+            vectors = self._mirror.read_f32(idx, self.dim)
+
+        import zipfile
+
+        from numpy.lib import format as npf
+
+        def write_zip(tmp: str) -> None:
+            with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+                for name, arr in (
+                    ("dim", np.int64(self.dim)),
+                    ("base_token", np.str_(token)),
+                    ("item_ids", item_ids),
+                    ("source_ids", source_ids),
+                    ("vectors", vectors),
+                    ("removed_keys", np.asarray(removed, dtype=np.int64)),
+                ):
+                    with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                        npf.write_array(f, np.asarray(arr), allow_pickle=False)
+
+        self._replace_into(delta_path, write_zip)
+        return True
+
+    # rows per chunk when streaming snapshot members back in (1M x 384 f32 is
+    # ~1.5 GB of transient, whatever the corpus size)
+    _LOAD_CHUNK_ROWS = 1_048_576
+
+    @staticmethod
+    def _member_mmap(path: str, name: str, fh=None):
+        """Read-only memmap over the data bytes of a ZIP_STORED 2-D .npy
+        member, or None when the member is absent, compressed or of another
+        layout.  The zip reader copies in small chunks and checks every
+        byte's CRC; the members written here are stored, so their bytes lie
+        contiguous in the file.  No CRC check on this path: the snapshot is
+        a cache over SQLite, and the structural checks (token, dim, shapes)
+        still apply.
+
+        ``fh``: an open binary handle on the snapshot.  When given, both the
+        zip directory and the mapping use it, so every byte comes from one
+        inode even if ``path`` is replaced meanwhile (the callers thread one
+        handle through every member read: a base is never a mix of two
+        saves)."""
+        import struct
+        import zipfile
+
+        from numpy.lib import format as npf
+
+        f = None
+        try:
+            with zipfile.ZipFile(fh if fh is not None else path) as zf:
+                info = zf.getinfo(name + ".npy")
+                if info.compress_type != zipfile.ZIP_STORED:
+                    return None
+            f = fh if fh is not None else open(path, "rb")
+            f.seek(info.header_offset)
+            hdr = f.read(30)  # the local header (its name and extra lengths
+            # can differ from the central directory's)
+            if len(hdr) != 30 or hdr[:4] != b"PK\x03\x04":
+                return None
+            nlen, elen = struct.unpack("<HH", hdr[26:30])
+            f.seek(info.header_offset + 30 + nlen + elen)
+            version = npf.read_magic(f)
+            if version == (1, 0):
+                shape, fortran, descr = npf.read_array_header_1_0(f)
+            elif version == (2, 0):
+                shape, fortran, descr = npf.read_array_header_2_0(f)
+            else:
+                return None
+            if fortran or len(shape) != 2:
+                return None
+            return np.memmap(f, dtype=np.dtype(descr), mode="r", offset=f.tell(), shape=shape)
+        except Exception:  # noqa: BLE001 — the caller falls back to zipfile reads
+            return None
+        finally:
+            if f is not None and fh is None:
+                f.close()
+
+    @classmethod
+    def _iter_snapshot_member(cls, path: str, name: str, want_dtype, chunk_rows: int, fh=None):
+        """(lo, hi, rows) chunks of a 2-D .npy member, never the whole array
+        at once.  Chunks of the mapped path are read-only views: consumers
+        copy them into their destination, one file-to-destination copy."""
+        import zipfile
+
+        from numpy.lib import format as npf
+
+        want = np.dtype(want_dtype)
+        mapped = cls._member_mmap(path, name, fh)
+        if mapped is not None and mapped.dtype == want:
+            rows = mapped.shape[0]
+            for lo in range(0, rows, chunk_rows):
+                hi = min(lo + chunk_rows, rows)
+                yield lo, hi, mapped[lo:hi]
+            return
+        with zipfile.ZipFile(fh if fh is not None else path) as zf, zf.open(name + ".npy") as f:
+            version = npf.read_magic(f)
+            if version == (1, 0):
+                shape, fortran, descr = npf.read_array_header_1_0(f)
+            elif version == (2, 0):
+                shape, fortran, descr = npf.read_array_header_2_0(f)
+            else:  # an unknown format: np.load reads it whole
+                if fh is not None:
+                    fh.seek(0)
+                data = np.load(fh if fh is not None else path)[name]
+                yield 0, data.shape[0], np.asarray(data, dtype=want)
+                return
+            rows, dim = shape
+            if fortran or np.dtype(descr) != want:
+                data = np.frombuffer(f.read(), dtype=descr).reshape(shape)
+                yield 0, rows, data.astype(want, copy=False)
+                return
+            row_bytes = dim * want.itemsize
+            for lo in range(0, rows, chunk_rows):
+                hi = min(lo + chunk_rows, rows)
+                buf = f.read((hi - lo) * row_bytes)
+                yield lo, hi, np.frombuffer(buf, dtype=want).reshape(hi - lo, dim)
+
+    @classmethod
+    def _iter_snapshot_vectors(cls, path: str, chunk_rows: int, fh=None):
+        """(lo, hi, f32 rows) chunks of the ``vectors`` member."""
+        return cls._iter_snapshot_member(path, "vectors", "<f4", chunk_rows, fh)
+
+    @staticmethod
+    def _snapshot_member_shape(path: str, name: str, fh=None):
+        """Shape of one .npy member from its header alone; None when the
+        member is absent or unreadable."""
+        import zipfile
+
+        from numpy.lib import format as npf
+
+        try:
+            with zipfile.ZipFile(fh if fh is not None else path) as zf, zf.open(name + ".npy") as f:
+                version = npf.read_magic(f)
+                if version == (1, 0):
+                    return npf.read_array_header_1_0(f)[0]
+                if version == (2, 0):
+                    return npf.read_array_header_2_0(f)[0]
+        except Exception:  # noqa: BLE001
+            pass
+        return None
+
+    def adopt_snapshot(self, path: str) -> bool:
+        """Restore a format-v2 base into this fresh, empty matrix as stored:
+        the row layout (tombstones, row numbers, free list) is copied as is
+        and the device tensors come from the payload members, with no
+        per-row upsert and no quantization pass.  Returns False, changing
+        nothing but the capacity, when the base is v1 or foreign, its tier
+        or dim differs from this matrix's, its int2 companion is not the
+        width ``int2_fine_bits`` gives on this device, or the matrix already
+        holds rows: the caller then streams the f32 rows through ``upsert``,
+        which handles all of those.
+
+        Rows that changed while the base was written diverge from its
+        payload as from its f32 member; the seq replay or the delta heals
+        both (Searcher._load_snapshot).  Every byte is read through one open
+        handle, so a concurrent save replacing ``path`` cannot mix two bases
+        into the adopted state."""
+        try:
+            fh = open(path, "rb")
+        except OSError:
+            return False
+        with fh:
+            return self._adopt_snapshot_fh(path, fh)
+
+    def _adopt_snapshot_fh(self, path: str, fh) -> bool:
+        fh.seek(0)  # np.load sniffs the zip magic from the current position
+        z = np.load(fh)
+        files = set(getattr(z, "files", []))
+        # exact-version gate: a later format may re-encode the payload under
+        # the same member names
+        if "fmt" not in files or int(z["fmt"]) != 2:
+            return False
+        if int(z["dim"]) != self.dim or str(z["tier"]) != self.dtype_name:
+            return False
+        item_ids = np.asarray(z["item_ids"], np.int64)
+        source_ids = np.asarray(z["source_ids"], np.int32)
+        n = int(len(item_ids))
+        pd = self.padded_dim
+        with self._lock:
+            if self.rows or self.row_of:
+                return False
+            # grow first, then check the payload against the capacity the
+            # growth policy really gives (an empty grown matrix stays valid)
+            self._grow(max(n, 1))
+            if self.quantized and n:
+                if self.packed2:
+                    if not {"q_coarse", "q_coarse_scales", "q_fine", "q_fine_scales"} <= files:
+                        return False
+                    fb = int2_fine_bits(self.capacity, pd, self.device)
+                    if self._snapshot_member_shape(path, "q_fine", fh) != (n, pd if fb == 8 else pd // 2):
+                        return False  # the stored companion is not this device's
+                    if self._snapshot_member_shape(path, "q_coarse", fh) != (n, pd // 4):
+                        return False
+                else:
+                    if not {"q_vectors", "q_vectors_scales"} <= files:
+                        return False
+                    want_w = pd // 2 if self.packed4 else pd
+                    if self._snapshot_member_shape(path, "q_vectors", fh) != (n, want_w):
+                        return False
+            self.item_ids[:n] = item_ids
+            self.source_ids[:n] = source_ids
+            self.rows = n
+            live_mask = source_ids >= 0
+            live_rows = np.flatnonzero(live_mask)
+            keys = item_ids[live_mask]
+            self.row_of = dict(zip(keys.tolist(), live_rows.tolist()))
+            # the chunk-group index, by upsert's rule: only items with a key
+            # off chunk 0 get an entry
+            gm: dict[int, set] = {}
+            for k in keys[keys % CHUNK_STRIDE != 0].tolist():
+                gm.setdefault(k // CHUNK_STRIDE, set()).add(int(k))
+            for iid, g in gm.items():
+                k0 = iid * CHUNK_STRIDE
+                if k0 in self.row_of:
+                    g.add(k0)
+            self.groups = gm
+            self.multi_chunk_groups = sum(1 for g in gm.values() if len(g) > 1)
+            self._free = np.flatnonzero(~live_mask).tolist()
+            if "scale_hw" in files:
+                self.scale_hw = float(z["scale_hw"])
+                self.norm_hw = float(z["norm_hw"])
+            # the f32 mirror pass (page-in and copy) runs on a worker thread
+            # while this one stages the payload and copies it to the device.
+            # Both read through positionless memmaps of the one handle, so
+            # the threads never share a file position; the mirror belongs to
+            # this adopt alone (the lock is held and the matrix was empty),
+            # and a worker's exception re-raises here after the join.  The
+            # mirror source is resolved on this thread, since locating the
+            # member seeks the handle; a vectors member that cannot be
+            # mapped is copied afterwards by the streaming reader.
+            t_dev = time.perf_counter()
+            mapped = self._member_mmap(path, "vectors", fh)
+            if mapped is not None and mapped.dtype != np.dtype("<f4"):
+                mapped = None
+            mirror_err: list[BaseException] = []
+
+            def _mirror_pass() -> None:
+                try:
+                    self._mirror_copy_from(mapped)
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    mirror_err.append(e)
+
+            mt = None
+            if mapped is not None:
+                mt = threading.Thread(target=_mirror_pass, name="adopt-mirror")
+                mt.start()
+            try:
+                if self.quantized and n:
+                    self._adopt_device(z, path, n, fh)
+                    self._device_source_ids = _to_device(self.source_ids.copy(), self.device)
+                    self._dirty = False
+                    self._dirty_rows.clear()
+                else:
+                    # bf16 and f32 store no payload: the first sync casts the mirror
+                    self._dirty = True
+            finally:
+                t_stage = time.perf_counter()
+                if mt is not None:
+                    mt.join()
+            if mirror_err:
+                raise mirror_err[0]
+            if mapped is None:
+                for lo, hi, vecs in self._iter_snapshot_vectors(path, self._LOAD_CHUNK_ROWS, fh):
+                    self._mirror.write(slice(lo, hi), vecs, self.dim)
+            if os.environ.get("PERCEIVE_TPU_DEBUG_STARTUP"):
+                print(
+                    f"adopt phases: stage+copy {t_stage - t_dev:.2f}s  mirror-wait "
+                    f"{time.perf_counter() - t_stage:.2f}s  overlapped={mapped is not None}  (n={n})",
+                    file=sys.stderr,
+                )
+            self._mirror.remap()  # drop a spilled mirror's bulk-load page residency
+            self.mutation_gen += 1
+        return True
+
+    def _mirror_copy_from(self, mapped) -> None:
+        """Copy the snapshot's f32 ``vectors`` member (a positionless
+        memmap) into the host mirror.  A plain chunk loop waits on a page
+        fault per source page, and per destination page of a spilled
+        mirror; so ``madvise`` (MADV_SEQUENTIAL over the member, WILLNEED
+        per chunk ahead of its copy) and a few workers
+        (PERCEIVE_TPU_MIRROR_THREADS, default 4) taking chunks off one
+        counter: numpy's copy releases the GIL, so the workers overlap
+        their IO waits even on one core.  Workers write disjoint rows of a
+        mirror no one else holds during the adopt."""
+        import mmap as _mmapmod
+
+        rows_m = int(mapped.shape[0])
+        if rows_m == 0:
+            return
+        rowbytes = int(mapped.shape[1]) * mapped.dtype.itemsize
+        chunk = max(1, _MIRROR_COPY_CHUNK_BYTES // max(rowbytes, 1))
+        mm = getattr(mapped, "_mmap", None)
+        base_off = 0
+        if mm is not None:
+            try:
+                base_off = int(mapped.offset) % _mmapmod.ALLOCATIONGRANULARITY
+                mm.madvise(_mmapmod.MADV_SEQUENTIAL)
+            except (AttributeError, ValueError, OSError):
+                mm = None  # advisory only
+
+        def _advise(lo: int, hi: int) -> None:
+            if mm is None:
+                return
+            try:
+                ps = _mmapmod.PAGESIZE
+                start = base_off + lo * rowbytes
+                end = min(base_off + hi * rowbytes, len(mm))
+                start -= start % ps
+                if end > start:
+                    mm.madvise(_mmapmod.MADV_WILLNEED, start, end - start)
+            except (ValueError, OSError):
+                pass
+
+        nchunks = -(-rows_m // chunk)
+        try:
+            nthreads = int(os.environ.get("PERCEIVE_TPU_MIRROR_THREADS", "4"))
+        except ValueError:
+            nthreads = 4
+        nthreads = max(1, min(nthreads, nchunks))
+
+        def _copy_chunk(ci: int) -> None:
+            lo = ci * chunk
+            hi = min(lo + chunk, rows_m)
+            _advise(lo, hi)
+            self._mirror.write(slice(lo, hi), mapped[lo:hi], self.dim)
+
+        if nthreads == 1:
+            for ci in range(nchunks):
+                _copy_chunk(ci)
+            return
+        counter = iter(range(nchunks))
+        clock = threading.Lock()
+        errs: list[BaseException] = []
+
+        def _worker() -> None:
+            while True:
+                with clock:
+                    ci = next(counter, None)
+                if ci is None or errs:
+                    return
+                try:
+                    _copy_chunk(ci)
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    errs.append(e)
+                    return
+
+        workers = [threading.Thread(target=_worker, name=f"adopt-mirror-{i}") for i in range(nthreads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        if errs:
+            raise errs[0]
+
+    def _adopt_device(self, z, path: str, n: int, fh=None) -> None:
+        """The device tensors from the payload members: the host arrays
+        that ``_stage_full_transposed`` (int4, int2) or ``sync`` (int8)
+        would stage, then one copy each to the device.  Int8 is row-major
+        (capacity, padded_dim); int4 the (padded_dim / 2, capacity) packed
+        matrix; int2 the (padded_dim / 4, capacity) coarse matrix and its
+        int8 (padded_dim, capacity) or packed int4 (padded_dim / 2,
+        capacity) companion.  Rows past ``n`` hold what the quantizer makes
+        of the mirror's zero rows there, as a staging from the mirror
+        would; their source id is -1, so they never score."""
+        cap, pd = self.capacity, self.padded_dim
+        chunk = self._LOAD_CHUNK_ROWS
+        zero = np.zeros((1, pd), np.float32)
+
+        def scales_of(name, tail):
+            s = np.empty((cap,), np.float32)
+            s[:n] = z[name]
+            s[n:] = tail
+            return _to_device(s, self.device)
+
+        def transposed(name, width, dtype, quantize):
+            q0, s0 = quantize(zero)
+            staged = np.empty((width, cap), dtype)
+            for lo, hi, q in self._iter_snapshot_member(path, name, dtype, chunk, fh):
+                _put_transposed(staged, lo, q)
+            staged[:, n:] = q0.T
+            return _to_device(staged, self.device), scales_of(name + "_scales", s0[0])
+
+        if self.packed2:
+            fine_w = self._snapshot_member_shape(path, "q_fine", fh)[1]
+            fine = (np.int8, _quantize) if fine_w == pd else (np.uint8, _quantize4)
+            self._device_vectors, self._device_scales = transposed(
+                "q_coarse", pd // 4, np.uint8, lambda v: _quantize2(v, self.dim)
+            )
+            self._device_fine, self._device_fine_scales = transposed("q_fine", fine_w, *fine)
+        elif self.packed4:
+            self._device_vectors, self._device_scales = transposed("q_vectors", pd // 2, np.uint8, _quantize4)
+        else:  # int8, row-major
+            q0, s0 = _quantize(zero)
+            staged = np.empty((cap, pd), np.int8)
+            for lo, hi, q in self._iter_snapshot_member(path, "q_vectors", np.int8, chunk, fh):
+                staged[lo:hi] = q
+            staged[n:] = q0
+            self._device_vectors = _to_device(staged, self.device)
+            self._device_scales = scales_of("q_vectors_scales", s0[0])
+
+    @classmethod
+    def load_snapshot(cls, path: str, *, device: torch.device | str, dtype=torch.bfloat16) -> "EmbeddingMatrix":
+        """A new matrix on ``device`` from a base and its delta: adopted at
+        the base's tier, else the f32 rows streamed through ``upsert``.
+        Raises ValueError when a delta exists but cannot be trusted."""
+        with open(path, "rb") as fh:
+            z = np.load(fh)
+            dim = int(z["dim"])
+            token = str(z["base_token"]) if "base_token" in getattr(z, "files", []) else None
+            # the row count from the member header: the ids themselves are
+            # read only by the streaming fallback
+            shape = cls._snapshot_member_shape(path, "item_ids", fh)
+            rows = int(shape[0]) if shape else len(z["item_ids"])
+            m = cls(dim, device=device, dtype=dtype, capacity=max(rows, 1))
+            if not m._adopt_snapshot_fh(path, fh):
+                item_ids, source_ids = z["item_ids"], z["source_ids"]
+                for lo, hi, vecs in cls._iter_snapshot_vectors(path, cls._LOAD_CHUNK_ROWS, fh):
+                    live = source_ids[lo:hi] >= 0
+                    if not live.any():
+                        continue
+                    m.upsert(
+                        item_ids[lo:hi][live].tolist(),
+                        source_ids[lo:hi][live].tolist(),
+                        vecs[live] if not live.all() else vecs,
+                    )
+        if m.apply_snapshot_delta(path, token) < 0:
+            # a delta exists but cannot be trusted: the bare base could lack
+            # the rows it carried and hold keys removed since, and there is
+            # no database here to rebuild from
+            raise ValueError(
+                f"snapshot delta {path}.delta is unusable (corrupt or unverifiable); "
+                "delete it or rebuild from the database"
+            )
+        return m
+
+    def apply_snapshot_delta(self, base_path: str, base_token: Optional[str] = None) -> int:
+        """Apply ``base_path + ".delta"`` when it exists and carries the
+        base's token.  Returns the live rows applied; 0 when there is no
+        delta or it is provably stale (its token names another base: a
+        newer base holds all an older delta carried); -1 when a delta
+        exists but cannot be trusted (corrupt, another dim, or a tokenless
+        legacy base), in which case the caller must rebuild from SQLite,
+        since delta saves advanced the manifest's max_seq past its rows.
+        Removals apply first, so a key removed and re-added ends live.
+
+        ``base_token``: the token read through the same handle the base was
+        loaded through; reading it again from ``base_path`` could see a
+        newer base, whose delta must not land on the older base's rows."""
+        delta_path = str(base_path) + ".delta"
+        if not os.path.exists(delta_path):
+            return 0
+        if base_token is None:
+            base_token = self._snapshot_token(base_path)
+        try:
+            z = np.load(delta_path)
+            if int(z["dim"]) != self.dim:
+                return -1
+            files = getattr(z, "files", [])
+            if base_token is None or "base_token" not in files:
+                return -1
+            if str(z["base_token"]) != base_token:
+                return 0
+            if "removed_keys" in files:
+                gone = [int(k) for k in z["removed_keys"]]
+                if gone:
+                    self.remove(gone)
+            live = z["source_ids"] >= 0
+            keys = z["item_ids"][live].tolist()
+            if keys:
+                self.upsert(keys, z["source_ids"][live].tolist(), z["vectors"][live])
+            return len(keys)
+        except Exception:  # noqa: BLE001 — a corrupt delta
+            return -1
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host array of an adopted snapshot on ``device``; a failure is
+    the device's (SnapshotDeviceError), never a reason to rebuild."""
+    try:
+        t = torch.from_numpy(arr).to(device)
+    except Exception as e:  # noqa: BLE001 — re-raised as the device's fault
+        raise SnapshotDeviceError(f"copying an adopted {arr.shape} {arr.dtype} array to {device} failed: {e}") from e
+    if tuple(t.shape) != arr.shape:
+        raise SnapshotDeviceError(f"adopted array {arr.shape} arrived as {tuple(t.shape)} on {device}")
+    return t

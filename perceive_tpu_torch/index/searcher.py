@@ -28,8 +28,11 @@ Whether the coarse pass serves at all is decided by a self-audit on the
 corpus (``audit_coarse``).  Scores are plain dot products (cosine when
 the model L2-normalizes).
 
-``build`` always loads from SQLite: snapshots are not ported yet, and any
-snapshot recorded in ``vector_shards`` is ignored.
+``build`` starts from the snapshot recorded in ``vector_shards`` where
+there is one (``save_snapshot``): a format-v2 base of the matrix's tier is
+adopted as stored, any other base streams its f32 rows, and only the
+embeddings written since replay from SQLite; without one it loads every
+row from SQLite.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from ..ops import int2 as int2_ops
 from ..ops import topk
 from ..ops.int2 import INT2_COARSE_FETCH
 from ..types import Item
-from .matrix import CHUNK_STRIDE, EmbeddingMatrix, chunk_key, deserialize_embedding, key_item
+from .matrix import CHUNK_STRIDE, EmbeddingMatrix, SnapshotDeviceError, chunk_key, deserialize_embedding, key_item
 
 K_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
 MAX_K = K_BUCKETS[-1]
@@ -169,6 +172,17 @@ class Searcher:
           AND ie.chunk_idx < {_CHUNK_STRIDE}
         WHERE items.skipped IS NULL AND items.hidden_at IS NULL
     """
+    # the replay after a snapshot: the embeddings written since its max seq,
+    # found through the seq index (the unary + keeps the planner off the
+    # primary key, through which it would read every row of the model to
+    # test seq)
+    _REPLAY_SQL = f"""
+        SELECT items.id, items.source_id, ie.embedding, ie.chunk_idx
+        FROM item_embeddings ie JOIN items ON items.id = ie.item_id
+        WHERE +ie.model_id = ? AND +ie.model_version = ? AND ie.seq > ?
+          AND ie.chunk_idx < {_CHUNK_STRIDE}
+          AND items.skipped IS NULL AND items.hidden_at IS NULL
+    """
 
     @classmethod
     def build(
@@ -180,11 +194,20 @@ class Searcher:
         *,
         device: torch.device | str,
         dtype: torch.dtype = torch.bfloat16,
+        use_snapshot: bool = True,
     ) -> "Searcher":
-        """Load every live embedding for (model_id, model_version) from
-        SQLite and stage the device matrix.  Snapshots are ignored."""
+        """Load every live embedding for (model_id, model_version) and stage
+        the device matrix: from the snapshot in ``vector_shards`` plus the
+        embeddings written after it (``_load_snapshot``) where there is one
+        and ``use_snapshot``, else every BLOB from SQLite."""
         dbg = os.environ.get("PERCEIVE_TPU_DEBUG_STARTUP")
         s = cls(model_id, model_version, dim, device=device, dtype=dtype)
+        if use_snapshot and s._load_snapshot(db):
+            t0 = time.perf_counter()
+            s._audit_coarse_if_stale()
+            if dbg:
+                print(f"build: snapshot path, audit {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+            return s
         t0 = time.perf_counter()
         s._load(db, extra_sql="", params=())
         t1 = time.perf_counter()
@@ -193,18 +216,152 @@ class Searcher:
         s._audit_coarse_if_stale()
         if dbg:
             print(
-                f"build: stream+upsert {t1 - t0:.1f}s  device stage {t2 - t1:.1f}s  "
+                f"build: cold stream+upsert {t1 - t0:.1f}s  device stage {t2 - t1:.1f}s  "
                 f"audit {time.perf_counter() - t2:.1f}s",
                 file=sys.stderr,
             )
         return s
 
+    # -- snapshots (the vector_shards manifest) ------------------------------
+
+    def save_snapshot(self, db: Database, path: str) -> None:
+        """Save the matrix to ``path`` and record (path, max seq) in
+        ``vector_shards``."""
+        # through the seq index, as the replay (_REPLAY_SQL): through the
+        # primary key the max reads every row of the model
+        row = db.read().execute(
+            "SELECT COALESCE(MAX(seq),0) FROM item_embeddings WHERE +model_id=? AND +model_version=?",
+            (self.model_id, self.model_version),
+        ).fetchone()
+        self.matrix.save_snapshot(path)
+        with db.write() as conn:
+            conn.execute(
+                """INSERT INTO vector_shards
+                     (model_id, model_version, path, max_item_id, rows, dim, dtype, created_at)
+                   VALUES (?,?,?,?,?,?,?,?)
+                   ON CONFLICT (model_id, model_version) DO UPDATE SET
+                     path=excluded.path, max_item_id=excluded.max_item_id,
+                     rows=excluded.rows, dim=excluded.dim, dtype=excluded.dtype,
+                     created_at=excluded.created_at""",
+                (
+                    self.model_id,
+                    self.model_version,
+                    str(path),
+                    row[0],  # the max seq a later load replays from
+                    len(self.matrix),
+                    self.matrix.dim,
+                    self.matrix.dtype_name,
+                    int(time.time()),
+                ),
+            )
+
+    def _load_snapshot(self, db: Database) -> bool:
+        """Load the matrix from the snapshot in ``vector_shards``: adopt a
+        base of this tier, else stream its f32 rows; apply its delta; replay
+        the embeddings written after its max seq; tombstone the rows hidden
+        or removed since; reload the items unhidden since.  False (and an
+        empty matrix) when there is no usable snapshot: the caller loads
+        from SQLite.  A failure to copy an adopted payload to the device
+        raises (SnapshotDeviceError)."""
+        manifest = db.read().execute(
+            "SELECT path, max_item_id FROM vector_shards WHERE model_id=? AND model_version=?",
+            (self.model_id, self.model_version),
+        ).fetchone()
+        dbg = os.environ.get("PERCEIVE_TPU_DEBUG_STARTUP")
+        if manifest is None or not os.path.exists(manifest[0]):
+            if dbg and manifest is not None:
+                print(f"build: snapshot {manifest[0]} is missing; cold build", file=sys.stderr)
+            return False
+        path, max_seq = manifest
+        t0 = time.perf_counter()
+        try:
+            # one open handle for every member read: a base replaced by a
+            # concurrent save can never contribute a mix of two saves
+            with open(path, "rb") as fh:
+                z = np.load(fh)
+                token = str(z["base_token"]) if "base_token" in getattr(z, "files", []) else None
+                adopted = self.matrix._adopt_snapshot_fh(path, fh)
+                if not adopted:
+                    if int(z["dim"]) != self.matrix.dim:
+                        if dbg:
+                            print(f"build: snapshot {path} has another dim; cold build", file=sys.stderr)
+                        return False
+                    item_ids, source_ids = z["item_ids"], z["source_ids"]
+                    # the f32 member streams in bounded row chunks into the
+                    # matrix, which keeps its device
+                    for lo, hi, vecs in self.matrix._iter_snapshot_vectors(path, self.matrix._LOAD_CHUNK_ROWS, fh):
+                        live = source_ids[lo:hi] >= 0
+                        if not live.any():
+                            continue
+                        self.matrix.upsert(
+                            item_ids[lo:hi][live].tolist(),
+                            source_ids[lo:hi][live].tolist(),
+                            vecs[live] if not live.all() else vecs,
+                        )
+            # the loaded state is what the base restores: the delta tracking
+            # restarts here, and the delta and replay below mark their rows
+            # through upsert and remove
+            with self.matrix._lock:
+                self.matrix._delta_rows = set()
+                self.matrix._delta_removed = set()
+            if self.matrix.apply_snapshot_delta(path, token) < 0:
+                # an unusable delta: the manifest's max_seq moved past its
+                # rows, so only a rebuild from SQLite recovers them
+                self.matrix.clear()
+                if dbg:
+                    print(f"build: snapshot delta {path}.delta is unusable; cold build", file=sys.stderr)
+                return False
+        except SnapshotDeviceError:
+            raise
+        except Exception as e:  # noqa: BLE001 — a corrupt snapshot: rebuild from SQLite
+            self.matrix.clear()
+            if dbg:
+                print(f"build: snapshot {path} unreadable ({type(e).__name__}: {e}); cold build", file=sys.stderr)
+            return False
+        t1 = time.perf_counter()
+        replayed = self._load(db, "", (max_seq,), sql=self._REPLAY_SQL)
+        t2 = time.perf_counter()
+        # tombstone the rows hidden, skipped or deleted since the snapshot:
+        # an ids-only scan, no BLOB decoding
+        cur = db.read().execute(
+            f"""SELECT items.id * {self._CHUNK_STRIDE} + ie.chunk_idx FROM items
+               JOIN item_embeddings ie ON ie.item_id = items.id
+                 AND ie.model_id = ? AND ie.model_version = ?
+                 AND ie.chunk_idx < {self._CHUNK_STRIDE}
+               WHERE items.skipped IS NULL AND items.hidden_at IS NULL""",
+            (self.model_id, self.model_version),
+        )
+        live = np.fromiter((r[0] for r in cur), dtype=np.int64)
+        with self.matrix._lock:
+            held = np.fromiter(self.matrix.row_of, dtype=np.int64, count=len(self.matrix.row_of))
+        dead = held[~np.isin(held, live)]
+        if len(dead):
+            self.matrix.remove(dead.tolist())
+        # ... and load the live keys the replay missed: unhiding clears
+        # hidden_at without bumping item_embeddings.seq, so an item hidden
+        # before the save and unhidden after it is invisible to the replay
+        missing_items = np.unique(live[~np.isin(live, held)] // CHUNK_STRIDE).tolist()
+        for lo in range(0, len(missing_items), 500):
+            batch = missing_items[lo : lo + 500]
+            ph = ",".join("?" * len(batch))
+            replayed += self._load(db, f" AND items.id IN ({ph})", tuple(batch))
+        t3 = time.perf_counter()
+        self.matrix.sync()
+        if dbg:
+            print(
+                f"build: snapshot {'adopted' if adopted else 'streamed'} {t1 - t0:.1f}s  replay {replayed} rows "
+                f"{t2 - t1:.1f}s  reconcile ({len(dead)} dead, {len(missing_items)} unhidden) {t3 - t2:.1f}s  "
+                f"device stage {time.perf_counter() - t3:.1f}s",
+                file=sys.stderr,
+            )
+        return True
+
     # rows per chunk when streaming embeddings out of SQLite
     _LOAD_DB_CHUNK_ROWS = 262_144
 
-    def _load(self, db: Database, extra_sql: str, params: tuple) -> int:
+    def _load(self, db: Database, extra_sql: str, params: tuple, sql: Optional[str] = None) -> int:
         cur = db.read().execute(
-            self._BUILD_SQL + extra_sql, (self.model_id, self.model_version, *params)
+            (sql or self._BUILD_SQL) + extra_sql, (self.model_id, self.model_version, *params)
         )
         total = skipped_dim = 0
         want_len = 4 * self.matrix.dim  # f32-LE BLOBs

@@ -80,6 +80,30 @@ def test_connectors_import_no_optional_packages():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_snapshots_load_no_jax(tmp_path):
+    """A save, an adopt, a load and the CLI's ``snapshot`` load neither jax
+    nor any module of the JAX package."""
+    res = _run(
+        "import sys, numpy as np, torch\n"
+        "from perceive_tpu_torch.index.matrix import EmbeddingMatrix, INT2\n"
+        "from perceive_tpu_torch.cli import AppState, main\n"
+        "m = EmbeddingMatrix(16, dtype=INT2, device='cpu')\n"
+        "m.upsert([1, 2, 3], [0, 0, 1], np.random.default_rng(0).standard_normal((3, 16)))\n"
+        f"p = {str(tmp_path / 'm.npz')!r}\n"
+        "assert m.save_snapshot(p) == 'full'\n"
+        "assert EmbeddingMatrix(16, dtype=INT2, device='cpu').adopt_snapshot(p)\n"
+        "assert len(EmbeddingMatrix.load_snapshot(p, device='cpu', dtype=INT2)) == 3\n"
+        f"st = AppState({str(tmp_path / 'db.sqlite3')!r}, device='cpu')\n"
+        f"assert main(['snapshot', {str(tmp_path / 's.npz')!r}], state=st) == 0\n"
+        "bad = [m for m in ('jax', 'jaxlib') if m in sys.modules]\n"
+        "bad += sorted(m for m in sys.modules if m == 'perceive_tpu' or m.startswith('perceive_tpu.'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n",
+        env=dict(os.environ, PERCEIVE_TPU_DATA_DIR=str(tmp_path / "data")),
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_kernel_loader_imports_without_nvcc():
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     res = _run(
