@@ -38,7 +38,18 @@ Phases (any failure exits non-zero before the final line):
   7. the bf16 batch path: 1,024 vector queries from 16 threads through a
      BatchingSearchExecutor, then search_vectors_batch on 2,048 queries
      (half near a stored window, half random) and on 2,048 random ones;
-     then the CLI's ``snapshot`` saves a format-v2 base of the 1M rows;
+     then the serve phase (``serve_phase``): the 1M-row state behind the
+     port's HTTP server, its readiness, the 16 CLI queries served
+     uncontended (GET, then POST from the result cache) against the CLI's
+     hits, 256 distinct queries from 16 threads against their uncontended
+     answers (K1 on every drain), the filters and guards, ``tag``,
+     ``hide`` and unhide, a background refresh re-embedding a rewritten
+     long document through K11 with the dispatch gauge unmoved, ``stats``,
+     ``print``, ``model``, ``doctor``, and ``python3 -m
+     perceive_tpu_torch.cli`` ``source add``, ``source scan`` and
+     ``serve`` in subprocesses, the last stopped by SIGTERM (exit 0),
+     within 120 s; then the CLI's ``snapshot`` saves a format-v2 base of
+     the 1M rows, which the manifest must name;
   8. the int8 slice: 1M more filler rows (2M in all), a fresh AppState whose
      auto rule picks the int8 tier, built from the bf16 base (another
      tier: its f32 rows stream) and the rows written since, replayed from
@@ -106,11 +117,12 @@ Phases (any failure exits non-zero before the final line):
      K9), the composed device pipeline held against
      the plain one for every query, ``served_recall_at_10``, and one batch
      of each mix;
- 20. the delta: the int2 base adopted again, the docs source's rows
-     removed and 300 filler rows upserted through the Searcher's ingest
-     hooks (the database changed to match: the docs items hidden),
-     ``snapshot`` answering "delta", and a build from base + delta holding
-     the live keys and the hits of a searcher built cold from SQLite.
+ 20. the delta: in phase 15's adopted state (kept open), the docs
+     source's rows removed and 300 filler rows upserted through the
+     Searcher's ingest hooks (the database changed to match: the docs
+     items hidden), ``snapshot`` answering "delta", and a build from base
+     + delta holding SQLite's live keys and the exact f32 top-10 over
+     SQLite's rows (the adopted rows less the docs, plus the 300 new).
 Each kernel is timed beside its plain version, one PyTorch call for the same
 function (``library_ms``: a yardstick the port never calls; null where no
 single call computes it) and its bound.
@@ -120,6 +132,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import io
@@ -1450,26 +1463,46 @@ def make_docs(rng, vocab: list[str]) -> list[str]:
 def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, text: str, mid: int, ver: int):
     """``n`` seeded unit-vector rows under ids first_id.. with one embedding
     each, through the columns the ingest pipeline writes; the vectors come
-    from ``gen``, a torch.Generator on the card (SQLite takes the time)."""
+    from ``gen``, a torch.Generator on the card (SQLite takes the time).
+    ``db`` is an open Database, or the path of one that no connection holds
+    open: then the rows go in through a connection of their own with no
+    journal, no sync and no foreign-key lookups (every row it writes is
+    valid), and the database is back in WAL mode after it."""
+    import sqlite3
+
     import torch
 
+    own = isinstance(db, str)
+    if own:
+        conn = sqlite3.connect(db, isolation_level=None)
+        for pragma in ("journal_mode = OFF", "synchronous = OFF", "foreign_keys = OFF"):
+            conn.execute(f"PRAGMA {pragma}")
     chunk = 500_000
-    for lo in range(0, n, chunk):
-        c = min(chunk, n - lo)
-        v = torch.randn((c, DIM), generator=gen, device=gen.device)
-        v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
-        ids = range(first_id + lo, first_id + lo + c)
-        with db.write() as conn:
-            conn.executemany(
-                """INSERT INTO items (id, source_id, external_id, version, hash, content,
-                     process_version) VALUES (?,?,?,?,?,?,?)""",
-                ((i, src_id, f"fill{i}", 1, "", text, 0) for i in ids),
-            )
-            conn.executemany(
-                """INSERT INTO item_embeddings (item_id, chunk_idx, item_index_version, embedding,
-                     model_id, model_version, seq) VALUES (?,?,?,?,?,?,?)""",
-                ((i, 0, 1, v[j].tobytes(), mid, ver, first_seq + lo + j) for j, i in enumerate(ids)),
-            )
+    try:
+        for lo in range(0, n, chunk):
+            c = min(chunk, n - lo)
+            v = torch.randn((c, DIM), generator=gen, device=gen.device)
+            v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+            ids = range(first_id + lo, first_id + lo + c)
+            with (contextlib.nullcontext(conn) if own else db.write()) as txn:
+                if own:
+                    txn.execute("BEGIN")
+                txn.executemany(
+                    """INSERT INTO items (id, source_id, external_id, version, hash, content,
+                         process_version) VALUES (?,?,?,?,?,?,?)""",
+                    ((i, src_id, f"fill{i}", 1, "", text, 0) for i in ids),
+                )
+                txn.executemany(
+                    """INSERT INTO item_embeddings (item_id, chunk_idx, item_index_version, embedding,
+                         model_id, model_version, seq) VALUES (?,?,?,?,?,?,?)""",
+                    ((i, 0, 1, v[j].tobytes(), mid, ver, first_seq + lo + j) for j, i in enumerate(ids)),
+                )
+                if own:
+                    txn.execute("COMMIT")
+    finally:
+        if own:
+            conn.execute("PRAGMA journal_mode = WAL")
+            conn.close()
 
 
 def write_docs(docs_dir: str, docs: list[str]) -> None:
@@ -1632,12 +1665,12 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
     t0 = time.perf_counter()
     db = Database(ing["db_path"])
     src_fill = add_source(db, Source(name="filler", config={"type": "fs"}, location="generated:filler"))
+    db.close()
     mid, ver = model.model_id, model.model_version
     n_fill = TOTAL_ROWS - ing["windows"]
     filler_text = " ".join(vocab_list[300:316])
     gen = torch.Generator(device=dev).manual_seed(12)
-    write_filler(db, src_fill.id, ing["next_id"], ing["next_seq"], n_fill, gen, filler_text, mid, ver)
-    db.close()
+    write_filler(ing["db_path"], src_fill.id, ing["next_id"], ing["next_seq"], n_fill, gen, filler_text, mid, ver)
     log(f"sqlite corpus: {ing['windows']} document rows + {n_fill} filler rows = {TOTAL_ROWS} rows "
         f"(filler written in {time.perf_counter() - t0:.1f} s)")
 
@@ -1784,6 +1817,23 @@ def check_route(route: dict, tier: str, adopted: bool, sqlite_rows: int) -> None
     if route["snapshot"] != [True] or route["adopted"] != [adopted] or route["sqlite_rows"] != sqlite_rows:
         raise SystemExit(f"the {tier} build took the route {route}; want a snapshot "
                          f"{'adopted' if adopted else 'streamed'} and {sqlite_rows} rows from SQLite")
+
+
+def check_manifest(state, ctx: dict) -> None:
+    """The manifest names phase 7's base, not the serve phase's autosave
+    (which is removed: nothing reads it)."""
+    from perceive_tpu_torch.cli.commands import _snapshot_path
+
+    path = state.db.read().execute("SELECT path FROM vector_shards").fetchall()
+    if path != [(ctx["snap"],)]:
+        raise SystemExit(f"vector_shards names {path}, not the snapshot {ctx['snap']}")
+    autosave = _snapshot_path(state)
+    if os.path.exists(autosave):
+        log(f"vector_shards names {ctx['snap']}; the refresh's autosave {autosave} "
+            f"({os.path.getsize(autosave) / 2**30:.3f} GiB) removed")
+        os.unlink(autosave)
+    else:
+        log(f"vector_shards names {ctx['snap']}; no autosave at {autosave}")
 
 
 def cli_snapshot(card: str, state, ctx: dict, path: str, want: str) -> dict:
@@ -1969,7 +2019,474 @@ def bf16_slice(card: str, ctx: dict, dev) -> dict:
         ) > 1e-4:
             raise SystemExit(f"query {qi}: hits differ from the plain scan:\n{got}\n{want}")
     log("bf16 slice hits equal the plain scan's for 16/16 queries")
-    return state, {"launches": launches, "p50": p50, "p95": p95}
+    return state, {"launches": launches, "p50": p50, "p95": p95, "results": results}
+
+
+# -- the serve phase (after the bf16 batch path) -------------------------------------
+
+N_SERVE_CONCURRENT = 256  # distinct queries of the concurrent load
+N_SERVE_DOCS = 64  # the subprocess server's corpus
+SERVE_PHASE_S = 120  # the phase's budget
+REFRESH_DOC = 1  # the long document the background refresh re-embeds
+TAG_DOCS = (2, 3, 4)
+HIDE_FROM = 5  # hidden and unhidden: the longest of the next 8 long documents
+
+
+def http_request(port: int, method: str, path: str, body=None, headers=None, timeout: float = 60) -> tuple:
+    """(status, parsed JSON or text) of one request to 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if headers is not None:  # raw: these headers only, no body
+            conn.putrequest(method, path)
+            for k, v in headers.items():
+                conn.putheader(k, v)
+            conn.endheaders()
+        else:
+            data = None if body is None else json.dumps(body)
+            conn.request(method, path, body=data, headers={"Content-Type": "application/json"} if data else {})
+        r = conn.getresponse()
+        raw = r.read().decode()
+        kind = r.getheader("Content-Type") or ""
+        return r.status, json.loads(raw) if kind.startswith("application/json") else raw
+    finally:
+        conn.close()
+
+
+def search_path(q: str, k: int = 10, **params) -> str:
+    from urllib.parse import urlencode
+
+    return "/search?" + urlencode({"q": q, "k": k, **params})
+
+
+def metrics(port: int) -> dict:
+    text = http_request(port, "GET", "/metrics")[1]
+    return {line.split()[0]: line.split()[1] for line in text.splitlines() if line and not line.startswith("#")}
+
+
+def wait_for(pred, seconds: float, what: str) -> float:
+    """Polls ``pred`` until it holds; fails after ``seconds``.  Returns the
+    seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > seconds:
+            raise SystemExit(f"serve phase: waited {seconds} s for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def served_hits(res) -> list:
+    return [(r["id"], r["score"]) for r in res]
+
+
+def same_answer(got, want, tol: float = 1e-4) -> bool:
+    """Served hits against an answer of the CLI: ids, scores within
+    ``tol``, snippets equal."""
+    return (hits_match(served_hits(got), served_hits(want), tol)
+            and [r["snippet"] for r in got] == [r["snippet"] for r in want])
+
+
+def cli_json(state, ctx: dict, *argv) -> list:
+    from perceive_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--db", ctx["db_path"], *argv, "--json"], state=state)
+    if rc != 0:
+        raise SystemExit(f"{' '.join(argv[:2])} exited {rc}")
+    return json.loads(out.getvalue())
+
+
+def cli_ok(state, ctx: dict, *argv) -> str:
+    from perceive_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--db", ctx["db_path"], *argv], state=state)
+    if rc != 0:
+        raise SystemExit(f"{' '.join(argv[:2])} exited {rc}: {out.getvalue()[-400:]}")
+    return out.getvalue()
+
+
+def stop_server(server) -> None:
+    server.perceive_state.stop()
+    server.shutdown()
+    server.server_close()
+
+
+def serve_phase(card: str, state, ctx: dict, cli_results: list, workdir: str) -> dict:
+    """The bf16 state (1M rows) behind the port's HTTP server: readiness,
+    the 16 CLI queries served uncontended (GET and POST) against phase 6's
+    CLI answers, 256 distinct queries from 16 client threads against their
+    uncontended answers, the filters and guards over HTTP, tags, hide and
+    unhide through the CLI, a background refresh that re-embeds a rewritten
+    long document (K11) and serves its new text, the CLI's stats, print,
+    model and doctor, and the real entry point in a subprocess stopped by
+    SIGTERM.  Every server and thread it starts stops before it ends."""
+    from perceive_tpu_torch.ops import attention as attn
+    from perceive_tpu_torch.serve import start_server
+
+    t_phase = time.perf_counter()
+    os.environ["PERCEIVE_TPU_DATA_DIR"] = os.path.join(workdir, "data")
+    out = {}
+    docs, doc_ids, queries = ctx["docs"], ctx["doc_ids"], ctx["queries"]
+
+    # 1. readiness
+    t0 = time.perf_counter()
+    server = start_server(lambda: state, port=0)
+    holder, port = server.perceive_state, server.server_address[1]
+    try:
+        if not holder.ready.wait(120):
+            raise SystemExit("serve phase: the server was not ready within 120 s")
+        out["ready_s"] = time.perf_counter() - t0
+        status = http_request(port, "GET", "/status")[1]
+        log(f"serve: ready in {out['ready_s']:.3f} s; /status {json.dumps(status)}  [{card}]")
+        if not (status["model_loaded"] and status["tier"] == "bfloat16" and status["rows"] == len(state.searcher.matrix)
+                and status["error"] is None):
+            raise SystemExit(f"serve phase: /status {status}")
+        t0 = time.perf_counter()
+        for t in holder.warmers:
+            t.join(60)
+        if any(t.is_alive() for t in holder.warmers):
+            raise SystemExit("serve phase: a background warmer ran past 60 s")
+        log(f"serve: background warmers done {time.perf_counter() - t0:.3f} s later; "
+            f"highlight chunks warmed {holder.highlight_warmed_total}")
+
+        # 2. the 16 CLI queries, uncontended, GET then POST
+        walls = {"GET": [], "POST": []}
+        k1 = {"GET": 0, "POST": 0}
+        m0 = metrics(port)
+        for method in ("GET", "POST"):
+            for qi, q in enumerate(queries):
+                before = launch_counts()["scan_topk"]
+                t0 = time.perf_counter()
+                code, res = (http_request(port, "GET", search_path(q)) if method == "GET"
+                             else http_request(port, "POST", "/search", {"q": q, "k": 10}))
+                walls[method].append((time.perf_counter() - t0) * 1e3)
+                n = launch_counts()["scan_topk"] - before
+                k1[method] += n
+                if code != 200 or not same_answer(res, cli_results[qi]):
+                    raise SystemExit(f"serve phase: {method} query {qi} answered {code}, not phase 6's CLI hits:\n"
+                                     f"{res}\n{cli_results[qi]}")
+                if method == "GET" and n == 0:
+                    raise SystemExit(f"serve phase: GET query {qi} launched no scan_topk kernel")
+        mm = metrics(port)
+        out["dispatches_per_request"] = float(mm["perceive_dispatches_per_request"])
+        for method, w in walls.items():
+            p50, p95 = (float(np.percentile(w, p)) for p in (50, 95))
+            out[method] = (p50, p95)
+            log(f"serve: 16 {method} /search k=10 uncontended (HTTP, executor, fused query, highlight): p50 "
+                f"{p50:.2f} ms  p95 {p95:.2f} ms; scan_topk launches {k1[method]} = "
+                f"{k1[method] / len(w):.2f} a request  [{card}]")
+        log(f"serve: the 32 answers equal phase 6's CLI hits (ids, scores within 1e-4, snippets); executor "
+            f"queries {int(mm['perceive_search_queries_total']) - int(m0['perceive_search_queries_total'])}, "
+            f"result-cache hits {int(mm['perceive_result_cache_hits_total'])}; "
+            f"perceive_dispatches_per_request {mm['perceive_dispatches_per_request']}; dispatch counters "
+            + ", ".join(f"{k} {v}" for k, v in mm.items() if k.startswith("perceive_device_dispatches")))
+
+        # 3. concurrent load: 256 distinct queries from 16 threads against
+        # their uncontended answers (the CLI's, in this process)
+        rng = np.random.default_rng(21)
+        words = [w for w in minilm_vocab()[200:] if not w.startswith("##")]
+        load = [" ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(3, 12))))
+                for _ in range(N_SERVE_CONCURRENT)]
+        t0 = time.perf_counter()
+        alone = [cli_json(state, ctx, "search", q, "-n", "10") for q in load]
+        log(f"serve: the {N_SERVE_CONCURRENT} load queries' uncontended answers through the CLI in "
+            f"{time.perf_counter() - t0:.1f} s")
+        answers = [None] * N_SERVE_CONCURRENT
+        errors = []
+
+        def client(c):
+            try:
+                for i in range(c, N_SERVE_CONCURRENT, N_CLIENTS):
+                    answers[i] = http_request(port, "GET", search_path(load[i]))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        m0 = metrics(port)
+        before = launch_counts()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        wall = time.perf_counter() - t0
+        after, m1 = launch_counts(), metrics(port)
+        if errors or any(t.is_alive() for t in threads) or any(a is None for a in answers):
+            raise SystemExit(f"serve phase: the concurrent load failed: {errors[:3]}")
+        worst, moved, bad = 0.0, 0, []
+        for i, (code, res) in enumerate(answers):
+            if code != 200:
+                bad.append(i)
+                continue
+            got, want = served_hits(res), served_hits(alone[i])
+            if [a for a, _ in got] != [a for a, _ in want]:
+                moved += 1
+            worst = max([worst] + [abs(a[1] - b[1]) for a, b in zip(got, want)])
+            if not same_answer(res, alone[i]):
+                bad.append(i)
+        sweeps = int(m1["perceive_search_sweeps_total"]) - int(m0["perceive_search_sweeps_total"])
+        served = int(m1["perceive_search_queries_total"]) - int(m0["perceive_search_queries_total"])
+        out["qps"] = N_SERVE_CONCURRENT / wall
+        log(f"serve: {N_SERVE_CONCURRENT} distinct queries from {N_CLIENTS} threads in {wall:.3f} s = "
+            f"{out['qps']:.1f} QPS; executor sweeps_total {sweeps} for queries_total {served}; launches "
+            f"scan_topk {after['scan_topk'] - before['scan_topk']}, scan_slab "
+            f"{after['scan_slab'] - before['scan_slab']}  [{card}]")
+        log(f"serve: concurrent answers against the uncontended ones: {N_SERVE_CONCURRENT - len(bad)}/"
+            f"{N_SERVE_CONCURRENT} equal within 1e-4 (near ties may trade places); {moved} with an "
+            f"id order that differs; max score difference {worst:.3g} (a coalesced drain encodes its queries in "
+            f"one batch, an uncontended query alone)")
+        if bad:
+            raise SystemExit(f"serve phase: concurrent answers {bad[:8]} differ from the uncontended ones")
+
+        # the real entry point's `source add` and `source scan` subprocesses
+        # (step 7) run beside steps 4-6, which time nothing but the refresh
+        prep_pool = concurrent.futures.ThreadPoolExecutor(1)
+        prep = prep_pool.submit(real_entry_prep, workdir, docs)
+        prep_pool.shutdown(wait=False)
+
+        # 4. filters and guards over HTTP, then tags, hide and unhide
+        q = queries[0]
+        plain = http_request(port, "GET", search_path(q))[1]
+        checks = {
+            "type=local": (http_request(port, "GET", search_path(q, type="local")), lambda r: same_answer(r, plain)),
+            "type=web": (http_request(port, "GET", search_path(q, type="web")), lambda r: r == []),
+            "source=docs": (http_request(port, "GET", search_path(q, source="docs")),
+                            lambda r: r and {h["source"] for h in r} == {"docs"}),
+            "after=0 (POST)": (http_request(port, "POST", "/search", {"q": q, "after": 0}),
+                               lambda r: r and all(h["time"] is not None and h["time"] >= 0 for h in r)),
+            "before=2001-09-09": (http_request(port, "GET", search_path(q, before="1000000000")), lambda r: r == []),
+            "after=1d": (http_request(port, "GET", search_path(q, after="1d")),
+                         lambda r: r and all(h["source"] == "docs" for h in r)),
+        }
+        for name, ((code, res), ok) in checks.items():
+            if code != 200 or not ok(res):
+                raise SystemExit(f"serve phase: filter {name} answered {code} {str(res)[:300]}")
+        guards = {
+            "k=abc": (http_request(port, "GET", search_path(q, k="abc")), 400),
+            "k=0": (http_request(port, "GET", search_path(q, k=0)), 400),
+            "missing q": (http_request(port, "GET", "/search?k=3"), 400),
+            "body too large": (http_request(port, "POST", "/search", headers={"Content-Length": str(100 << 20)}), 413),
+            "unknown source": (http_request(port, "GET", search_path(q, source="nosuch")), 404),
+            "bad type": (http_request(port, "POST", "/search", {"q": q, "type": "nope"}), 400),
+        }
+        for name, ((code, res), want) in guards.items():
+            if code != want:
+                raise SystemExit(f"serve phase: guard {name} answered {code}, want {want}: {res}")
+        log(f"serve: filters {', '.join(checks)} and guards "
+            + ", ".join(f"{n} -> {w}" for n, (_, w) in guards.items()) + " ok")
+
+        tagged = {doc_ids[d] for d in TAG_DOCS}
+        for item in sorted(tagged):
+            cli_ok(state, ctx, "tag", "add", str(item), "smoke")
+        hits = cli_json(state, ctx, "search", docs[TAG_DOCS[0]], "-n", "10", "--tag", "smoke")
+        if not hits or not {h["id"] for h in hits} <= tagged or hits[0]["id"] != doc_ids[TAG_DOCS[0]]:
+            raise SystemExit(f"serve phase: search --tag smoke answered {[h['id'] for h in hits]}, tagged {tagged}")
+        log(f"serve: tag add on {len(tagged)} documents; search --tag smoke answered {len(hits)} of them, "
+            f"the queried document first")
+
+        hide_doc = max(range(HIDE_FROM, HIDE_FROM + 8), key=lambda d: len(docs[d].split()))
+        hid = doc_ids[hide_doc]
+        m = state.searcher.matrix
+        n_rows = state.db.read().execute(
+            "SELECT COUNT(*) FROM item_embeddings WHERE item_id = ?", (hid,)).fetchone()[0]
+        rows0 = len(m)
+        first = http_request(port, "GET", search_path(docs[hide_doc]))[1]
+        if not first or first[0]["id"] != hid:
+            raise SystemExit(f"serve phase: document {hide_doc} is not its own text's first hit")
+        cli_ok(state, ctx, "hide", str(hid))
+        gone = http_request(port, "GET", search_path(docs[hide_doc]))[1]
+        if hid in {h["id"] for h in gone} or len(m) != rows0 - n_rows:
+            raise SystemExit(f"serve phase: hide left item {hid} served or {len(m)} rows (want {rows0 - n_rows})")
+        cli_ok(state, ctx, "hide", str(hid), "--unhide")
+        back = http_request(port, "GET", search_path(docs[hide_doc]))[1]
+        if not back or back[0]["id"] != hid or len(m) != rows0:
+            raise SystemExit(f"serve phase: unhide did not bring item {hid} back with its {n_rows} rows")
+        log(f"serve: hide of item {hid} (document {hide_doc}, {n_rows} windows) took it out of /search and "
+            f"{n_rows} rows out of the matrix; unhide brought it back first, with every row")
+    finally:
+        stop_server(server)
+
+    # 5. background refresh: only the docs source is due
+    cli_ok(state, ctx, "source", "edit", "filler", "--interval", str(1 << 40))
+    db = state.db
+    server = start_server(lambda: state, port=0, refresh_interval=1.0)
+    holder, port = server.perceive_state, server.server_address[1]
+    try:
+        if not holder.ready.wait(120) or holder.error is not None:
+            raise SystemExit(f"serve phase: the refresh server was not ready: {holder.error}")
+        wait_for(lambda: holder.refresh_scans_total >= 1, 60, "the first refresh scan")
+        for q in queries[:2]:
+            http_request(port, "GET", search_path(q))
+        gauge0 = metrics(port)["perceive_dispatches_per_request"]
+        scans0, k11 = holder.refresh_scans_total, attn.LAUNCHES
+        n_words = len(docs[REFRESH_DOC].split())
+        new_text = " ".join(words[j] for j in rng.integers(0, len(words), n_words))
+        path = os.path.join(workdir, "docs", f"doc{REFRESH_DOC}.txt")
+        with open(path, "w") as f:
+            f.write(new_text)
+        item = doc_ids[REFRESH_DOC]
+
+        def re_embedded():
+            row = db.read().execute("SELECT content FROM items WHERE id = ?", (item,)).fetchone()
+            return row[0] == new_text and holder.refresh_scans_total > scans0
+
+        waited = wait_for(re_embedded, 60, "the refresh to re-embed the rewritten document")
+        k11 = attn.LAUNCHES - k11
+        mm = metrics(port)
+        ctx["docs"][REFRESH_DOC] = new_text
+        hits = http_request(port, "GET", search_path(new_text))[1]
+        refresh_dispatches = mm.get('perceive_device_dispatches_total{site="refresh"}', 0)
+        log(f"serve: refresh re-embedded document {REFRESH_DOC} ({n_words} tokens) {waited:.2f} s after its "
+            f"rewrite; refresh scans {mm['perceive_refresh_scans_total']}, errors "
+            f"{mm['perceive_refresh_errors_total']}; K11 launches during it {k11}; dispatches_per_request "
+            f"{gauge0} before, {mm['perceive_dispatches_per_request']} after; refresh dispatches "
+            f"{refresh_dispatches}; its new text's first hit {hits[0]['id'] if hits else None} "
+            f"(item {item})  [{card}]")
+        if int(mm["perceive_refresh_scans_total"]) < 1 or k11 == 0:
+            raise SystemExit("serve phase: the refresh scanned nothing or launched no attention kernel")
+        if not hits or hits[0]["id"] != item:
+            raise SystemExit("serve phase: the rewritten document's new text does not find it first")
+        if mm["perceive_dispatches_per_request"] != gauge0:
+            raise SystemExit("serve phase: the refresh moved perceive_dispatches_per_request")
+    finally:
+        stop_server(server)
+    seq = db.read().execute(
+        "SELECT (SELECT MAX(id) FROM items), (SELECT MAX(seq) FROM item_embeddings)").fetchone()
+    # later phases write filler rows after every id and seq the refresh used
+    ctx["next_id"], ctx["next_seq"] = max(ctx["next_id"], seq[0] + 1), max(ctx["next_seq"], seq[1] + 1)
+
+    # 6. the CLI's stats, print and model, and the doctor, on the card
+    stats = cli_ok(state, ctx, "stats")
+    cli_ok(state, ctx, "print", str(doc_ids[REFRESH_DOC]))
+    cli_ok(state, ctx, "model", "list")
+    for line in stats.splitlines():
+        log(f"  stats: {line}")
+
+    # 7. the real entry point, in subprocesses, over a database of its own;
+    # the doctor on that database, in this process
+    out["subprocess"] = real_entry_point(card, workdir, docs, prep.result(timeout=400))
+    doctor_check(card, os.path.join(workdir, "small", "small.sqlite3"))
+
+    # 8. nothing of the servers outlives the phase
+    names = ("serve-", "search-batcher", "highlight-batcher")  # a ServeState's and its executor's
+    left = [t.name for t in threading.enumerate() if t.name.startswith(names)]
+    if left:
+        raise SystemExit(f"serve phase: threads still alive: {left}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serve phase: {out['seconds']:.1f} s of its {SERVE_PHASE_S} s budget  [{card}]")
+    if out["seconds"] > SERVE_PHASE_S:
+        raise SystemExit(f"the serve phase took {out['seconds']:.1f} s, past its {SERVE_PHASE_S} s budget")
+    return out
+
+
+def doctor_check(card: str, db_path: str) -> None:
+    """``doctor`` must exit 0 with its device, build-and-launch and
+    kernel-cache checks ok."""
+    from perceive_tpu_torch.cli.doctor import doctor
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = doctor(db_path)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"  doctor: {line}")
+    log(f"serve: doctor exited {rc} in {time.perf_counter() - t0:.2f} s  [{card}]")
+    if rc != 0:
+        raise SystemExit(f"serve phase: doctor exited {rc}")
+    for name in ("device", "kernel build+launch", "kernel cache"):
+        if not any(line.startswith(f"  ✓ {name}:") for line in lines):
+            raise SystemExit(f"serve phase: the doctor's {name} check is not ok")
+
+
+def entry_point_cli(workdir: str) -> tuple:
+    """(argv prefix, environment, working directory) of ``python3 -m
+    perceive_tpu_torch.cli`` over the serve phase's small database."""
+    small = os.path.join(workdir, "small")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PERCEIVE_TPU_DATA_DIR=os.path.join(small, "data"))
+    cli = [sys.executable, "-m", "perceive_tpu_torch.cli", "--db", os.path.join(small, "small.sqlite3")]
+    return cli, env, os.path.dirname(os.path.abspath(__file__))
+
+
+def real_entry_prep(workdir: str, docs: list) -> dict:
+    """``python3 -m perceive_tpu_torch.cli`` ``source add fs`` over
+    N_SERVE_DOCS documents and ``source scan``, each in a subprocess: their
+    seconds and the last lines of their output (logged by the caller, as
+    this runs beside the serve phase's other steps)."""
+    small = os.path.join(workdir, "small")
+    os.makedirs(os.path.join(small, "docs"))
+    for d, text in enumerate(docs[N_LONG:N_LONG + N_SERVE_DOCS]):
+        with open(os.path.join(small, "docs", f"doc{d}.txt"), "w") as f:
+            f.write(text)
+    cli, env, root = entry_point_cli(workdir)
+    out = {"lines": []}
+    for argv in (["source", "add", "fs", os.path.join(small, "docs"), "--name", "docs"],
+                 ["source", "scan", "docs"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(cli + argv, cwd=root, env=env, capture_output=True, text=True, timeout=180)
+        out[argv[1]] = time.perf_counter() - t0
+        out["lines"] += [f"  subprocess source {argv[1]}: {line}" for line in (res.stdout + res.stderr).splitlines()[-6:]]
+        if res.returncode != 0:
+            out["error"] = f"serve phase: `source {argv[1]}` exited {res.returncode}"
+            break
+    return out
+
+
+def real_entry_point(card: str, workdir: str, docs: list, prep: dict) -> dict:
+    """After ``real_entry_prep``: ``python3 -m perceive_tpu_torch.cli serve
+    --port 0`` in a subprocess (the CLI's random fallback model, on cuda:0),
+    ready, one /search with hits, and SIGTERM ending it with exit 0 within
+    30 s."""
+    import signal
+
+    for line in prep["lines"]:
+        log(line)
+    if "error" in prep:
+        raise SystemExit(prep["error"])
+    cli, env, root = entry_point_cli(workdir)
+    out = {"add": prep["add"], "scan": prep["scan"]}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli + ["serve", "--port", "0"], cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+    reader.start()
+    try:
+        wait_for(lambda: any(l.startswith("Serving on") for l in lines) or proc.poll() is not None, 120,
+                 "the subprocess server's address")
+        url = next((l.split()[-1] for l in lines if l.startswith("Serving on")), None)
+        if url is None:
+            raise SystemExit(f"serve phase: the subprocess server exited {proc.returncode}: {lines[-10:]}")
+        port = int(url.rsplit(":", 1)[1])
+        wait_for(lambda: http_request(port, "GET", "/status")[1]["model_loaded"] or proc.poll() is not None, 120,
+                 "the subprocess server's readiness")
+        out["serve_ready"] = time.perf_counter() - t0
+        status = http_request(port, "GET", "/status")[1]
+        code, hits = http_request(port, "GET", search_path(docs[N_LONG].split()[0] + " " + docs[N_LONG].split()[1], k=5))
+        if not status["model_loaded"] or code != 200 or not hits:
+            raise SystemExit(f"serve phase: the subprocess server answered {code} {hits} ({status})")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(30)
+        out["sigterm_exit"] = time.perf_counter() - t0
+        reader.join(10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in lines[-6:]:
+        log(f"  subprocess serve: {line.rstrip()}")
+    log(f"serve: `python3 -m perceive_tpu_torch.cli` subprocesses: source add {out['add']:.1f} s, source scan "
+        f"{out['scan']:.1f} s; serve ready in {out['serve_ready']:.1f} s over "
+        f"{status['rows']} rows, /search answered {len(hits)} hits; SIGTERM exit code {rc} in "
+        f"{out['sigterm_exit']:.2f} s  [{card}]")
+    if rc != 0:
+        raise SystemExit(f"serve phase: the subprocess server exited {rc} on SIGTERM")
+    return out
 
 
 def exact_top10(searcher, qvs, dev, with_rows: bool = False):
@@ -1998,16 +2515,13 @@ def int8_slice(card: str, ctx: dict, dev) -> tuple:
     import torch
 
     from perceive_tpu_torch.cli import AppState
-    from perceive_tpu_torch.db import Database
     from perceive_tpu_torch.ops import topk
 
     t0 = time.perf_counter()
     model = ctx["model"]
-    db = Database(ctx["db_path"])
     n_more = INT8_ROWS - TOTAL_ROWS
-    write_filler(db, ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
+    write_filler(ctx["db_path"], ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
                  ctx["filler_text"], model.model_id, model.model_version)
-    db.close()
     ctx["next_id"] += n_more
     ctx["next_seq"] += n_more
     log(f"sqlite corpus: {n_more} more filler rows = {INT8_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
@@ -2075,16 +2589,13 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
     import torch
 
     from perceive_tpu_torch.cli import AppState
-    from perceive_tpu_torch.db import Database
     from perceive_tpu_torch.index.matrix import INT2
 
     t0 = time.perf_counter()
     model = ctx["model"]
-    db = Database(ctx["db_path"])
     n_more = INT2_ROWS - INT8_ROWS
-    write_filler(db, ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
+    write_filler(ctx["db_path"], ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
                  ctx["filler_text"], model.model_id, model.model_version)
-    db.close()
     ctx["next_id"] += n_more
     ctx["next_seq"] += n_more
     log(f"sqlite corpus: {n_more} more filler rows = {INT2_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
@@ -2338,29 +2849,24 @@ def int2_adopt(card: str, state, ctx: dict, dev):
     return state
 
 
-def delta_gate(card: str, ctx: dict, dev) -> None:
-    """Phase 20: a fresh AppState adopts the int2 base again; the docs
-    source's rows are removed and 300 new filler rows upserted through the
-    Searcher's ingest hooks, with the database changed to match (the docs
+def delta_gate(card: str, state, ctx: dict, dev) -> None:
+    """Phase 20: in the AppState that adopted the int2 base (phase 15, kept
+    open since; nothing has written the database or the base after it), the
+    docs source's rows are removed and 300 new filler rows upserted through
+    the Searcher's ingest hooks, with the database changed to match (the docs
     items hidden: deleting them would make SQLite scan item_embeddings once
     per item, whose foreign key to items has no index of its own);
     ``snapshot`` must answer "delta"; a new AppState built from base + delta
-    holds the live keys of a searcher built cold from SQLite (at f32: its
-    sweep is exact, so no quantizer stages), and its hits on the 16 queries
-    match that searcher's."""
+    holds the live keys SQLite holds, and its hits on the 16 queries match
+    the exact f32 top-10 over SQLite's rows: the adopted rows (the base's,
+    which phase 15 held bit for bit to the cold build from SQLite) less the
+    docs items, plus the 300 rows read back from SQLite."""
     import torch
 
     from perceive_tpu_torch.cli import AppState
-    from perceive_tpu_torch.db import Database
-    from perceive_tpu_torch.index.matrix import INT2
-    from perceive_tpu_torch.index.searcher import Searcher
+    from perceive_tpu_torch.index.matrix import CHUNK_STRIDE, INT2
 
     model = ctx["model"]
-    t0 = time.perf_counter()
-    with build_route() as route:
-        state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
-    log(f"AppState build adopting the int2 base in {time.perf_counter() - t0:.1f} s  [{card}]")
-    check_route(route, "int2", adopted=True, sqlite_rows=0)
     searcher = state.searcher
     docs = state.source_by_name("docs")
     doc_items = [r[0] for r in state.db.read().execute("SELECT id FROM items WHERE source_id = ?", (docs.id,))]
@@ -2376,6 +2882,15 @@ def delta_gate(card: str, ctx: dict, dev) -> None:
     vecs = np.frombuffer(b"".join(b[0] for b in blobs), dtype="<f4").reshape(n_new, DIM)
     with state.db.write() as conn:
         conn.execute("UPDATE items SET hidden_at = ? WHERE source_id = ?", (int(time.time()), docs.id))
+    # the reference, before the hooks reuse rows: the exact f32 candidates
+    # over the adopted rows without the docs items, scored on the card
+    qvs = torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]])
+    t0 = time.perf_counter()
+    ref_vals, ref_keys = mirror_candidates(searcher, doc_items, qvs, dev)
+    new_vals = (qvs[:, :DIM] @ torch.from_numpy(vecs.copy()).to(dev).T).cpu().numpy()
+    exact = merged_hits(np.concatenate([ref_vals, new_vals], axis=1),
+                        np.concatenate([ref_keys, np.broadcast_to(np.asarray(new_ids) * CHUNK_STRIDE, new_vals.shape)], axis=1))
+    ref_s = time.perf_counter() - t0
     on_emb, on_rm = searcher.pipeline_hooks()
     rows_before = len(searcher.matrix)
     on_rm(doc_items)
@@ -2394,23 +2909,77 @@ def delta_gate(card: str, ctx: dict, dev) -> None:
         state = AppState(ctx["db_path"], model=model, highlights_model=model, device=dev)
     log(f"AppState build from base + delta in {time.perf_counter() - t0:.1f} s  [{card}]")
     check_route(route, "int2", adopted=True, sqlite_rows=0)
-    db = Database(ctx["db_path"])
     t0 = time.perf_counter()
-    cold = Searcher.build(db, model.model_id, model.model_version, model.dim, device=dev, dtype=torch.float32,
-                          use_snapshot=False)
-    log(f"cold reference build from SQLite: {len(cold.matrix)} rows in {time.perf_counter() - t0:.1f} s  [{card}]")
+    live = sqlite_live_keys(ctx["db_path"], model)
+    log(f"reference: SQLite's {len(live)} live keys read in {time.perf_counter() - t0:.1f} s; the exact f32 top-10 "
+        f"of 16 queries over the adopted rows less the docs items plus the 300 rows read back from SQLite, in "
+        f"{ref_s:.1f} s  [{card}]")
     m = state.searcher.matrix
-    if set(m.row_of) != set(cold.matrix.row_of) or m.dtype != INT2:
-        raise SystemExit(f"base + delta holds {len(m)} {m.tier_name} keys; the cold build {len(cold.matrix)}")
-    for qi, q in enumerate(ctx["queries"]):
-        qv = query_vector(ctx, q, dev).cpu().numpy()[0]
-        got, want = state.searcher.search_vector(qv, 10), cold.search_vector(qv, 10)
-        if not hits_match(got, want, 1e-5):
-            raise SystemExit(f"query {qi}: base + delta hits differ from the cold build's:\n{got}\n{want}")
-    log(f"base + delta equals the cold build: {len(m)} live keys; the hits of 16/16 queries match the f32 "
-        f"sweep's (ids in order, scores within 1e-5)")
-    db.close()
+    if set(m.row_of) != set(live.tolist()) or len(live) != len(np.unique(live)) or m.dtype != INT2:
+        raise SystemExit(f"base + delta holds {len(m)} {m.tier_name} keys; SQLite {len(live)} live keys")
+    for qi, qv in enumerate(qvs.cpu().numpy()):
+        got = state.searcher.search_vector(qv, 10)
+        if not hits_match(got, exact[qi], 1e-5):
+            raise SystemExit(f"query {qi}: base + delta hits differ from the exact top-10:\n{got}\n{exact[qi]}")
+    log(f"base + delta equals SQLite: {len(m)} live keys; the hits of 16/16 queries match the exact f32 top-10 "
+        f"(ids in order, scores within 1e-5)")
     state.close()
+
+
+def mirror_candidates(searcher, drop_items, qvs, dev, keep: int = 40) -> tuple:
+    """The (Q, keep) best exact f32 scores of the (Q, dim) queries over the
+    searcher's host mirror, rows of ``drop_items`` left out, and their chunk
+    keys; ``keep`` leaves room for items of several chunks."""
+    import torch
+
+    from perceive_tpu_torch.index.matrix import CHUNK_STRIDE
+
+    m = searcher.matrix
+    keys = torch.from_numpy(m.item_ids[: m.rows].copy()).to(dev)
+    live = (keys >= 0) & ~torch.isin(keys // CHUNK_STRIDE, torch.tensor(list(drop_items), dtype=torch.int64, device=dev))
+    scores = torch.empty((qvs.shape[0], m.rows), dtype=torch.float32, device=dev)
+    for lo in range(0, m.rows, 262_144):
+        hi = min(m.rows, lo + 262_144)
+        scores[:, lo:hi] = qvs[:, : m.dim] @ torch.from_numpy(m.host_vectors_for(slice(lo, hi))).to(dev).T
+    vals, rows = torch.topk(scores.masked_fill(~live, float("-inf")), keep, dim=1)
+    return vals.cpu().numpy(), keys[rows].cpu().numpy()
+
+
+def merged_hits(vals, keys, k: int = 10) -> list:
+    """Each query's top-``k`` items, [(item id, score)], from (Q, n)
+    candidate scores and chunk keys: an item scores its best chunk."""
+    from perceive_tpu_torch.index.matrix import CHUNK_STRIDE
+
+    out = []
+    for qi in range(vals.shape[0]):
+        hits, seen = [], set()
+        for j in np.argsort(-vals[qi], kind="stable"):
+            item = int(keys[qi, j]) // CHUNK_STRIDE
+            if item not in seen and np.isfinite(vals[qi, j]):
+                seen.add(item)
+                hits.append((item, float(vals[qi, j])))
+            if len(hits) == k:
+                break
+        out.append(hits)
+    return out
+
+
+def sqlite_live_keys(db_path: str, model) -> np.ndarray:
+    """The chunk keys a build from SQLite loads for ``model`` (items neither
+    hidden nor skipped), read straight from SQLite."""
+    import itertools
+    import sqlite3
+
+    from perceive_tpu_torch.index.matrix import CHUNK_STRIDE
+
+    with contextlib.closing(sqlite3.connect(f"file:{db_path}?mode=ro", uri=True)) as conn:
+        cur = conn.execute(
+            f"""SELECT items.id * {CHUNK_STRIDE} + ie.chunk_idx FROM items
+                JOIN item_embeddings ie ON ie.item_id = items.id AND ie.model_id = ? AND ie.model_version = ?
+                  AND ie.chunk_idx < {CHUNK_STRIDE}
+                WHERE items.skipped IS NULL AND items.hidden_at IS NULL""",
+            (model.model_id, model.model_version))
+        return np.fromiter(itertools.chain.from_iterable(cur), dtype=np.int64)
 
 
 def served_recall(tier: str, results, exact, gate: bool = True) -> float:
@@ -2722,9 +3291,12 @@ def main(argv=None) -> int:
         with phase("bf16 batch path"):
             bf16_batch = batch_path(card, state, ctx, "bf16", "scan_slab")
             launches["scan_slab"] = bf16_batch["launches"]["scan_slab"]
+        with phase("serve: the HTTP server over the bf16 state, refresh, CLI, doctor, the real entry point"):
+            serve_phase(card, state, ctx, bf16_sl["results"], workdir)
         with phase("bf16 snapshot: a v2 base of the 1M rows through the CLI"):
             ctx["snap"] = os.path.join(workdir, "matrix.npz")
             cli_snapshot(card, state, ctx, ctx["snap"], "full")
+            check_manifest(state, ctx)
         state.close()
         del state
         torch.cuda.empty_cache()
@@ -2749,8 +3321,7 @@ def main(argv=None) -> int:
             selects = int2_selects(card, state, ctx, dev)
             launches["int2_tiletop"] = selects["tiletop"]["launches"]["int2_tiletop"]
         with phase("int2 adopt: snapshot, a fresh AppState adopting it, 16 CLI queries per route"):
-            state = int2_adopt(card, state, ctx, dev)
-        state.close()
+            adopted = int2_adopt(card, state, ctx, dev)  # kept for the delta phase, which changes it
         del state
         gc.collect()
         torch.cuda.empty_cache()
@@ -2767,7 +3338,8 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         with phase("delta: the adopted int2 state changed through the hooks, a delta, a build from it"):
-            delta_gate(card, ctx, dev)
+            delta_gate(card, adopted, ctx, dev)
+        del adopted
     note_peak()
     log(f"max_memory_allocated {PEAK_BYTES[0] / 2**30:.3f} GiB  [{card}]")
     log(f"kernel launches on the main paths: {launches}")

@@ -1,8 +1,9 @@
-"""CLI command handlers: the ``source`` commands, ``refresh``, ``search`` and
-``snapshot`` of perceive_tpu/cli/commands.py.
+"""CLI command handlers: port of perceive_tpu/cli/commands.py.
 
-Fixes over the reference are the JAX package's: working `refresh`
-(cmd.rs:31 stub) and `source edit` (cmd/source.rs:114 stub).
+Each handler takes (state, args) from the argparse tree in main.py.  Fixes
+over the reference are the JAX package's: working unhide (cmd/hide.rs:16
+always hid), working `model set` (cmd/model.rs:30-32 stub), working
+`refresh` (cmd.rs:31 stub) and `source edit` (cmd/source.rs:114 stub).
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ import time
 from typing import Optional
 
 from ..db import add_source, get_source, update_source, update_source_status
-from ..index.searcher import SearchResult
+from ..index.searcher import MAX_K, SearchResult
+from ..models import ModelType
 from ..sources import ScanStats, prune_missing_items, scan_source
+from ..sources.fs import decompress_raw
 from ..sources.reprocess import reprocess_source
-from ..types import ItemCompareStrategy, Source, SourceStatus
+from ..types import ItemCompareStrategy, Source, SourceStatus, SourceTypeTag
 
 BOLD = "\x1b[1m"
 RESET = "\x1b[0m"
@@ -89,10 +92,14 @@ def _progress_ticker(stats: ScanStats, stop: threading.Event) -> None:
     print(file=sys.stderr)
 
 
-def _run_scan(state, src: Source, compare_strategy: Optional[ItemCompareStrategy], prune: bool):
+def _run_scan(
+    state, src: Source, compare_strategy: Optional[ItemCompareStrategy], prune: bool,
+    quiet: bool = False,
+):
     """Bump index_version, Indexing -> scan -> Ready (cmd/source.rs:237-314).
     The searcher updates incrementally through on_embeddings instead of the
-    reference's full per-source HNSW rebuild."""
+    reference's full per-source HNSW rebuild.  ``quiet`` silences the
+    ticker and the summary prints (serve's background refresh)."""
     src.index_version += 1
     src.status = SourceStatus.indexing(int(time.time()))
     # status/version-only write: updating the FULL row here would revert a
@@ -103,8 +110,10 @@ def _run_scan(state, src: Source, compare_strategy: Optional[ItemCompareStrategy
 
     stats = ScanStats()
     stop = threading.Event()
-    ticker = threading.Thread(target=_progress_ticker, args=(stats, stop), daemon=True)
-    ticker.start()
+    ticker = None
+    if not quiet:
+        ticker = threading.Thread(target=_progress_ticker, args=(stats, stop), daemon=True)
+        ticker.start()
     start = time.time()
     on_emb, on_rm = (
         state.searcher.pipeline_hooks() if state.searcher else (None, None)
@@ -130,7 +139,8 @@ def _run_scan(state, src: Source, compare_strategy: Optional[ItemCompareStrategy
         raise
     finally:
         stop.set()
-        ticker.join()
+        if ticker is not None:
+            ticker.join()
     duration = int(time.time() - start)
 
     # re-read the row and update only scan-owned fields so a concurrent
@@ -150,24 +160,26 @@ def _run_scan(state, src: Source, compare_strategy: Optional[ItemCompareStrategy
         if stats.embed_failed.value:
             # a poisoned embed batch leaves its CHANGED items at the old
             # version; pruning on version would delete LIVE files
-            print(
-                f"skipping prune: {stats.embed_failed.value} items failed to embed this scan",
-                file=sys.stderr,
-            )
+            if not quiet:
+                print(
+                    f"skipping prune: {stats.embed_failed.value} items failed to embed this scan",
+                    file=sys.stderr,
+                )
         else:
             removed = prune_missing_items(state.db, src)
             if state.searcher and removed:
                 state.searcher.remove_items(removed)
-            if removed:
+            if removed and not quiet:
                 print(f"Pruned {len(removed)} vanished items")
 
     s = stats.summary()
-    print(
-        f"Finished in {duration} seconds: {s['scanned']} scanned, {s['added']} new, "
-        f"{s['changed']} changed, {s['unchanged']} unchanged "
-        f"(scan {s['scan_time']}s read {s['read_time']}s encode {s['encode_time']}s "
-        f"write {s['write_time']}s)"
-    )
+    if not quiet:
+        print(
+            f"Finished in {duration} seconds: {s['scanned']} scanned, {s['added']} new, "
+            f"{s['changed']} changed, {s['unchanged']} unchanged "
+            f"(scan {s['scan_time']}s read {s['read_time']}s encode {s['encode_time']}s "
+            f"write {s['write_time']}s)"
+        )
     # persist only when the scan changed the index: a periodic refresh of an
     # unchanged corpus must not rewrite the snapshot every tick
     if ok and (s["added"] or s["changed"] or removed):
@@ -197,6 +209,41 @@ def _autosave_snapshot(state, min_rows: Optional[int] = None) -> None:
         print(f"snapshot save failed: {e}", file=sys.stderr)
 
 
+def import_db(state, args) -> None:
+    """Import a reference perceive (or perceive-tpu) database: items,
+    embeddings and tags transfer with no re-scan or re-embed; vectors for
+    the active model stream straight into the device matrix."""
+    import os
+
+    from ..db.import_reference import import_reference_db
+
+    if not os.path.exists(args.path):
+        raise SystemExit(f"no such file: {args.path}")
+    # deferred-maintenance hook: the import streams vectors inside its write
+    # transaction; retier/audit run after commit (pipeline_hooks contract)
+    hook = state.searcher.pipeline_hooks()[0] if state.searcher else None
+    hook_model = (state.model.model_id, state.model.model_version) if state.model else None
+    hook_dim = state.searcher.matrix.dim if state.searcher else None
+    stats = import_reference_db(state.db, args.path, hook, hook_model, hook_dim)
+    state.refresh_sources()
+    print(
+        f"Imported {stats['sources']} sources, {stats['items']} items, "
+        f"{stats['embeddings']} embeddings, {stats['tags']} tags "
+        f"from {args.path}"
+    )
+    if stats["dim_mismatch"]:
+        print(
+            f"warning: {stats['dim_mismatch']} embeddings share model id "
+            f"{hook_model and hook_model[0]} but have a different dimension — "
+            "imported to the store, NOT streamed to the index",
+            file=sys.stderr,
+        )
+    if stats["embeddings"] and state.searcher is None:
+        print("(searcher not built; vectors will load on next startup)")
+    if stats["streamed"]:  # only rewrite the snapshot when the matrix changed
+        _autosave_snapshot(state)
+
+
 def snapshot_cmd(state, args) -> None:
     """Save the device matrix for a fast startup."""
     if state.searcher is None:
@@ -224,13 +271,13 @@ def source_scan(state, args) -> None:
         raise SystemExit(f"scan of {src.name} failed; see errors above")
 
 
-def _due_sources(state) -> list[Source]:
+def _due_sources(state, now: Optional[int] = None) -> list[Source]:
     """Sources whose index_interval has elapsed since last_indexed.
 
     Uses the schema's index_interval column (present but unused in the
     reference, 00001_init.sql); sources without an interval are always due.
     """
-    now = int(time.time())
+    now = now if now is not None else int(time.time())
     state.refresh_sources()
     due = []
     for src in state.sources:
@@ -321,6 +368,57 @@ def source_remove(state, args) -> None:
     print(f"Removed source {src.name} and {n} items")
 
 
+def _matrix_device_bytes(m) -> int:
+    """Bytes the matrix holds on its device: the stored vectors (at int2 the
+    coarse codes and the companion), their scales and the source ids."""
+    vectors, src, scales = m.device_view()
+    parts = [*(vectors if isinstance(vectors, tuple) else (vectors,)), src,
+             *(scales if isinstance(scales, tuple) else (scales,))]
+    return sum(t.numel() * t.element_size() for t in parts if t is not None)
+
+
+def stats_cmd(state, args) -> None:
+    """Index statistics (items, embeddings per model, device matrix)."""
+    db = state.db
+    n_items = db.read().execute("SELECT COUNT(*) FROM items").fetchone()[0]
+    n_hidden = db.read().execute("SELECT COUNT(*) FROM items WHERE hidden_at IS NOT NULL").fetchone()[0]
+    n_skipped = db.read().execute("SELECT COUNT(*) FROM items WHERE skipped IS NOT NULL").fetchone()[0]
+    print(f"items: {n_items} ({n_hidden} hidden, {n_skipped} skipped)")
+    for mid, mv, cnt in db.read().execute(
+        "SELECT model_id, model_version, COUNT(*) FROM item_embeddings GROUP BY 1, 2"
+    ):
+        print(f"embeddings model {mid} v{mv}: {cnt}")
+    if state.searcher is None:
+        return
+    m = state.searcher.matrix
+    # the port has one engine, its kernels: the line names the device instead
+    print(
+        f"device matrix: {len(m)} vectors, capacity {m.capacity} x {m.padded_dim} "
+        f"({m.tier_name}, ~{_matrix_device_bytes(m) / 1e6:.1f} MB device memory), device {m.device}"
+    )
+    if state.searcher.scan_calls:
+        print(
+            f"scans this session: {state.searcher.scan_calls} "
+            f"({state.searcher.escalations} floor escalations)"
+        )
+    audit = state.searcher.coarse_audit
+    if audit is not None and m.packed2:
+        # the verdict from the LIVE matrix flag, not the recorded dict: the
+        # flag is what routing consults
+        fine = f"int{m.fine_bits}"
+        verdict = "coarse pass serving" if m.coarse_trusted else (
+            f"coarse pass DEMOTED to the {fine} fine sweep (dense ties)"
+        )
+        print(
+            f"int2 coarse self-audit: top-{audit.get('k', 10)} overlap "
+            f"{audit['overlap']:.4f} (min {audit.get('min_overlap', audit['overlap']):.4f}) "
+            f"over {audit['queries']} sampled vectors at {audit['rows']} rows "
+            f"(select {audit.get('select', 'exact')}, fetch "
+            f"{audit.get('fetch', 0) or 'default'}, "
+            f"{audit.get('strata', 1)} strata) — {verdict}"
+        )
+
+
 def source_edit(state, args) -> None:
     """Working version of the reference's unimplemented `source edit`."""
     src = state.source_by_name(args.name)
@@ -353,20 +451,106 @@ def source_edit(state, args) -> None:
 # -- search ------------------------------------------------------------------
 
 
+class UnknownSource(KeyError):
+    """--source names a source that doesn't exist."""
+
+
+def resolve_source_filter(state, source: Optional[str], type_tag: Optional[str]) -> Optional[list[int]]:
+    """source name / type tag -> source-id list (cmd/search.rs:40-57).
+
+    The ONE filter resolver shared by the CLI and the HTTP API (serve.py) so
+    their semantics can't drift.  Raises UnknownSource / ValueError (bad
+    tag); returns None for "no filter".  [] means "matches nothing" (zero
+    results), NOT "no filter": the reference returns empty for a tag with
+    no sources."""
+    if source:
+        src = state.source_by_name(source)
+        if src is None:
+            raise UnknownSource(source)
+        return [src.id]
+    if type_tag:
+        tag = SourceTypeTag(type_tag)  # ValueError on a bad tag
+        return [s.id for s in state.sources if s.matches_tag(tag)]
+    return None
+
+
+def _resolve_source_filter(state, args) -> Optional[list[int]]:
+    try:
+        return resolve_source_filter(state, getattr(args, "source", None), getattr(args, "type", None))
+    except UnknownSource as e:
+        raise SystemExit(f"No source named {e.args[0]}") from e
+
+
+# seconds per relative-time unit accepted by parse_when; "mo" is the mean
+# Gregorian month and "y" the Julian year: close enough for search windows
+_WHEN_UNITS = {
+    "s": 1, "min": 60, "h": 3600, "d": 86400, "w": 604800,
+    "mo": 2629800, "y": 31557600,
+}
+
+
+def parse_when(text: str, *, now: Optional[float] = None) -> int:
+    """Parse a user-supplied point in time into unix seconds.
+
+    Accepted forms (the `search --after/--before` filter; items carry
+    mtime/atime as unix seconds, types.py):
+
+    * relative: ``7d``, ``12h``, ``30min``, ``2w``, ``3mo``, ``1y``: that
+      long before *now*;
+    * absolute: anything ``datetime.fromisoformat`` takes (``2026-01-15``,
+      ``2026-01-15T09:30``, with offset); naive values are LOCAL time,
+      matching what `print` shows and users think in;
+    * a raw unix timestamp (9+ digits, so date-like digit strings never
+      collide with epochs).
+
+    Raises ValueError with the accepted forms on anything else.
+    """
+    import re
+    from datetime import datetime
+
+    s = text.strip()
+    if re.fullmatch(r"\d{9,}", s):
+        return int(s)
+    m = re.fullmatch(r"(\d+)\s*(s|min|h|d|w|mo|y)", s)
+    if m:
+        t = time.time() if now is None else now
+        return int(t - int(m.group(1)) * _WHEN_UNITS[m.group(2)])
+    try:
+        return int(datetime.fromisoformat(s).timestamp())
+    except ValueError:
+        raise ValueError(
+            f"can't parse time {text!r}: use a relative offset (7d, 12h, 30min, "
+            "2w, 3mo, 1y), an ISO date/datetime (2026-01-15[T09:30]), or a unix "
+            "timestamp"
+        ) from None
+
+
 def item_time(item) -> Optional[int]:
-    """The item's mtime, falling back to its atime (None when neither)."""
+    """The timestamp an item is filtered and sorted by: mtime (fs files,
+    pages with Last-Modified) falling back to atime (bookmark/history visit
+    or fetch time).  None when the connector recorded neither."""
     m = item.metadata
     return m.mtime if m.mtime is not None else m.atime
 
 
-def _resolve_source_filter(state, args) -> Optional[list[int]]:
-    """--source NAME -> [source id]; None for no filter."""
-    if not getattr(args, "source", None):
-        return None
-    src = state.source_by_name(args.source)
-    if src is None:
-        raise SystemExit(f"No source named {args.source}")
-    return [src.id]
+def filter_results_by_time(results: list, after: Optional[int], before: Optional[int]) -> list:
+    """Keep results whose item_time lies in [after, before).  Items with no
+    timestamp at all are dropped: a time filter asks for provably-in-range
+    items.  Shared by the CLI and serve so semantics can't drift (same
+    contract as resolve_source_filter)."""
+    if after is None and before is None:
+        return results
+    out = []
+    for r in results:
+        t = item_time(r.item)
+        if t is None:
+            continue
+        if after is not None and t < after:
+            continue
+        if before is not None and t >= before:
+            continue
+        out.append(r)
+    return out
 
 
 def format_result(r: SearchResult, highlight: Optional[str]) -> str:
@@ -383,21 +567,47 @@ def search(state, args) -> list[SearchResult]:
         return []
     source_ids = _resolve_source_filter(state, args)
     k = args.num_results
+
+    tag_items = None
+    if getattr(args, "tag", None):
+        from ..db import items_with_tag
+
+        tag_items = items_with_tag(state.db, args.tag)
+        if tag_items is None:
+            raise SystemExit(f"no tag named {args.tag}")
+    try:
+        after = parse_when(args.after) if getattr(args, "after", None) else None
+        before = parse_when(args.before) if getattr(args, "before", None) else None
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    # tag/time filtering is a host-side post-filter; over-fetch to keep k
+    # results.  Stay under the searcher's user-facing cap: -n 300 --tag must
+    # not explode just because the post-filter over-fetch would exceed MAX_K
+    post_filter = tag_items is not None or after is not None or before is not None
+    fetch_k = min(4 * k, MAX_K) if post_filter else k
+
     hl_q = None  # highlight-model query embedding, from the fused search
     if getattr(args, "like", None):
         vec = state.searcher.stored_embedding(state.db, int(args.like))
         if vec is None:
             raise SystemExit(f"item {args.like} has no stored embedding")
-        results = state.searcher.search_vector_and_retrieve(state.db, vec, k, source_ids)
+        results = state.searcher.search_vector_and_retrieve(state.db, vec, fetch_k, source_ids)
     else:
         query = " ".join(args.query)
         if not query:
             raise SystemExit("search needs a query or --like <item-id>")
         hits, hl_q = state.searcher.search_fused(
-            state.model, query, k, source_ids, aux_model=state.highlights_model
+            state.model, query, fetch_k, source_ids, aux_model=state.highlights_model
         )
         results = state.searcher.retrieve(state.db, hits)
-    results = results[:k]
+
+    if tag_items is not None:
+        results = [r for r in results if r.item.id in tag_items]
+    results = filter_results_by_time(results, after, before)[:k]
+    if getattr(args, "sort", None) == "time":
+        # top-k stays relevance-selected; --sort time only reorders the
+        # DISPLAY of those k by recency (newest first, untimed last)
+        results.sort(key=lambda r: item_time(r.item) or -1, reverse=True)
 
     docs = [r.item.content or "" for r in results]
     query_text = " ".join(args.query) if args.query else ""
@@ -429,3 +639,96 @@ def search(state, args) -> list[SearchResult]:
         for r in results:
             print(format_result(r, r.highlight))
     return results
+
+
+# -- item commands -----------------------------------------------------------
+
+
+def print_item(state, args) -> None:
+    """(reference cmd/print.rs:16-56)"""
+    item = state.db.read_item(int(args.item_id))
+    if item is None:
+        print(f"No item {args.item_id}", file=sys.stderr)
+        return
+    m = item.metadata
+    print(f"id: {item.id}\nsource: {item.source_id}\nexternal_id: {item.external_id}")
+    for k, v in (
+        ("name", m.name), ("author", m.author), ("description", m.description),
+        ("mtime", m.mtime), ("atime", m.atime), ("skipped", item.skipped),
+        ("process_version", item.process_version),
+    ):
+        if v is not None:
+            print(f"{k}: {v}")
+    print("---")
+    print(item.content or "")
+    if args.raw and item.raw_content:
+        print("--- raw ---")
+        try:
+            print(decompress_raw(item.raw_content).decode("utf-8", "replace"))
+        except Exception as e:  # noqa: BLE001
+            print(f"(raw decode failed: {e})")
+
+
+def hide(state, args) -> None:
+    """Hide or unhide; the reference parsed --unhide but always hid
+    (cmd/hide.rs:11-16).  Hiding tombstones the item's rows in the device
+    matrix; unhiding upserts every chunk row back."""
+    item_id = int(args.item_id)
+    unhide = getattr(args, "unhide", False)
+    state.db.set_item_hidden(item_id, not unhide)
+    if state.searcher is not None:
+        if unhide:
+            import numpy as np
+
+            item = state.db.read_item(item_id)
+            chunks = state.searcher.stored_embeddings(state.db, item_id)
+            if item is not None and chunks:
+                # restore EVERY chunk row, not just chunk 0 (a chunk-embedded
+                # document must come back with all its vectors)
+                keys = [(item_id, ci) for ci, _ in chunks]
+                vecs = np.stack([v for _, v in chunks])
+                state.searcher.upsert_embeddings(keys, [item.source_id] * len(keys), vecs)
+        else:
+            state.searcher.remove_items([item_id])
+    print(("Unhid" if unhide else "Hid") + f" item {item_id}")
+
+
+def tag_cmd(state, args) -> None:
+    """Tag management: the reference created the tags tables but never used
+    them (migrations/00002_tags.sql)."""
+    from ..db import list_tags, tag_item, untag_item
+
+    if args.tag_action == "add":
+        tag_item(state.db, int(args.item_id), args.tag_name)
+        print(f"Tagged item {args.item_id} with {args.tag_name!r}")
+    elif args.tag_action == "rm":
+        if untag_item(state.db, int(args.item_id), args.tag_name):
+            print(f"Untagged item {args.item_id} from {args.tag_name!r}")
+        else:
+            print("no such tag on that item", file=sys.stderr)
+    elif args.tag_action == "list":
+        for tid, name, count in list_tags(state.db):
+            print(f"{tid:4d}  {name:24s} {count} items")
+
+
+# -- model -------------------------------------------------------------------
+
+
+def model_cmd(state, args) -> None:
+    if args.model_action == "list":
+        current = state.model.name
+        for mt in ModelType:
+            marker = " *" if mt.value in current else ""
+            print(f"{mt.model_id}: {mt.value}{marker}")
+    elif args.model_action == "set":
+        mt = ModelType.parse(args.model_name)
+        with state.db.write() as conn:
+            conn.execute(
+                "INSERT INTO config (key, value) VALUES ('model', ?) "
+                "ON CONFLICT (key) DO UPDATE SET value = excluded.value",
+                (mt.value,),
+            )
+        print(
+            f"Default model set to {mt.value} (id {mt.model_id}). "
+            "Restart to load it; re-scan sources to embed under the new model."
+        )

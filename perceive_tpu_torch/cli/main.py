@@ -1,10 +1,10 @@
-"""CLI entry: ``python -m perceive_tpu_torch.cli [--db PATH] COMMAND ...``.
+"""CLI entry: ``python -m perceive_tpu_torch.cli [--db PATH] [COMMAND ...]``.
 
-Port of perceive_tpu/cli/main.py, holding the ``source`` subcommands
-(add fs|browser-history|bookmarks, list, scan, reprocess, rebuild-search,
-remove, edit), ``refresh``, ``search`` and ``snapshot``, with the JAX
-package's flags and defaults.  The other subcommands are later work
-(ROADMAP.md queue 1).
+Port of perceive_tpu/cli/main.py: the argparse command tree and its
+dispatch, with the JAX package's flags and defaults.  No command starts the
+REPL (reference main.rs:28-31), which re-dispatches lines through this same
+tree (repl.rs:104-116).  ``doctor`` and ``app --install`` build no AppState;
+every other command builds one on ``cuda:0`` and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -26,12 +26,19 @@ def positive_float(v: str) -> float:
     return f
 
 
+def nonnegative_float(v: str) -> float:
+    f = float(v)
+    if f < 0:
+        raise argparse.ArgumentTypeError("must be >= 0")
+    return f
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="perceive-tpu-torch", description="Semantic search for your life, on a GPU"
     )
     p.add_argument("--db", help="database path (default: data dir)")
-    sub = p.add_subparsers(dest="command", required=True)
+    sub = p.add_subparsers(dest="command")
 
     # source
     ps = sub.add_parser("source", help="manage sources")
@@ -110,12 +117,95 @@ def build_parser() -> argparse.ArgumentParser:
 
     pq.add_argument("-n", "--num-results", type=result_count, default=20)
     pq.add_argument("--source", help="restrict to one source by name")
+    pq.add_argument("--type", choices=["local", "web", "bookmarks"])
     pq.add_argument("--like", help="item id: find items similar to this one")
     pq.add_argument("--json", action="store_true", help="machine-readable output")
+    pq.add_argument("--tag", help="restrict to items carrying this tag")
+    pq.add_argument(
+        "--after",
+        help="only items modified at/after this time (7d, 12h, 2026-01-15, unix epoch)",
+    )
+    pq.add_argument("--before", help="only items modified before this time (same forms)")
+    pq.add_argument(
+        "--sort", choices=["score", "time"], default="score",
+        help="order the top results by relevance (default) or recency",
+    )
 
-    # snapshot
+    # print / hide
+    pp = sub.add_parser("print", help="print an item")
+    pp.add_argument("item_id")
+    pp.add_argument("--raw", action="store_true")
+
+    ph = sub.add_parser("hide", help="hide (or unhide) an item from results")
+    ph.add_argument("item_id")
+    ph.add_argument("--unhide", action="store_true")
+
+    # tag
+    pt = sub.add_parser("tag", help="tag items")
+    tsub = pt.add_subparsers(dest="tag_action", required=True)
+    pta = tsub.add_parser("add")
+    pta.add_argument("item_id")
+    pta.add_argument("tag_name")
+    ptr = tsub.add_parser("rm")
+    ptr.add_argument("item_id")
+    ptr.add_argument("tag_name")
+    tsub.add_parser("list")
+
+    # model
+    pm = sub.add_parser("model", help="model registry")
+    msub = pm.add_subparsers(dest="model_action", required=True)
+    msub.add_parser("list")
+    pms = msub.add_parser("set")
+    pms.add_argument("model_name")
+
+    # import-db
+    pimp = sub.add_parser(
+        "import-db",
+        help="import a reference perceive (or perceive-tpu) database: "
+        "items + embeddings transfer without re-scanning or re-embedding",
+    )
+    pimp.add_argument("path", help="path to the source SQLite database")
+
+    # doctor: environment self-check (no model load / device matrix)
+    sub.add_parser(
+        "doctor",
+        help="check the environment: GPU, kernel build, checkpoints, native deps, db",
+    )
+
+    # snapshot / stats
     psnap = sub.add_parser("snapshot", help="save the device matrix for fast startup")
     psnap.add_argument("path", nargs="?", default=None)
+    sub.add_parser("stats", help="index statistics")
+
+    # serve
+    pserve = sub.add_parser("serve", help="HTTP API (status/sources/search)")
+    pserve.add_argument("--host", default="127.0.0.1")
+    pserve.add_argument("--port", type=int, default=5807)
+    pserve.add_argument(
+        "--refresh", type=positive_float, default=None, metavar="SECONDS",
+        help="background rescan of due sources every SECONDS while serving "
+        "(sources without an index_interval rescan every tick)",
+    )
+    pserve.add_argument(
+        "--prune", action="store_true",
+        help="with --refresh: also remove items that vanished from sources",
+    )
+
+    # app: the desktop-app analog (reference perceive-tauri): serve and open
+    # the embedded search UI in the system browser once models are loaded
+    papp = sub.add_parser("app", help="desktop app: serve and open the search UI when ready")
+    papp.add_argument("--host", default="127.0.0.1")
+    papp.add_argument("--port", type=int, default=5807)
+    papp.add_argument(
+        "--refresh", type=nonnegative_float, default=900.0, metavar="SECONDS",
+        help="background rescan of due sources (default 900; 0 disables)",
+    )
+    papp.add_argument("--prune", action="store_true", help="with --refresh: remove items that vanished")
+    papp.add_argument("--no-browser", action="store_true", help="don't open the browser (just serve)")
+    papp.add_argument(
+        "--install", action="store_true",
+        help="install a desktop launcher entry instead of starting the app",
+    )
     return p
 
 
@@ -130,25 +220,78 @@ _SOURCE_COMMANDS = {
 }
 
 
+_COMMANDS = {
+    "refresh": commands.refresh,
+    "search": commands.search,
+    "print": commands.print_item,
+    "hide": commands.hide,
+    "tag": commands.tag_cmd,
+    "model": commands.model_cmd,
+    "import-db": commands.import_db,
+    "snapshot": commands.snapshot_cmd,
+    "stats": commands.stats_cmd,
+}
+
+
 def dispatch(state, args) -> None:
-    if args.command == "source":
+    cmd = args.command
+    if cmd == "source":
         _SOURCE_COMMANDS[args.source_command](state, args)
-    elif args.command == "refresh":
-        commands.refresh(state, args)
-    elif args.command == "search":
-        commands.search(state, args)
-    elif args.command == "snapshot":
-        commands.snapshot_cmd(state, args)
+    elif cmd in _COMMANDS:
+        _COMMANDS[cmd](state, args)
+    elif cmd == "doctor":  # also reachable through the REPL
+        from .doctor import doctor
+
+        db = getattr(state, "db", None)
+        doctor(getattr(args, "db", None) or (db.path if db else None))
+    elif cmd == "serve":
+        from ..serve import serve
+
+        serve(state, host=args.host, port=args.port, refresh_interval=args.refresh, refresh_prune=args.prune)
+    elif cmd == "app":
+        if args.install:  # also reachable through the REPL
+            from .desktop import install_desktop_entry
+
+            print(install_desktop_entry())
+            return
+        from ..serve import serve
+
+        serve(
+            state, host=args.host, port=args.port,
+            refresh_interval=args.refresh or None, refresh_prune=args.prune,
+            open_browser=not args.no_browser,
+        )
 
 
 def main(argv: Optional[Sequence[str]] = None, state=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    if args.command == "app" and args.install:
+        # a plain file write: no model load, no device
+        from .desktop import install_desktop_entry
+
+        print(install_desktop_entry())
+        return 0
+
+    if args.command == "doctor":
+        # independent checks, no AppState: the doctor must work precisely
+        # when the app doesn't (missing checkpoints, no GPU, a bad db)
+        from .doctor import doctor
+
+        return doctor(args.db)
+
     if state is None:
         from .state import AppState
 
         state = AppState(args.db)
     try:
-        dispatch(state, args)
+        if args.command is None:
+            from .repl import repl
+
+            repl(state, parser)
+        else:
+            dispatch(state, args)
     except SystemExit as e:
         if e.code in (0, None):
             return 0

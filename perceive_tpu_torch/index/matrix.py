@@ -35,10 +35,13 @@ its sweep and its host-side decode.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import os
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
@@ -220,8 +223,16 @@ class HostMirror:
     def read_f32(self, rows, ncols: Optional[int] = None) -> np.ndarray:
         """Rows (fancy index or slice) as an f32 COPY, first ``ncols``
         columns — never a view of the live buffer."""
-        sel = self.arr[rows] if ncols is None else self.arr[rows, :ncols]
-        return np.array(sel, dtype=np.float32, copy=True)
+        idx = rows if isinstance(rows, slice) else np.asarray(rows)
+        if isinstance(idx, slice) or idx.dtype == bool:
+            sel = self.arr[rows] if ncols is None else self.arr[rows, :ncols]
+            return np.array(sel, dtype=np.float32, copy=True)
+        # a gather copies already: a whole-row take, then the columns (a
+        # second copy of a mixed index costs the rerank about 3x)
+        sel = self.arr.take(idx.astype(np.intp, copy=False), axis=0)
+        if ncols is not None and ncols < sel.shape[1]:
+            sel = sel[:, :ncols]
+        return np.ascontiguousarray(sel, dtype=np.float32)
 
     def write(self, rows, vals_f32: np.ndarray, dim: int) -> None:
         """Store f32 vectors (first ``dim`` columns; the pad tail stays 0)."""
@@ -260,6 +271,28 @@ _MIRROR_COPY_CHUNK_BYTES = 64 * 2**20
 # rows a transposed copy moves at a time: numpy's strided copy of a whole
 # (1M, 384) int8 chunk into (384, N) columns runs about 15x slower
 _TRANSPOSE_BLOCK_ROWS = 8192
+
+
+# threads of the chunked host passes over the mirror (a full upload's
+# quantizers, a snapshot's payload, a retier's statistics): numpy releases
+# the GIL in them, and each chunk is computed as it would be on one thread
+_HOST_WORKERS = min(8, os.cpu_count() or 1)
+
+
+def _ordered_map(fn, items):
+    """``fn(item)`` for each of ``items`` on up to _HOST_WORKERS threads,
+    yielded in order, at most two a worker ahead of the consumer; ``items``
+    is drawn from in the consumer's thread."""
+    it = iter(items)
+    if _HOST_WORKERS <= 1:
+        yield from map(fn, it)
+        return
+    with ThreadPoolExecutor(_HOST_WORKERS) as ex:
+        pending = collections.deque(ex.submit(fn, x) for x in itertools.islice(it, 2 * _HOST_WORKERS))
+        while pending:
+            res = pending.popleft().result()
+            pending.extend(ex.submit(fn, x) for x in itertools.islice(it, 1))
+            yield res
 
 
 def _put_transposed(dst: np.ndarray, lo: int, rows: np.ndarray) -> None:
@@ -499,9 +532,12 @@ class EmbeddingMatrix:
                 self._device_vectors = self._device_scales = None  # release before allocating anew
                 vecs = torch.empty((self.capacity, self.padded_dim), dtype=self.dtype, device=self.device)
                 scales = torch.empty((self.capacity,), dtype=torch.float32, device=self.device) if self.quantized else None
-                for lo in range(0, self.capacity, self._SYNC_CHUNK_ROWS):
+
+                def staged(lo):
                     hi = min(lo + self._SYNC_CHUNK_ROWS, self.capacity)
-                    chunk, sc = self._staged(self._mirror.read_f32(slice(lo, hi)))
+                    return lo, hi, *self._staged(self._mirror.read_f32(slice(lo, hi)))
+
+                for lo, hi, chunk, sc in _ordered_map(staged, range(0, self.capacity, self._SYNC_CHUNK_ROWS)):
                     vecs[lo:hi].copy_(chunk)
                     if scales is not None:
                         scales[lo:hi].copy_(sc)
@@ -550,12 +586,16 @@ class EmbeddingMatrix:
                        (_quantize, d, np.int8) if int2_fine_bits(cap, d, self.device) == 8
                        else (_quantize4, d // 2, np.uint8)]
         staged = [(np.empty((width, cap), dtype=dt), np.empty((cap,), np.float32)) for _, width, dt in layouts]
-        for lo in range(0, cap, chunk):
+
+        def stage(lo):  # disjoint columns of the host arrays
             hi = min(lo + chunk, cap)
             vals = self._mirror.read_f32(slice(lo, hi))
             for (quantize, _, _), (m, sc) in zip(layouts, staged):
                 packed, sc[lo:hi] = quantize(vals)
                 _put_transposed(m, lo, packed)
+
+        for _ in _ordered_map(stage, range(0, cap, chunk)):
+            pass
         (m, sc), *companion = [(torch.from_numpy(m).to(self.device), torch.from_numpy(sc).to(self.device))
                                for m, sc in staged]
         self._device_vectors, self._device_scales = m, sc
@@ -781,12 +821,17 @@ class EmbeddingMatrix:
         of f32 rows: the step is max|v| / 127 at int8, max|v| / 7 at int4,
         the row RMS at int2 (its grid {-3, -1, 1, 3} * rms / 2 has step
         rms)."""
+        step, norm = self._quant_stats(vectors)
+        self.scale_hw = max(self.scale_hw, step)
+        self.norm_hw = max(self.norm_hw, norm)
+
+    def _quant_stats(self, vectors: np.ndarray) -> tuple[float, float]:
+        """(quantization step, largest row norm) of a batch of f32 rows."""
         if self.packed2:
             step = float(np.sqrt((vectors**2).mean(axis=1)).max())
         else:
             step = float(np.abs(vectors).max()) / (7.0 if self.packed4 else 127.0)
-        self.scale_hw = max(self.scale_hw, step)
-        self.norm_hw = max(self.norm_hw, float(np.linalg.norm(vectors, axis=1).max()))
+        return step, float(np.linalg.norm(vectors, axis=1).max())
 
     def retier(self, dtype) -> None:
         """Switch the storage dtype (bfloat16, float32, int8, INT4, INT2);
@@ -808,10 +853,14 @@ class EmbeddingMatrix:
             if self.quantized:
                 # rows stored at a wider tier never touched the stats
                 self.scale_hw = self.norm_hw = 0.0
-                for lo in range(0, self.rows, self._SYNC_CHUNK_ROWS):
-                    v = self._mirror.read_f32(slice(lo, min(lo + self._SYNC_CHUNK_ROWS, self.rows)), self.dim)
-                    if len(v):
-                        self._note_quant_stats(v)
+
+                def stats(lo):
+                    return self._quant_stats(
+                        self._mirror.read_f32(slice(lo, min(lo + self._SYNC_CHUNK_ROWS, self.rows)), self.dim))
+
+                for step, norm in _ordered_map(stats, range(0, self.rows, self._SYNC_CHUNK_ROWS)):
+                    self.scale_hw = max(self.scale_hw, step)
+                    self.norm_hw = max(self.norm_hw, norm)
 
     def clear(self) -> None:
         """Drop every row and the delta tracking (a failed snapshot load
@@ -1001,11 +1050,18 @@ class EmbeddingMatrix:
                         npf.write_array_header_1_0(
                             f, {"descr": descr, "fortran_order": False, "shape": (rows, width)}
                         )
-                        for lo in range(0, rows, self._SYNC_CHUNK_ROWS):
+
+                        def read(lo):  # in this thread, which may hold the lock throughout
                             hi = min(lo + self._SYNC_CHUNK_ROWS, rows)
                             with self._lock:
-                                chunk = self._mirror.read_f32(slice(lo, hi))
-                            q, s = quant_fn(chunk)
+                                return lo, hi, self._mirror.read_f32(slice(lo, hi))
+
+                        def quantized(part):
+                            lo, hi, chunk = part
+                            return lo, hi, *quant_fn(chunk)
+
+                        starts = range(0, rows, self._SYNC_CHUNK_ROWS)
+                        for lo, hi, q, s in _ordered_map(quantized, map(read, starts)):
                             f.write(np.ascontiguousarray(q).tobytes())
                             scales[lo:hi] = s
                     return scales

@@ -52,6 +52,7 @@ from ..ops import int2 as int2_ops
 from ..ops import topk
 from ..ops.int2 import INT2_COARSE_FETCH
 from ..types import Item
+from ..utils import dispatchmeter
 from .matrix import CHUNK_STRIDE, EmbeddingMatrix, SnapshotDeviceError, chunk_key, deserialize_embedding, key_item
 
 K_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
@@ -786,6 +787,7 @@ class Searcher:
                 torch.from_numpy(np.ascontiguousarray(qp)).to(m.device),
                 torch.from_numpy(allowed).to(m.device), kb, m.sweep_rows, coarse,
             )
+        dispatchmeter.count("sweep")
         return vals.cpu().numpy(), rows.cpu().numpy(), None if floor is None else floor.cpu().numpy()
 
     def _coarse_pays(self, kb: int) -> bool:
@@ -1070,6 +1072,7 @@ class Searcher:
             qp = q if m.padded_dim == m.dim else torch.nn.functional.pad(q, (0, m.padded_dim - m.dim))
             # quantized tiers: the query quantizes on the device inside the sweep
             vals, rows, floor = self._sweep(vectors, scales, src, qp, allowed, kb, m.sweep_rows, use_coarse)
+        dispatchmeter.count("fused")
         # ONE copy back: query vectors, scores, rows (int32 bits) and the
         # int2 coarse floor, packed
         tail = [] if floor is None else [floor]

@@ -16,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import dispatchmeter
 from .encoder import Encoder, EncoderArch, HeadConfig, init_params, output_dim
 from .registry import ModelType, checkpoint_path
 from .tokenize import TextTokenizer, TokenBatch
@@ -143,6 +144,9 @@ class Model:
 
     def encode_token_batch(self, batch: TokenBatch) -> np.ndarray:
         """(B, S) token arrays -> (B, dim) f32 embeddings on the host."""
+        # a blocking encode: a query encoded outside the fused path, a
+        # highlight chunk batch (the JAX package leaves both uncounted)
+        dispatchmeter.count("encode")
         try:
             out = self.encode_tensors(
                 self._to_device(batch.input_ids),
@@ -184,6 +188,7 @@ class Model:
         if len(items) > BATCH_BUCKETS[-1]:
             raise ModelError(f"batch of {len(items)} exceeds the {BATCH_BUCKETS[-1]} dispatch limit")
         ids = ids_for(batch_bucket(len(items)))
+        dispatchmeter.count("encode")
         return self.encode_ids(self._to_device(ids)), len(items)
 
     @staticmethod

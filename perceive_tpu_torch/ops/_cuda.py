@@ -135,13 +135,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.perceive_cuda_error_string.restype = ctypes.c_char_p
 
 
+def library_path() -> Path:
+    """Where the kernel library of today's sources is built."""
+    return BUILD_DIR / f"libperceive_kernels_{source_key()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has no
     library yet."""
     global _lib
     with _lock:
         if _lib is None:
-            out = BUILD_DIR / f"libperceive_kernels_{source_key()}.so"
+            out = library_path()
             if not out.exists():
                 _build(out)
             lib = ctypes.CDLL(str(out))

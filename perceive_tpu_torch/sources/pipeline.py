@@ -41,7 +41,7 @@ import numpy as np
 from ..db import Database, json_ids
 from ..index.matrix import serialize_embedding
 from ..types import Item, ItemCompareStrategy, SkipReason, Source
-from ..utils import BatchSender
+from ..utils import BatchSender, dispatchmeter
 from .scanner import (
     FoundItem,
     ReadResult,
@@ -103,10 +103,14 @@ class _Stage(threading.Thread):
         self._fn = fn
         self._in_q = in_q
         self._errors = errors
+        # the scan's dispatch attribution (serve's background refresh)
+        # follows it into its stage threads
+        self._site = dispatchmeter.current_site()
 
     def run(self) -> None:
         try:
-            self._fn()
+            with dispatchmeter.attributed(self._site):
+                self._fn()
         except Exception as e:  # noqa: BLE001 — stage isolation boundary
             print(f"stage {self.name} failed: {e}", file=sys.stderr)
             traceback.print_exc()

@@ -38,7 +38,11 @@ prefix of the columns, twice back to back; ``test_int2_scores_refuses_*``)
 and K11's
 bf16 path
 (``test_attention_bf16_tensor_cores``: S 100, 384 and 512, DH 16, 32 and
-64, masks with whole padded key tiles, one kept key, or none).
+64, masks with whole padded key tiles, one kept key, or none).  The serve
+layer has two: the doctor's build-and-launch check passes
+(``test_doctor_device_checks_pass``), and one served ``/search`` on a
+CUDA AppState returns the hits of ``scan_topk_plain`` over the same matrix
+(``test_served_search_equals_plain_scan``).
 """
 
 import pytest
@@ -1005,3 +1009,71 @@ def test_scan_flat_cols_refuses_unaligned_columns(dev, kernel):
         qi8, qscale = topk.quantize_queries(torch.randn((nq, 384), device=dev))
         with pytest.raises(ValueError):
             fn(mat, sc, src, qi8, qscale, _allowed(dev), 16)
+
+
+def test_doctor_device_checks_pass(dev):
+    from perceive_tpu_torch.cli import doctor as doc
+
+    rep = doc._Report()
+    doc._check_device(rep, dev)
+    doc._check_kernel_cache(rep)
+    status = {name: st for st, name, _ in rep.rows}
+    assert status["device"] == status["kernel build+launch"] == status["kernel cache"] == doc.OK, rep.rows
+
+
+def test_served_search_equals_plain_scan(dev, tmp_path, monkeypatch):
+    import contextlib
+    import io
+    import json
+    import urllib.request
+
+    import numpy as np
+
+    from perceive_tpu_torch.cli import AppState, main
+    from perceive_tpu_torch.index.searcher import _k_bucket
+    from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, TextTokenizer
+    from perceive_tpu_torch.models.tokenize import tiny_test_vocab
+    from perceive_tpu_torch.serve import start_server
+
+    monkeypatch.setenv("PERCEIVE_TPU_WARM_BATCH_SHAPES", "0")
+    monkeypatch.setenv("PERCEIVE_TPU_WARM_HIGHLIGHTS", "0")
+    monkeypatch.setenv("PERCEIVE_TPU_DATA_DIR", str(tmp_path / "data"))
+    words = "alpha beta gamma delta music river".split()
+    vocab = tiny_test_vocab(words)
+    arch = EncoderArch(vocab_size=len(vocab), hidden_size=64, num_layers=1, num_heads=4,
+                       intermediate_size=128, max_position_embeddings=64)
+    model = Model.random(arch, HeadConfig(pooling="mean", normalize=True),
+                         TextTokenizer.from_vocab(vocab, max_seq_length=64), seed=1, device=dev)
+    model.model_id = 0
+    state = AppState(str(tmp_path / "db.sqlite3"), model=model, highlights_model=model, device=dev)
+    rng = np.random.default_rng(2)
+    docs = tmp_path / "docs"
+    docs.mkdir()
+    for i in range(300):
+        (docs / f"d{i}.txt").write_text(" ".join(rng.choice(words, size=int(rng.integers(3, 40)))))
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(["source", "add", "fs", str(docs), "--name", "docs"], state=state) == 0
+        assert main(["source", "scan", "docs"], state=state) == 0
+    srv = start_server(lambda: state, port=0)
+    try:
+        assert srv.perceive_state.ready.wait(300) and srv.perceive_state.error is None
+        launches = topk.LAUNCHES
+        url = f"http://127.0.0.1:{srv.server_address[1]}/search?q=music%20river%20gamma&k=10"
+        with urllib.request.urlopen(url) as r:
+            got = [(h["id"], h["score"]) for h in json.loads(r.read())]
+        assert topk.LAUNCHES > launches
+        s, m = state.searcher, state.searcher.matrix
+        vectors, src, _ = m.device_view()
+        kb = _k_bucket(s._first_fetch(10), m.sweep_rows)
+        allowed = torch.from_numpy(s._allowed_arrays(None)[0]).to(dev)
+        ids = torch.from_numpy(model.tokenizer.encode_batch_ids(["music river gamma"], pad_batch_to=1)).to(dev)
+        q = torch.nn.functional.pad(model.encode_ids(ids).float(), (0, m.padded_dim - m.dim))
+        vals, rows = topk.scan_topk_plain(vectors, src, q, allowed, kb, m.sweep_rows)
+        want = s._decode_hits(vals[0].cpu().numpy(), rows[0].cpu().numpy(), 10)
+        assert got and [i for i, _ in got] == [i for i, _ in want]
+        assert max(abs(a[1] - b[1]) for a, b in zip(got, want)) <= 1e-4
+    finally:
+        srv.perceive_state.stop()
+        srv.shutdown()
+        srv.server_close()
+        state.close()

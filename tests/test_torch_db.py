@@ -3,6 +3,7 @@ schema after both packages' migrations, and a database written by either
 package is searched by the other with the same hits (f32 tier: scores
 within 1e-5 relative, f32 sums in another order)."""
 
+import re
 import sqlite3
 
 import jax.numpy as jnp
@@ -92,3 +93,52 @@ def test_database_written_by_one_package_searches_in_the_other(tmp_path, writer)
     finally:
         jdb.close()
         pdb.close()
+
+
+def test_cold_load_keeps_jax_bookkeeping(tmp_path, monkeypatch, capsys):
+    """A cold build over single- and multi-chunk items, blobs of another
+    width and a hidden item, read a few rows at a time: the port's matrix
+    holds the JAX package's keys, rows, groups and vectors, and both warn of
+    the same skipped rows."""
+    rng = np.random.default_rng(9)
+    path = tmp_path / "db.sqlite3"
+    d = port_db.Database(path)
+    src = port_db.add_source(d, port_types.Source(name="s", config={"type": "fs"}, location="/s"))
+    seq = 0
+    with d.write() as conn:
+        for i in range(1, 41):
+            conn.execute(
+                "INSERT INTO items (id, source_id, external_id, hash, content) VALUES (?,?,?,?,?)",
+                (i, src.id, f"f{i}", "", "c"),
+            )
+            # items 5, 10, ... have three chunks (written last chunk first)
+            # and every 7th one blob of another width
+            for c in ((2, 1, 0) if i % 5 == 0 else (0,)):
+                seq += 1
+                dim = 2 * DIM if (i + c) % 7 == 0 else DIM
+                conn.execute(
+                    """INSERT INTO item_embeddings (item_id, chunk_idx, item_index_version, embedding,
+                         model_id, model_version, seq) VALUES (?,?,?,?,?,?,?)""",
+                    (i, c, 1, serialize_embedding(rng.standard_normal(dim).astype(np.float32)), 0, 0, seq),
+                )
+        conn.execute("UPDATE items SET hidden_at = 1 WHERE id = 3")
+    d.close()
+    monkeypatch.setattr(Searcher, "_LOAD_DB_CHUNK_ROWS", 6)
+    monkeypatch.setattr(JaxSearcher, "_LOAD_DB_CHUNK_ROWS", 6, raising=False)
+    jdb, pdb = jax_db.Database(path), port_db.Database(path)
+    try:
+        jm = JaxSearcher.build(jdb, 0, 0, DIM, dtype=jnp.float32, engine="xla", use_snapshot=False).matrix
+        jwarn = capsys.readouterr().err
+        pm = Searcher.build(pdb, 0, 0, DIM, device="cpu", dtype=torch.float32, use_snapshot=False).matrix
+        pwarn = capsys.readouterr().err
+    finally:
+        jdb.close()
+        pdb.close()
+    skipped = [re.findall(r"skipped (\d+) stored embeddings", w) for w in (pwarn, jwarn)]
+    assert skipped[0] == skipped[1] == ["8"]
+    assert pm.row_of == jm.row_of and len(pm) == len(jm) > 30
+    assert {k: sorted(v) for k, v in pm.groups.items()} == {k: sorted(v) for k, v in jm.groups.items()}
+    assert pm.multi_chunk_groups == jm.multi_chunk_groups > 0
+    assert pm.item_ids.tolist() == np.asarray(jm.item_ids).tolist()
+    assert pm.source_ids.tolist() == np.asarray(jm.source_ids).tolist()
+    np.testing.assert_array_equal(pm._host_vectors[: pm.rows, :DIM], np.asarray(jm._host_vectors)[: jm.rows, :DIM])

@@ -178,3 +178,114 @@ def test_retier_follows_jax():
         np.testing.assert_array_equal(pv.float().numpy(), np.asarray(rv, np.float32))
         if dt == "int8":
             np.testing.assert_array_equal(pscales.numpy(), np.asarray(rscales))
+
+
+def _tensors(m):
+    """Every device tensor and the quantization stats of ``m``, on the host."""
+    vecs, src, scales = m.device_view()
+    flat = [*(vecs if isinstance(vecs, tuple) else (vecs,)), src,
+            *(scales if isinstance(scales, tuple) else (scales,))]
+    return [t.float().numpy() for t in flat if t is not None], (m.scale_hw, m.norm_hw)
+
+
+@pytest.mark.parametrize("tier", ["bfloat16", "int8", "int4", "int2"])
+def test_threaded_host_passes_equal_serial(tier, tmp_path, monkeypatch):
+    """The mirror's chunked host passes (the full upload, a retier's
+    statistics, a snapshot's quantized payload) give the same device bytes,
+    stats and snapshot members on worker threads as on one, over many
+    chunks."""
+    import perceive_tpu_torch.index.matrix as mx
+
+    monkeypatch.setattr(EmbeddingMatrix, "_SYNC_CHUNK_ROWS", 64)
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal((1000, DIM)).astype(np.float32) * rng.uniform(0.1, 3, (1000, 1)).astype(np.float32)
+    got = {}
+    for workers in (1, 4):
+        monkeypatch.setattr(mx, "_HOST_WORKERS", workers)
+        m = EmbeddingMatrix(DIM, dtype=torch.float32, device="cpu")
+        m.upsert([chunk_key(i) for i in range(1000)], [i % 3 for i in range(1000)], v)
+        m.retier(getattr(torch, tier) if tier in ("bfloat16", "int8") else tier)
+        tensors, stats = _tensors(m)
+        path = str(tmp_path / f"snap{workers}.npz")
+        assert m.save_snapshot(path) == "full"
+        with np.load(path) as z:
+            members = {k: z[k] for k in z.files if k != "base_token"}
+        got[workers] = tensors, stats, members
+    (t1, s1, z1), (t4, s4, z4) = got[1], got[4]
+    assert s1 == s4
+    assert len(t1) == len(t4)
+    for a, b in zip(t1, t4):
+        np.testing.assert_array_equal(a, b)
+    assert z1.keys() == z4.keys()
+    for k in z1:
+        np.testing.assert_array_equal(z1[k], z4[k], err_msg=k)
+
+
+def test_ordered_map_keeps_order_and_raises(monkeypatch):
+    """Results come back in the order of the items, with a bounded window;
+    a worker's exception reaches the consumer."""
+    import perceive_tpu_torch.index.matrix as mx
+
+    monkeypatch.setattr(mx, "_HOST_WORKERS", 3)
+    drawn = []
+
+    def items():
+        for i in range(50):
+            drawn.append(i)
+            yield i
+
+    out = []
+    for r in mx._ordered_map(lambda i: i * i, items()):
+        out.append(r)
+        assert len(drawn) <= len(out) + 2 * 3  # at most two a worker ahead
+    assert out == [i * i for i in range(50)]
+
+    def boom(i):
+        if i == 7:
+            raise ValueError("chunk 7")
+        return i
+
+    with pytest.raises(ValueError, match="chunk 7"):
+        list(mx._ordered_map(boom, range(20)))
+
+
+def test_chunk0_batches_join_existing_groups():
+    """Batches of chunk-0 keys only (upsert's fast path) still join the
+    groups that later chunks made first, as in the JAX package."""
+    rng = np.random.default_rng(4)
+    port = EmbeddingMatrix(DIM, dtype=torch.float32, device="cpu")
+    ref = JaxMatrix(DIM, dtype=jnp.float32)
+    steps = [
+        [chunk_key(6000, 1), chunk_key(6000, 2), chunk_key(6001, 3)],  # groups without their chunk 0
+        [chunk_key(i) for i in range(1, 50)],  # chunk 0 only, no group among them
+        [chunk_key(6000), chunk_key(70)],  # chunk 0 only, one joins a group
+        [chunk_key(6001), chunk_key(6000)],
+    ]
+    for keys in steps:
+        v = rng.standard_normal((len(keys), DIM)).astype(np.float32)
+        for m in (port, ref):
+            m.upsert(keys, [0] * len(keys), v)
+        assert _state(port) == _state(ref), keys
+    assert sorted(port.groups[6000]) == [chunk_key(6000, c) for c in range(3)]
+
+
+@pytest.mark.parametrize("spilled", [False, True])
+def test_mirror_reads_are_copies_of_the_rows(spilled, tmp_path):
+    """``read_f32`` gives the rows and columns asked for as an f32 copy, for
+    a slice, int indices (a list, an array, negative, none) and a mask, in
+    RAM and spilled to a file."""
+    from perceive_tpu_torch.index.matrix import HostMirror
+
+    mirror = HostMirror(64, 8, ram_budget=0 if spilled else None, dir=str(tmp_path))
+    assert (mirror.path is not None) == spilled
+    mirror.arr[:] = np.arange(64 * 8, dtype=np.float32).reshape(64, 8)
+    mask = np.zeros(64, dtype=bool)
+    mask[[3, 9, 40]] = True
+    for rows in (slice(5, 20), [7, 2, 7], np.array([63, 0, 31]), [-1, -64], [], mask):
+        for ncols in (None, 8, 5):
+            got = mirror.read_f32(rows, ncols)
+            want = np.asarray(mirror.arr)[rows][:, : ncols or 8].astype(np.float32)
+            assert got.dtype == np.float32 and got.flags.c_contiguous
+            np.testing.assert_array_equal(got, want)
+            assert not np.shares_memory(got, mirror.arr)
+    mirror.close()

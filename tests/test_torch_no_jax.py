@@ -29,7 +29,12 @@ PORT_MODULES = (
     "perceive_tpu_torch.ops.attention, perceive_tpu_torch.index.matrix, "
     "perceive_tpu_torch.utils.coalesce, perceive_tpu_torch.paths, perceive_tpu_torch.types, "
     "perceive_tpu_torch.utils, perceive_tpu_torch.native, perceive_tpu_torch.cli.commands, "
-    "perceive_tpu_torch.cli.main, " + SOURCE_MODULES
+    "perceive_tpu_torch.cli.main, " + SOURCE_MODULES + ", " + (
+        "perceive_tpu_torch.serve, perceive_tpu_torch.cli.doctor, perceive_tpu_torch.cli.repl, "
+        "perceive_tpu_torch.cli.desktop, perceive_tpu_torch.db.import_reference, "
+        "perceive_tpu_torch.utils.dispatchmeter, perceive_tpu_torch.utils.profiling, "
+        "perceive_tpu_torch.ops.similarity"
+    )
 )
 
 
@@ -136,3 +141,22 @@ def test_cpu_tensors_never_build():
         "assert set(topk.launch_counts().values()) == {0} and set(int2.launch_counts().values()) == {0}\n"
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_serve_ships_its_own_page():
+    """The port serves its own copy of the search page, byte-equal to the
+    JAX package's, from its own folder (and lists it as package data)."""
+    res = _run(
+        "import sys\n"
+        "import perceive_tpu_torch.serve as s\n"
+        "from pathlib import Path\n"
+        "assert Path(s.__file__).with_name('serve_ui.html').exists()\n"
+        "assert not any(m == 'perceive_tpu' or m.startswith('perceive_tpu.') for m in sys.modules)\n"
+        "sys.stdout.write(s._INDEX_HTML)\n"
+    )
+    assert res.returncode == 0, res.stderr
+    ours = (REPO / "perceive_tpu_torch" / "serve_ui.html").read_bytes()
+    assert ours == (REPO / "perceive_tpu" / "serve_ui.html").read_bytes()
+    assert res.stdout.encode() == ours
+    data = (REPO / "pyproject.toml").read_text().split('"perceive_tpu_torch" =')[1].split("\n")[0]
+    assert '"serve_ui.html"' in data
