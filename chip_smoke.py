@@ -49,7 +49,14 @@ Phases (any failure exits non-zero before the final line):
      perceive_tpu_torch.cli`` ``source add``, ``source scan`` and
      ``serve`` in subprocesses, the last stopped by SIGTERM (exit 0),
      within 120 s; then the CLI's ``snapshot`` saves a format-v2 base of
-     the 1M rows, which the manifest must name;
+     the 1M rows, which the manifest must name; then the mesh steps
+     (``mesh_bf16``, ``mesh_encode``): that base adopted into a
+     ShardedSearcher over 4 slots of the card, the 16 query texts through
+     its fused path against the CLI's hits (4 K1 launches a sweep), a
+     2,048-query batch (K2 on every shard) against the one-device answers,
+     ``dryrun_multichip(4)`` over 4 slots, and the documents' 2,593 windows
+     re-encoded through ``Model.shard_over`` at model-parallel 1 (2 slots)
+     and 2 (2 x 2) against the stored vectors, K11 on every slot;
   8. the int8 slice: 1M more filler rows (2M in all), a fresh AppState whose
      auto rule picks the int8 tier, built from the bf16 base (another
      tier: its f32 rows stream) and the rows written since, replayed from
@@ -93,7 +100,14 @@ Phases (any failure exits non-zero before the final line):
      with the int2 payload), and a fresh AppState adopts it with 0 rows from
      SQLite: device tensors, host mirror, ids, scale_hw/norm_hw and the
      self-audit's verdict equal the cold build's, and 16 CLI queries on
-     each route give the cold build's hits (K5, K6 and K7 launched);
+     each route give the cold build's hits (K5, K6 and K7 launched); then
+     (``mesh_int2``) the same base adopted into a ShardedSearcher over 4
+     slots, its self-audit logged beside the one-device verdict, the 16
+     query texts through its fused path on each audit route (K5, K6 and K7
+     on every shard) gated on served_recall_at_10 >= 0.99, every shard's
+     pipeline equal to its plain one bit for bit with the floors
+     max-merged, and a 2,048-query batch (K8 on every shard) against the
+     one-device answers; the mesh steps log their seconds (budget 60 s);
  16. K9 (packed-int4 scan + top-k, flat and slab) against its plain version,
      bit for bit, at the int4 tier's own size (25,165,824 x 384, past the
      int2 tier's 24M, generated on the card), with K7 and K8 timed on the
@@ -1636,7 +1650,7 @@ def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
     state.close()
     return {"db_path": db_path, "doc_ids": doc_ids, "doc_windows": [len(w) for w in wins],
             "embs": stored_embs, "launches": launches, "next_id": next_id + 1, "next_seq": next_seq + 1,
-            "windows": n_win}
+            "windows": n_win, "flat_windows": [w for _, _, w in flat]}
 
 
 def build_corpus(card: str, workdir: str, dev) -> dict:
@@ -1693,6 +1707,7 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
             "gen": gen, "fill_source": src_fill.id, "first_fill_id": ing["next_id"],
             "next_id": ing["next_id"] + n_fill, "next_seq": ing["next_seq"] + n_fill,
             "attention_launches": ing["launches"], "filler_text": filler_text, "self_docs": self_docs,
+            "windows": ing["flat_windows"], "stored": embs,
             "queries": queries, "vecs": vecs, "vecs_random": vecs_random}
 
 
@@ -3244,6 +3259,228 @@ def int2_int4_slice(card: str, state, ctx: dict, dev, audit_case: str = "") -> N
         os.environ.pop("PERCEIVE_TPU_INT2_FINE")
 
 
+# -- the mesh steps (one card, repeated slots) ----------------------------------------
+
+MESH_SLOTS = 4  # the sharded searcher's slots, all on the one card
+MESH_BUDGET_S = 60  # the mesh steps' budget, in all
+
+
+def counted_sweeps(searcher) -> list:
+    """Count the searcher's merged sweeps (``_sweep`` calls) in a list cell;
+    ``del searcher._sweep`` restores the class's method."""
+    calls = [0]
+    sweep = searcher._sweep
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return sweep(*args, **kw)
+
+    searcher._sweep = counted
+    return calls
+
+
+def shard_launches(tier: str, before: dict, sweeps: int, kernels: tuple) -> dict:
+    """The launches of ``kernels`` since ``before``: each must have run, and
+    all of them together MESH_SLOTS times a merged sweep's worth (one
+    launch a shard a sweep for every kernel of the route)."""
+    now = launch_counts()
+    got = {k: now[k] - before[k] for k in kernels}
+    if any(v == 0 or v % MESH_SLOTS for v in got.values()):
+        raise SystemExit(f"{tier}: launches {got} over {sweeps} sweeps; want every kernel on all {MESH_SLOTS} shards")
+    return got
+
+
+def mesh_bf16(card: str, state, ctx: dict, dev) -> float:
+    """After phase 7's snapshot: the 1M-row bf16 base adopted into a
+    ShardedSearcher over [cuda:0] * MESH_SLOTS; the 16 CLI query texts
+    through its fused path (the slice's model) hold the CLI's hits on the
+    one-device state (ids, scores within SCAN_TOL), with MESH_SLOTS K1
+    launches a sweep; one 2,048-query search_vectors_batch (K2 on every
+    shard) equals the one-device answers."""
+    import torch
+
+    from perceive_tpu_torch.parallel import ShardedSearcher, make_mesh
+
+    t_all = time.perf_counter()
+    model = ctx["model"]
+    want, _, _ = cli_queries(card, state, ctx, "bf16 (one device, the CLI's hits for the mesh)", "scan_topk")
+    t0 = time.perf_counter()
+    ss = ShardedSearcher(model.model_id, model.model_version, DIM, make_mesh(devices=[dev] * MESH_SLOTS))
+    if not ss.matrix.adopt_snapshot(ctx["snap"]):
+        raise SystemExit("the sharded matrix refused the bf16 base")
+    ss.matrix.sync()
+    torch.cuda.synchronize()
+    m = ss.matrix
+    log(f"mesh bf16: the 1M-row base adopted over {MESH_SLOTS} slots in {time.perf_counter() - t0:.2f} s: "
+        f"{len(m)} rows, capacity {m.capacity}, {m.n_local} rows a shard  [{card}]")
+    if len(m) != len(state.searcher.matrix):
+        raise SystemExit(f"the sharded matrix holds {len(m)} rows, the one-device one {len(state.searcher.matrix)}")
+    reset_launch_counts()
+    sweeps = counted_sweeps(ss)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    got = [ss.search_fused(model, q, 10) for q in ctx["queries"]]
+    t_q = time.perf_counter() - t0
+    launches = shard_launches("mesh bf16 fused queries", before, sweeps[0], ("scan_topk",))
+    if launches["scan_topk"] != MESH_SLOTS * sweeps[0] or sweeps[0] < len(got):
+        raise SystemExit(f"mesh bf16: {launches} over {sweeps[0]} sweeps")
+    for qi, (g, w) in enumerate(zip(got, want)):
+        if not hits_match(g, [(r["id"], r["score"]) for r in w], SCAN_TOL):
+            raise SystemExit(f"mesh bf16 query {qi}: hits differ from the CLI's:\n{g}\n{w}")
+    log(f"mesh bf16: 16 fused queries equal the CLI's hits (tol {SCAN_TOL}); {sweeps[0]} sweeps, launches {launches}; "
+        f"{t_q * 1e3 / len(got):.2f} ms a query  [{card}]")
+    before = launch_counts()
+    t0 = time.perf_counter()
+    batch = ss.search_vectors_batch(ctx["vecs"], 10)
+    t_b = time.perf_counter() - t0
+    launches = shard_launches("mesh bf16 batch", before, 0, ("scan_slab",))
+    del ss._sweep
+    one = state.searcher.search_vectors_batch(ctx["vecs"], 10)
+    bad = sum(not hits_match(g, w, SCAN_TOL) for g, w in zip(batch, one))
+    log(f"mesh bf16: search_vectors_batch of {N_BATCH} queries in {t_b * 1e3:.1f} ms over {MESH_SLOTS} slots, "
+        f"launches {launches}; equal to the one-device answers: {N_BATCH - bad}/{N_BATCH}  [{card}]")
+    if bad:
+        raise SystemExit(f"{bad} sharded batch answers differ from the one-device ones")
+    del ss, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_all
+
+
+def mesh_encode(card: str, ctx: dict, dev) -> float:
+    """``dryrun_multichip`` over [cuda:0] * 4, then the documents' windows
+    re-encoded through ``Model.shard_over`` at model-parallel 1 (2 slots)
+    and 2 (2 x 2) against the stored vectors (INGEST_TOL), with K11
+    launched exactly once a slot (a model slot under TP) a layer for every
+    batch whose bucket reaches KERNEL_MIN_SEQ."""
+    import torch
+
+    from perceive_tpu_torch.models import Model, batch_bucket
+    from perceive_tpu_torch.ops import attention as attn
+    from perceive_tpu_torch.parallel import make_mesh
+    from perceive_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4, devices=[dev] * 4)
+    log(f"mesh dryrun_multichip(4) over [cuda:0] * 4 in {time.perf_counter() - t0:.2f} s: {out}  [{card}]")
+    base = ctx["model"]
+    windows, stored = ctx["windows"], ctx["stored"]
+    for mp in (1, 2):
+        mesh = make_mesh(devices=[dev] * 2 * mp, model_parallel=mp)
+        model = Model(base.encoder.params(), base.arch, base.head, base.tokenizer, device=dev,
+                      compute_dtype=base.compute_dtype, model_id=base.model_id).shard_over(mesh)
+        data = mesh.shape["data"]
+        expect = 0
+        for s in range(0, len(windows), ENCODE_BATCH):
+            part = windows[s : s + ENCODE_BATCH]
+            bucket = batch_bucket(len(part))
+            seq = model.tokenizer.pack_token_windows(part, pad_batch_to=bucket).shape[1]
+            if seq >= attn.KERNEL_MIN_SEQ:
+                expect += (data if bucket % data == 0 else 1) * mp * base.arch.num_layers
+        attn.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs = np.concatenate([
+            model.materialize(model.encode_dispatch_token_windows(windows[s : s + ENCODE_BATCH]))
+            for s in range(0, len(windows), ENCODE_BATCH)
+        ])
+        secs = time.perf_counter() - t0
+        err = float(np.abs(embs - stored).max())
+        log(f"mesh encode ({mesh.shape['data']} data x {mp} model slots): {len(windows)} windows in {secs:.2f} s, "
+            f"max_abs_err against the stored vectors {err:.3g} (tol {INGEST_TOL}); K11 launches {attn.LAUNCHES}, "
+            f"want {expect}  [{card}]")
+        if not err <= INGEST_TOL or attn.LAUNCHES != expect or expect == 0:
+            raise SystemExit(f"the sharded encode at model-parallel {mp} failed its gates")
+        del model
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_all
+
+
+def mesh_int2(card: str, state, ctx: dict, dev) -> float:
+    """After phase 15: the int2 base (int8 companion) adopted into a
+    ShardedSearcher over [cuda:0] * MESH_SLOTS and audited (its verdict
+    logged beside the one-device one); the 16 query texts through its fused
+    path on each of ``audit_routes`` (the coarse route: K5, K6 and K7 on
+    every shard), served_recall_at_10 against the exact f32 top-10 gated at
+    0.99; every shard's device pipeline equal to its plain one bit for bit,
+    and the merged floor the max of the shards'; one 2,048-query batch (K8
+    on every shard) against the one-device answers."""
+    import torch
+
+    from perceive_tpu_torch.index.matrix import INT2
+    from perceive_tpu_torch.index.searcher import _k_bucket
+    from perceive_tpu_torch.ops import int2
+    from perceive_tpu_torch.parallel import ShardedSearcher, make_mesh
+
+    t_all = time.perf_counter()
+    model = ctx["model"]
+    t0 = time.perf_counter()
+    ss = ShardedSearcher(model.model_id, model.model_version, DIM, make_mesh(devices=[dev] * MESH_SLOTS), dtype=INT2)
+    if not ss.matrix.adopt_snapshot(ctx["snap"]):
+        raise SystemExit("the sharded matrix refused the int2 base")
+    t_adopt = time.perf_counter() - t0
+    ss._audit_coarse_if_stale()
+    m = ss.matrix
+    log(f"mesh int2: the {len(m)}-row base adopted over {MESH_SLOTS} slots in {t_adopt:.2f} s ({m.tier_name}, "
+        f"{m.n_local} rows a shard), audited in {time.perf_counter() - t0 - t_adopt:.2f} s  [{card}]")
+    log(f"mesh int2 self-audit: {json.dumps(ss.coarse_audit)}; one device: {json.dumps(state.searcher.coarse_audit)}")
+    if m.fine_bits != state.searcher.matrix.fine_bits:
+        raise SystemExit(f"the sharded companion is int{m.fine_bits}, the one-device one int"
+                         f"{state.searcher.matrix.fine_bits}")
+    for route, coarse in audit_routes(ss):
+        tier = f"mesh int2 ({route}, coarse pass {'serving' if coarse else 'demoted'})"
+        reset_launch_counts()
+        sweeps = counted_sweeps(ss)
+        before = launch_counts()
+        hits = [ss.search_fused(model, q, 10) for q in ctx["queries"]]
+        kernels = ("int2_scores", "select_topk", "scan_int8t") if coarse else ("scan_int8t",)
+        launches = shard_launches(tier, before, sweeps[0], kernels)
+        del ss._sweep
+        log(f"{tier}: {sweeps[0]} sweeps, launches {launches}")
+        served_recall(tier, [[{"id": i, "score": sc} for i, sc in h] for h in hits], ctx["exact"])
+
+    # every shard's pipeline against its plain one, and the floors' merge
+    (p2, fine), src, (s2, fs) = m.device_view()
+    kb = _k_bucket(ss._first_fetch(10), m.sweep_rows)
+    kl = min(kb, m.n_local)
+    allowed = torch.from_numpy(ss._allowed_arrays(None)[0]).to(dev)
+    kw = dict(fetch=m.coarse_fetch, select=m.coarse_select)
+    for qi, q in enumerate(ctx["queries"]):
+        qp = torch.nn.functional.pad(query_vector(ctx, q, dev), (0, m.padded_dim - m.dim))
+        floors = []
+        for s in range(MESH_SLOTS):
+            args = (p2[s], s2[s], fine[s], fs[s], src[s], qp, allowed, kl)
+            a, b = int2.scan_int2_coarse_fine(*args, **kw), int2.scan_int2_coarse_fine_plain(*args, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise SystemExit(f"mesh int2 query {qi}, shard {s}: the device pipeline differs from the plain one")
+            floors.append(b[2])
+        merged = ss._sweep((p2, fine), (s2, fs), src, qp, allowed, kb, m.sweep_rows, True)[2]
+        if not torch.equal(merged, torch.stack(floors).amax(dim=0)):
+            raise SystemExit(f"mesh int2 query {qi}: the merged floor is not the max of the shards'")
+    log(f"mesh int2: every shard's device pipeline equals its plain one for 16/16 queries (kl={kl}, vals, rows "
+        f"and floor bit for bit); the merged floors are the shards' max")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = ss.search_vectors_batch(ctx["vecs_random"], 10)
+    t_b = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches["scan_int8t_slab"] == 0 or launches["scan_int8t_slab"] % MESH_SLOTS:
+        raise SystemExit(f"the mesh int2 batch launched K8 {launches['scan_int8t_slab']} times")
+    one = state.searcher.search_vectors_batch(ctx["vecs_random"], 10)
+    bad = sum(not hits_match(g, w, 1e-5) for g, w in zip(batch, one))
+    log(f"mesh int2: search_vectors_batch of {N_BATCH} random queries in {t_b * 1e3:.1f} ms over {MESH_SLOTS} "
+        f"slots, K8 launches {launches['scan_int8t_slab']}, K7 {launches['scan_int8t']}; equal to the one-device "
+        f"answers: {N_BATCH - bad}/{N_BATCH}  [{card}]")
+    if bad:
+        raise SystemExit(f"{bad} sharded int2 batch answers differ from the one-device ones")
+    del ss, m, p2, fine, src, s2, fs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_all
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3297,6 +3534,11 @@ def main(argv=None) -> int:
             ctx["snap"] = os.path.join(workdir, "matrix.npz")
             cli_snapshot(card, state, ctx, ctx["snap"], "full")
             check_manifest(state, ctx)
+        mesh_s = {}
+        with phase(f"mesh bf16: the base adopted over {MESH_SLOTS} slots, 16 fused queries, a 2,048-query batch"):
+            mesh_s["bf16"] = mesh_bf16(card, state, ctx, dev)
+        with phase("mesh encode: dryrun_multichip(4), the windows through shard_over at model-parallel 1 and 2"):
+            mesh_s["encode"] = mesh_encode(card, ctx, dev)
         state.close()
         del state
         torch.cuda.empty_cache()
@@ -3322,6 +3564,10 @@ def main(argv=None) -> int:
             launches["int2_tiletop"] = selects["tiletop"]["launches"]["int2_tiletop"]
         with phase("int2 adopt: snapshot, a fresh AppState adopting it, 16 CLI queries per route"):
             adopted = int2_adopt(card, state, ctx, dev)  # kept for the delta phase, which changes it
+        with phase(f"mesh int2: the int2 base adopted over {MESH_SLOTS} slots, audited, 16 fused queries a route"):
+            mesh_s["int2"] = mesh_int2(card, adopted, ctx, dev)
+        log(f"mesh steps: {sum(mesh_s.values()):.1f} s in all ({', '.join(f'{k} {v:.1f} s' for k, v in mesh_s.items())}"
+            f"; budget {MESH_BUDGET_S} s)  [{card}]")
         del state
         gc.collect()
         torch.cuda.empty_cache()

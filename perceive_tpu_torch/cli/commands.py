@@ -369,12 +369,16 @@ def source_remove(state, args) -> None:
 
 
 def _matrix_device_bytes(m) -> int:
-    """Bytes the matrix holds on its device: the stored vectors (at int2 the
-    coarse codes and the companion), their scales and the source ids."""
-    vectors, src, scales = m.device_view()
-    parts = [*(vectors if isinstance(vectors, tuple) else (vectors,)), src,
-             *(scales if isinstance(scales, tuple) else (scales,))]
-    return sum(t.numel() * t.element_size() for t in parts if t is not None)
+    """Bytes the matrix holds on its devices: the stored vectors (at int2 the
+    coarse codes and the companion), their scales and the source ids (every
+    shard's, for a sharded matrix)."""
+
+    def tensors(x):
+        if isinstance(x, (tuple, list)):
+            return [t for part in x for t in tensors(part)]
+        return [] if x is None else [x]
+
+    return sum(t.numel() * t.element_size() for t in tensors(m.device_view()))
 
 
 def stats_cmd(state, args) -> None:

@@ -16,7 +16,11 @@ then packed int4; ``bfloat16``/``bf16``, ``float32``/``f32``, ``int8``,
 ``int4`` and ``int2`` pin a tier.  Any other value raises ValueError.
 
 The device is explicit and defaults to ``cuda:0``; a missing GPU is an
-error, never a silent move to the CPU.
+error, never a silent move to the CPU.  When more than one CUDA device is
+visible, AppState serves from all of them: the corpus row-sharded over a
+mesh of every device (``parallel.ShardedSearcher``, its auto tier keyed on
+one shard's rows) and the main model's encode spread over the same mesh
+(``Model.shard_over``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,17 @@ _TIERS = {
     "int4": INT4,
     "int2": INT2,
 }
+
+
+def serving_devices(device: torch.device) -> list[torch.device]:
+    """The devices AppState serves from: ``device`` first, then every other
+    visible CUDA device, for a CUDA device; ``device`` alone otherwise."""
+    if device.type != "cuda":
+        return [device]
+    lead = device.index if device.index is not None else torch.cuda.current_device()
+    return [torch.device("cuda", lead)] + [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count()) if i != lead
+    ]
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -172,12 +187,27 @@ class AppState:
                           AND items.hidden_at IS NULL""",
                     (self.model.model_id, self.model.model_version),
                 ).fetchone()[0]
-            dtype = storage_tier(choice, n_rows, _round_up(self.model.dim, LANE_ALIGN))
+            padded = _round_up(self.model.dim, LANE_ALIGN)
+            dtype = storage_tier(choice, n_rows, padded)
             start = time.time()
-            self.searcher = Searcher.build(
-                self.db, self.model.model_id, self.model.model_version, self.model.dim,
-                device=self.device, dtype=dtype,
-            )
+            devices = serving_devices(self.device)
+            if len(devices) > 1:
+                # every device: the corpus row-sharded over the mesh, the
+                # encode spread over it (the tier keyed on one shard's rows)
+                from ..parallel import ShardedSearcher, make_mesh
+
+                mesh = make_mesh(devices=devices)
+                if choice == "auto":
+                    dtype = ShardedSearcher.auto_tier(n_rows, mesh, padded)
+                self.searcher = ShardedSearcher.build(
+                    self.db, self.model.model_id, self.model.model_version, self.model.dim, mesh, dtype=dtype,
+                )
+                self.model.shard_over(mesh)
+            else:
+                self.searcher = Searcher.build(
+                    self.db, self.model.model_id, self.model.model_version, self.model.dim,
+                    device=self.device, dtype=dtype,
+                )
             self.searcher.auto_retier = choice == "auto"
             if len(self.searcher.matrix):
                 print(f"Built search in {time.time() - start:.1f} seconds", file=sys.stderr)

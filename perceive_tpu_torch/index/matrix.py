@@ -332,18 +332,22 @@ def _int2_fine_int8_budget(device: torch.device) -> int:
     return 10 * 2**30
 
 
-def int2_fine_bits(capacity: int, padded_dim: int, device: torch.device) -> int:
+def int2_fine_bits(capacity: int, padded_dim: int, device: torch.device, row_shards: int = 1) -> int:
     """Width of the int2 tier's fine companion, by the JAX package's policy:
     8 while coarse (0.25 B/dim) + int8 (1 B/dim) fit the budget, else 4
     (packed int4, the int4 tier's bytes); PERCEIVE_TPU_INT2_FINE = int8 |
     int4 pins it.  On an 80 GB card the budget holds about 113M rows of
-    capacity at 384 dims."""
+    capacity at 384 dims.  ``row_shards``: the slots the rows are sharded
+    over (``EmbeddingMatrix.row_shards``); the budget is one device's, so a
+    sharded matrix compares one shard's capacity.  Slots that share a card
+    each get the whole card's budget (a limit past ~113M rows a card)."""
     env = os.environ.get("PERCEIVE_TPU_INT2_FINE", "auto").lower()
     if env in ("int8", "8"):
         return 8
     if env in ("int4", "4"):
         return 4
-    return 8 if capacity * padded_dim * 1.25 <= _int2_fine_int8_budget(device) else 4
+    per_shard = -(-capacity // max(row_shards, 1))
+    return 8 if per_shard * padded_dim * 1.25 <= _int2_fine_int8_budget(device) else 4
 
 
 def _quantize(rows_f32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -505,7 +509,12 @@ class EmbeddingMatrix:
             return 0
         if self._device_fine is not None:
             return 8 if self._device_fine.dtype == torch.int8 else 4
-        return int2_fine_bits(self.capacity, self.padded_dim, self.device)
+        return int2_fine_bits(self.capacity, self.padded_dim, self.device, self.row_shards)
+
+    @property
+    def row_shards(self) -> int:
+        """Slots the rows are sharded over (ShardedEmbeddingMatrix); 1 here."""
+        return 1
 
     # -- device views -------------------------------------------------------
 
@@ -526,27 +535,26 @@ class EmbeddingMatrix:
             )
             if full and (self.packed2 or self.packed4):
                 self._stage_full_transposed()
-                self._device_source_ids = torch.from_numpy(self.source_ids.copy()).to(self.device)
+                self._device_source_ids = self._place(self.source_ids.copy())
                 self._mirror.remap()
             elif full:
                 self._device_vectors = self._device_scales = None  # release before allocating anew
-                vecs = torch.empty((self.capacity, self.padded_dim), dtype=self.dtype, device=self.device)
-                scales = torch.empty((self.capacity,), dtype=torch.float32, device=self.device) if self.quantized else None
+                vecs = self._empty((self.padded_dim,), self.dtype)
+                scales = self._empty((), torch.float32) if self.quantized else None
 
                 def staged(lo):
                     hi = min(lo + self._SYNC_CHUNK_ROWS, self.capacity)
                     return lo, hi, *self._staged(self._mirror.read_f32(slice(lo, hi)))
 
                 for lo, hi, chunk, sc in _ordered_map(staged, range(0, self.capacity, self._SYNC_CHUNK_ROWS)):
-                    vecs[lo:hi].copy_(chunk)
+                    self._write_rows(vecs, lo, chunk)
                     if scales is not None:
-                        scales[lo:hi].copy_(sc)
+                        self._write_rows(scales, lo, sc)
                 self._device_vectors, self._device_scales = vecs, scales
-                self._device_source_ids = torch.from_numpy(self.source_ids.copy()).to(self.device)
+                self._device_source_ids = self._place(self.source_ids.copy())
                 self._mirror.remap()
             else:
                 rows = np.fromiter(self._dirty_rows, dtype=np.int64)
-                idx = torch.from_numpy(rows).to(self.device)
                 if self.packed2 or self.packed4:  # columns of the transposed matrices
                     vals = self._mirror.read_f32(rows)
                     if self.packed4:
@@ -556,15 +564,14 @@ class EmbeddingMatrix:
                         parts = [(self._device_vectors, self._device_scales, *_quantize2(vals, self.dim)),
                                  (self._device_fine, self._device_fine_scales, *fine)]
                     for dst, dst_scales, cols, sc in parts:
-                        dst.index_copy_(1, idx, torch.from_numpy(np.ascontiguousarray(cols.T)).to(self.device))
-                        dst_scales.index_copy_(0, idx, torch.from_numpy(sc).to(self.device))
+                        self._index_copy(dst, 1, rows, torch.from_numpy(np.ascontiguousarray(cols.T)))
+                        self._index_copy(dst_scales, 0, rows, torch.from_numpy(sc))
                 else:
                     vals, sc = self._staged(self._mirror.read_f32(rows))
-                    self._device_vectors.index_copy_(0, idx, vals.to(self.device))
+                    self._index_copy(self._device_vectors, 0, rows, vals)
                     if sc is not None:
-                        self._device_scales.index_copy_(0, idx, sc.to(self.device))
-                srcs = torch.from_numpy(self.source_ids[rows].copy()).to(self.device)
-                self._device_source_ids.index_copy_(0, idx, srcs)
+                        self._index_copy(self._device_scales, 0, rows, sc)
+                self._index_copy(self._device_source_ids, 0, rows, torch.from_numpy(self.source_ids[rows].copy()))
             self._dirty = False
             self._dirty_rows.clear()
 
@@ -583,7 +590,7 @@ class EmbeddingMatrix:
             layouts = [(_quantize4, d // 2, np.uint8)]
         else:
             layouts = [(lambda v: _quantize2(v, self.dim), d // 4, np.uint8),
-                       (_quantize, d, np.int8) if int2_fine_bits(cap, d, self.device) == 8
+                       (_quantize, d, np.int8) if int2_fine_bits(cap, d, self.device, self.row_shards) == 8
                        else (_quantize4, d // 2, np.uint8)]
         staged = [(np.empty((width, cap), dtype=dt), np.empty((cap,), np.float32)) for _, width, dt in layouts]
 
@@ -596,8 +603,7 @@ class EmbeddingMatrix:
 
         for _ in _ordered_map(stage, range(0, cap, chunk)):
             pass
-        (m, sc), *companion = [(torch.from_numpy(m).to(self.device), torch.from_numpy(sc).to(self.device))
-                               for m, sc in staged]
+        (m, sc), *companion = [(self._place(m, 1), self._place(sc)) for m, sc in staged]
         self._device_vectors, self._device_scales = m, sc
         if companion:
             self._device_fine, self._device_fine_scales = companion[0]
@@ -610,11 +616,32 @@ class EmbeddingMatrix:
             return torch.from_numpy(q), torch.from_numpy(scales)
         return torch.from_numpy(rows_f32).to(self.dtype), None
 
+    # -- placement: one device here; ShardedEmbeddingMatrix splits the
+    # capacity axis of every device tensor over its slots ------------------
+
+    def _place(self, arr: np.ndarray, axis: int = 0, adopted: bool = False):
+        """A host array whose ``axis`` is the capacity, on the device; the
+        arrays of an adopted snapshot raise SnapshotDeviceError on failure."""
+        return _to_device(arr, self.device) if adopted else torch.from_numpy(arr).to(self.device)
+
+    def _empty(self, tail: tuple, dtype):
+        """An uninitialized (capacity, *tail) device tensor."""
+        return torch.empty((self.capacity, *tail), dtype=dtype, device=self.device)
+
+    def _write_rows(self, dst, lo: int, vals: torch.Tensor) -> None:
+        """Rows lo .. lo + len(vals) of a row-major device tensor, from host rows."""
+        dst[lo : lo + len(vals)].copy_(vals)
+
+    def _index_copy(self, dst, axis: int, rows: np.ndarray, vals: torch.Tensor) -> None:
+        """``dst.index_copy_(axis, rows, vals)`` from host rows and values."""
+        dst.index_copy_(axis, torch.from_numpy(rows).to(self.device), vals.to(self.device))
+
     def device_view(self):
         """(vectors, source_ids, scales) device tensors, synced, captured
         under the lock; scales is None below the int8 tier.  At the int4
         tier vectors is the packed (padded_dim / 2, capacity) matrix; at the
-        int2 tier vectors and scales are (coarse, companion) pairs."""
+        int2 tier vectors and scales are (coarse, companion) pairs.  A
+        sharded matrix gives a list of per-shard tensors in place of each."""
         with self._lock:
             self.sync()
             if self.packed2:
@@ -1093,7 +1120,7 @@ class EmbeddingMatrix:
                         if payload and self.quantized and rows:
                             pd = self.padded_dim
                             if self.packed2:
-                                fb = int2_fine_bits(self.capacity, pd, self.device)
+                                fb = int2_fine_bits(self.capacity, pd, self.device, self.row_shards)
                                 names = [
                                     ("q_coarse", "|u1", pd // 4, lambda v: _quantize2(v, self.dim)),
                                     ("q_fine", "|i1" if fb == 8 else "|u1", pd if fb == 8 else pd // 2,
@@ -1339,7 +1366,7 @@ class EmbeddingMatrix:
                 if self.packed2:
                     if not {"q_coarse", "q_coarse_scales", "q_fine", "q_fine_scales"} <= files:
                         return False
-                    fb = int2_fine_bits(self.capacity, pd, self.device)
+                    fb = int2_fine_bits(self.capacity, pd, self.device, self.row_shards)
                     if self._snapshot_member_shape(path, "q_fine", fh) != (n, pd if fb == 8 else pd // 2):
                         return False  # the stored companion is not this device's
                     if self._snapshot_member_shape(path, "q_coarse", fh) != (n, pd // 4):
@@ -1400,7 +1427,7 @@ class EmbeddingMatrix:
             try:
                 if self.quantized and n:
                     self._adopt_device(z, path, n, fh)
-                    self._device_source_ids = _to_device(self.source_ids.copy(), self.device)
+                    self._device_source_ids = self._place(self.source_ids.copy(), adopted=True)
                     self._dirty = False
                     self._dirty_rows.clear()
                 else:
@@ -1523,7 +1550,7 @@ class EmbeddingMatrix:
             s = np.empty((cap,), np.float32)
             s[:n] = z[name]
             s[n:] = tail
-            return _to_device(s, self.device)
+            return self._place(s, adopted=True)
 
         def transposed(name, width, dtype, quantize):
             q0, s0 = quantize(zero)
@@ -1531,7 +1558,7 @@ class EmbeddingMatrix:
             for lo, hi, q in self._iter_snapshot_member(path, name, dtype, chunk, fh):
                 _put_transposed(staged, lo, q)
             staged[:, n:] = q0.T
-            return _to_device(staged, self.device), scales_of(name + "_scales", s0[0])
+            return self._place(staged, 1, adopted=True), scales_of(name + "_scales", s0[0])
 
         if self.packed2:
             fine_w = self._snapshot_member_shape(path, "q_fine", fh)[1]
@@ -1548,7 +1575,7 @@ class EmbeddingMatrix:
             for lo, hi, q in self._iter_snapshot_member(path, "q_vectors", np.int8, chunk, fh):
                 staged[lo:hi] = q
             staged[n:] = q0
-            self._device_vectors = _to_device(staged, self.device)
+            self._device_vectors = self._place(staged, adopted=True)
             self._device_scales = scales_of("q_vectors_scales", s0[0])
 
     @classmethod
@@ -1636,3 +1663,68 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if tuple(t.shape) != arr.shape:
         raise SnapshotDeviceError(f"adopted array {arr.shape} arrived as {tuple(t.shape)} on {device}")
     return t
+
+
+class ShardedEmbeddingMatrix(EmbeddingMatrix):
+    """The matrix row-sharded over mesh slots (the JAX package's matrix
+    under ``rows_sharding``).  Host state is the base class's, global and
+    unchanged: the mirror, the ids, ``row_of``, the free list, the deltas.
+    Each device tensor becomes a list with one tensor of its own per slot,
+    holding the contiguous block of ``n_local = capacity / S`` rows (the
+    columns of the transposed tiers) that starts at global row ``s *
+    n_local``: each shard is an allocation of its own, as TMA and K5 want.
+    Capacity and ``row_align`` are multiples of ROW_ALIGN * S, so growth
+    (which moves rows between shards) restages every shard whole, and a
+    base saved at any shard count adopts at any other."""
+
+    def __init__(self, dim: int, *, devices, dtype=torch.bfloat16, capacity: int = 0):
+        self.devices = [torch.device(d) for d in devices]
+        s = len(self.devices)
+        super().__init__(dim, device=self.devices[0], dtype=dtype, capacity=max(capacity, ROW_ALIGN * s),
+                         row_align=ROW_ALIGN * s)
+
+    @property
+    def row_shards(self) -> int:
+        return len(self.devices)
+
+    @property
+    def n_local(self) -> int:
+        return self.capacity // len(self.devices)
+
+    @property
+    def fine_bits(self) -> int:
+        if self.packed2 and self._device_fine is not None:
+            return 8 if self._device_fine[0].dtype == torch.int8 else 4
+        return super().fine_bits
+
+    def _pieces(self, lo: int, hi: int):
+        """(shard, global lo, global hi) of the shards that rows lo .. hi
+        fall in."""
+        nl = self.n_local
+        for s in range(lo // nl, -(-hi // nl)):
+            yield s, max(lo, s * nl), min(hi, (s + 1) * nl)
+
+    def _place(self, arr: np.ndarray, axis: int = 0, adopted: bool = False):
+        nl = self.n_local
+        out = []
+        for s, dev in enumerate(self.devices):
+            part = np.ascontiguousarray(arr[s * nl : (s + 1) * nl] if axis == 0 else arr[:, s * nl : (s + 1) * nl])
+            out.append(_to_device(part, dev) if adopted else torch.from_numpy(part).to(dev))
+        return out
+
+    def _empty(self, tail: tuple, dtype):
+        return [torch.empty((self.n_local, *tail), dtype=dtype, device=dev) for dev in self.devices]
+
+    def _write_rows(self, dst, lo: int, vals: torch.Tensor) -> None:
+        nl = self.n_local
+        for s, a, b in self._pieces(lo, lo + len(vals)):
+            dst[s][a - s * nl : b - s * nl].copy_(vals[a - lo : b - lo])
+
+    def _index_copy(self, dst, axis: int, rows: np.ndarray, vals: torch.Tensor) -> None:
+        nl = self.n_local
+        shard = rows // nl
+        for s in np.unique(shard).tolist():
+            pos = np.flatnonzero(shard == s)
+            dev = self.devices[s]
+            dst[s].index_copy_(axis, torch.from_numpy(rows[pos] - s * nl).to(dev),
+                               vals.index_select(axis, torch.from_numpy(pos)).to(dev))

@@ -201,27 +201,30 @@ class Searcher:
         the device matrix: from the snapshot in ``vector_shards`` plus the
         embeddings written after it (``_load_snapshot``) where there is one
         and ``use_snapshot``, else every BLOB from SQLite."""
+        return cls(model_id, model_version, dim, device=device, dtype=dtype)._build_from(db, use_snapshot)
+
+    def _build_from(self, db: Database, use_snapshot: bool) -> "Searcher":
+        """``build``'s body on this fresh searcher."""
         dbg = os.environ.get("PERCEIVE_TPU_DEBUG_STARTUP")
-        s = cls(model_id, model_version, dim, device=device, dtype=dtype)
-        if use_snapshot and s._load_snapshot(db):
+        if use_snapshot and self._load_snapshot(db):
             t0 = time.perf_counter()
-            s._audit_coarse_if_stale()
+            self._audit_coarse_if_stale()
             if dbg:
                 print(f"build: snapshot path, audit {time.perf_counter() - t0:.1f}s", file=sys.stderr)
-            return s
+            return self
         t0 = time.perf_counter()
-        s._load(db, extra_sql="", params=())
+        self._load(db, extra_sql="", params=())
         t1 = time.perf_counter()
-        s.matrix.sync()
+        self.matrix.sync()
         t2 = time.perf_counter()
-        s._audit_coarse_if_stale()
+        self._audit_coarse_if_stale()
         if dbg:
             print(
                 f"build: cold stream+upsert {t1 - t0:.1f}s  device stage {t2 - t1:.1f}s  "
                 f"audit {time.perf_counter() - t2:.1f}s",
                 file=sys.stderr,
             )
-        return s
+        return self
 
     # -- snapshots (the vector_shards manifest) ------------------------------
 
@@ -481,15 +484,20 @@ class Searcher:
                 self._maintenance_due = True
         return n
 
+    def _tier_for(self, n_rows: int):
+        """The auto tier of ``n_rows`` rows (``auto_matrix_dtype``; the
+        sharded searcher keys it on one shard's rows)."""
+        from .matrix import auto_matrix_dtype
+
+        return auto_matrix_dtype(n_rows, self.matrix.padded_dim)
+
     def _maybe_retier(self) -> None:
         """Follow the auto tier rule as the corpus grows or shrinks (bf16,
         int8, int2, int4).  A new tier is audited afresh."""
         if not self.auto_retier:
             return
-        from .matrix import auto_matrix_dtype
-
         before = self.matrix.dtype
-        self.matrix.retier(auto_matrix_dtype(len(self.matrix), self.matrix.padded_dim))
+        self.matrix.retier(self._tier_for(len(self.matrix)))
         if self.matrix.dtype is not before:
             self._coarse_audit_rows = -1
 

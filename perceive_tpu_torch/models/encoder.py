@@ -209,6 +209,13 @@ class Encoder(nn.Module):
         )
         self._cast: dict[str, torch.Tensor] = {}
 
+    def params(self) -> Params:
+        """The f32 param tree this encoder was built from (its own tensors)."""
+        tree = {"embed": dict(self.embed.items()), "layers": dict(self.layers.items())}
+        if len(self.dense):
+            tree["dense"] = dict(self.dense.items())
+        return {g: {k: v.detach() for k, v in sub.items()} for g, sub in tree.items()}
+
     def _apply(self, fn, *args, **kwargs):  # .to(device) etc.: re-derive the casts
         out = super()._apply(fn, *args, **kwargs)
         self._cast = {}
@@ -280,6 +287,66 @@ class Encoder(nn.Module):
         if self.head.normalize:
             emb = emb / torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True), min=1e-12)
         return emb
+
+
+class TensorParallelEncoder(Encoder):
+    """The tower split over model slots: the counterpart of GSPMD's
+    partition of the JAX tower under parallel/mesh._LAYER_SPECS.  Slot j
+    holds column block j of q/k/v and ffn_in and row block j of o and
+    ffn_out (``slot_params[j]``, from ``parallel.mesh.shard_params``; the
+    leaves named in ``split``), so the heads split evenly over the slots;
+    slot 0 also owns the embeddings, the layernorms, the residual stream and
+    the head.  The partial products of o and ffn_out are summed on slot 0
+    in f32, each bias added once: the psum GSPMD inserts.  Every slot's
+    attention takes its route (``ops.attention.route``: K11 at buckets of
+    KERNEL_MIN_SEQ and up on a CUDA slot)."""
+
+    def __init__(self, slot_params: list, devices: list, arch: EncoderArch, head: HeadConfig, *, split,
+                 compute_dtype: torch.dtype = torch.float32, attention_impl: str = "auto"):
+        mp = len(devices)
+        if arch.num_heads % mp or arch.intermediate_size % mp:
+            raise ValueError(f"{arch.num_heads} heads and {arch.intermediate_size} FFN columns do not split {mp} ways")
+        lead = slot_params[0]
+        own = {**lead, "layers": {k: v for k, v in lead["layers"].items() if k not in split}}
+        super().__init__(own, arch, head, compute_dtype=compute_dtype, attention_impl=attention_impl)
+        self.to(devices[0])
+        self._slots = [
+            (torch.device(dev), {k: p["layers"][k].to(dev).to(compute_dtype) for k in split})
+            for dev, p in zip(devices, slot_params)
+        ]
+
+    def _layer(self, x: torch.Tensor, i: int, mask: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import device_scope
+
+        arch, lyr = self.arch, self.layers
+        b, s, _ = x.shape
+        nh, dh = arch.num_heads // len(self._slots), arch.head_dim
+        lead, dt = x.device, x.dtype
+
+        def spread(t):  # t on every slot
+            return [t if dev == lead else t.to(dev, non_blocking=True) for dev, _ in self._slots]
+
+        def psum(parts, bias):  # partial products summed on slot 0, in f32, the bias once
+            out = parts[0].float()
+            for p in parts[1:]:
+                out = out + p.to(lead, non_blocking=True).float()
+            return (out + bias.to(dt).float()).to(dt)
+
+        parts = []
+        for (dev, w), xj, mj in zip(self._slots, spread(x), spread(mask)):
+            with device_scope(dev):
+                q, k, v = ((xj @ w[n + "_w"][i] + w[n + "_b"][i]).reshape(b, s, nh, dh).contiguous()
+                           for n in ("q", "k", "v"))
+                parts.append(self._attention(q, k, v, mj).reshape(b, s, nh * dh) @ w["o_w"][i])
+        x = _layer_norm(x + psum(parts, lyr["o_b"][i]), lyr["ln1_scale"][i], lyr["ln1_bias"][i],
+                        arch.layer_norm_eps)
+        act = _activation(arch.hidden_act)
+        parts = []
+        for (dev, w), xj in zip(self._slots, spread(x)):
+            with device_scope(dev):
+                parts.append(act(xj @ w["ffn_in_w"][i] + w["ffn_in_b"][i]) @ w["ffn_out_w"][i])
+        ffn = psum(parts, lyr["ffn_out_b"][i])
+        return _layer_norm(x + ffn, lyr["ln2_scale"][i], lyr["ln2_bias"][i], arch.layer_norm_eps)
 
 
 def encode_tokens(

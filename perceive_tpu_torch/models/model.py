@@ -5,7 +5,8 @@ x (sequence bucket), as in the JAX package, so both packages see the same
 shapes.  ``encode_dispatch`` / ``encode_ids`` enqueue the encode on the
 device's current stream and return device tensors without waiting;
 ``materialize`` copies to the host.  The device is explicit: nothing here
-picks one.
+picks one.  ``shard_over`` spreads the encode over a mesh of devices
+(data-parallel, or tensor-parallel under a model axis above 1).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from ..utils import dispatchmeter
-from .encoder import Encoder, EncoderArch, HeadConfig, init_params, output_dim
+from .encoder import Encoder, EncoderArch, HeadConfig, TensorParallelEncoder, init_params, output_dim
 from .registry import ModelType, checkpoint_path
 from .tokenize import TextTokenizer, TokenBatch
 
@@ -64,6 +65,9 @@ class Model:
         self.encoder = Encoder(
             params, arch, head, compute_dtype=compute_dtype, attention_impl=attention_impl
         ).to(self.device)
+        # the mesh (shard_over) and the encoder of each of its data slots
+        self._mesh = None
+        self._data_slots: list | None = None
 
     # -- constructors --------------------------------------------------------
 
@@ -139,8 +143,65 @@ class Model:
     def encode_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """Ids-only encode: the mask is ``ids != pad`` on the device and
         token types are zero.  Enqueued, not waited for."""
+        return self._encode_ids_with(self.encoder, ids)
+
+    def _encode_ids_with(self, encoder, ids: torch.Tensor) -> torch.Tensor:
         mask = (ids != self.tokenizer.pad_id).to(torch.int32)
-        return self.encode_tensors(ids, mask, torch.zeros_like(ids))
+        with torch.inference_mode():
+            return encoder(ids, mask, torch.zeros_like(ids))
+
+    # -- multi-device ----------------------------------------------------------
+
+    def shard_over(self, mesh) -> "Model":
+        """Spread the encode over a device mesh (parallel.make_mesh) whose
+        lead slot is this model's device.
+
+        With the mesh's model axis at 1: data-parallel.  The params are
+        replicated once per distinct device of the data slots, and a
+        dispatched batch whose bucket divides the data axis splits over the
+        data slots, each part encoded on its slot (K11 on each at buckets of
+        KERNEL_MIN_SEQ and up) and gathered to the lead slot.  With a model
+        axis above 1 each data slot's encoder is tensor-parallel over its
+        row of model slots (``TensorParallelEncoder``), the lead row's
+        serving the batches that do not split and the single queries.
+        Batches whose bucket does not divide the data axis (the single
+        query, bucket 1) take the lead slot's path."""
+        from ..parallel.mesh import MODEL_AXIS, param_specs, shard_params
+
+        if mesh.lead != self.device:
+            raise ValueError(f"the mesh leads on {mesh.lead}, the model is on {self.device}")
+        params = self.encoder.params()
+        if mesh.shape[MODEL_AXIS] == 1:
+            replicas = {self.device: self.encoder}
+            for (dev,) in mesh.devices:
+                if dev not in replicas:
+                    replicas[dev] = Encoder(params, self.arch, self.head, compute_dtype=self.compute_dtype,
+                                            attention_impl=self.attention_impl).to(dev)
+            self._data_slots = [(dev, replicas[dev]) for (dev,) in mesh.devices]
+        else:
+            grid = shard_params(params, mesh)
+            split = {n for n, axis in param_specs(params)["layers"].items() if axis is not None}
+            self._data_slots = [
+                (row[0], TensorParallelEncoder(grid[i], list(row), self.arch, self.head, split=split,
+                                               compute_dtype=self.compute_dtype,
+                                               attention_impl=self.attention_impl))
+                for i, row in enumerate(mesh.devices)
+            ]
+            self.encoder = self._data_slots[0][1]
+        self._mesh = mesh
+        return self
+
+    def _encode_ids_sharded(self, ids: np.ndarray) -> torch.Tensor:
+        """The data-parallel encode of an (B, S) batch whose B divides the
+        data axis: one part a data slot, enqueued on each before the parts
+        are gathered to the lead slot."""
+        from ..parallel.mesh import batch_sharding, device_scope
+
+        outs = []
+        for (dev, enc), part in zip(self._data_slots, batch_sharding(torch.from_numpy(ids), self._mesh)):
+            with device_scope(dev):
+                outs.append(self._encode_ids_with(enc, part))
+        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     def encode_token_batch(self, batch: TokenBatch) -> np.ndarray:
         """(B, S) token arrays -> (B, dim) f32 embeddings on the host."""
@@ -189,6 +250,9 @@ class Model:
             raise ModelError(f"batch of {len(items)} exceeds the {BATCH_BUCKETS[-1]} dispatch limit")
         ids = ids_for(batch_bucket(len(items)))
         dispatchmeter.count("encode")
+        slots = self._data_slots
+        if slots is not None and len(slots) > 1 and ids.shape[0] % len(slots) == 0:
+            return self._encode_ids_sharded(ids), len(items)
         return self.encode_ids(self._to_device(ids)), len(items)
 
     @staticmethod

@@ -15,6 +15,11 @@ library.  It reproduces that library's BERT pipeline token for token:
   * the ``[CLS] $A [SEP]`` template, with truncation to ``max_seq_length``
     specials included.
 
+``TextTokenizer.from_dir`` reads a checkpoint's ``tokenizer.json`` first,
+as the JAX package does, where it serializes that same WordPiece pipeline
+(``_wordpiece_from_json``; another model, such as byte-level BPE, raises),
+else its ``vocab.txt``.
+
 Every normalized character remembers the original character it came from,
 so token offsets are character ranges of the ORIGINAL text (the highlight
 engine slices snippets with them).
@@ -104,17 +109,26 @@ class WordPieceTokenizer:
 
     _CACHE_MAX = 200_000
 
-    def __init__(self, vocab: dict[str, int], *, lowercase: bool = True, unk_token: str = "[UNK]"):
+    def __init__(self, vocab: dict[str, int], *, lowercase: bool = True, unk_token: str = "[UNK]",
+                 prefix: str = CONTINUING_PREFIX, max_chars: int = MAX_INPUT_CHARS_PER_WORD,
+                 cls_id: Optional[int] = None, sep_id: Optional[int] = None,
+                 added: Optional[dict[str, int]] = None):
         self.vocab = vocab
         self.lowercase = lowercase
+        self.prefix = prefix
+        self.max_chars = max_chars
         self.unk_id = vocab[unk_token]
-        self.cls_id = vocab.get("[CLS]", 1)
-        self.sep_id = vocab.get("[SEP]", 2)
+        self.cls_id = vocab.get("[CLS]", 1) if cls_id is None else cls_id
+        self.sep_id = vocab.get("[SEP]", 2) if sep_id is None else sep_id
+        # added tokens (a tokenizer.json's ``added_tokens``): looked up by
+        # token_to_id before the vocabulary, as the tokenizers library does
+        self.added = dict(added or {})
         self._cache: dict[str, list[tuple[int, int, int]]] = {}
         self._cache_lock = threading.Lock()
 
     def token_to_id(self, token: str) -> Optional[int]:
-        return self.vocab.get(token)
+        tid = self.added.get(token)
+        return self.vocab.get(token) if tid is None else tid
 
     def normalize(self, text: str) -> tuple[str, list[int]]:
         """(normalized text, original char index of each normalized char)."""
@@ -181,7 +195,7 @@ class WordPieceTokenizer:
         n = len(word)
         vocab = self.vocab
         pieces: list[tuple[int, int, int]] = []
-        if n > MAX_INPUT_CHARS_PER_WORD:
+        if n > self.max_chars:
             pieces = [(self.unk_id, 0, n)]
         else:
             start = 0
@@ -189,7 +203,7 @@ class WordPieceTokenizer:
                 end = n
                 found = None
                 while start < end:
-                    sub = word[start:end] if start == 0 else CONTINUING_PREFIX + word[start:end]
+                    sub = word[start:end] if start == 0 else self.prefix + word[start:end]
                     tid = vocab.get(sub)
                     if tid is not None:
                         found = tid
@@ -226,6 +240,57 @@ class WordPieceTokenizer:
         return Encoding(ids, [0] * len(ids), offsets, special)
 
 
+def _special_ids(post: dict) -> tuple[Optional[int], Optional[int]]:
+    """(cls id, sep id) of a ``TemplateProcessing`` or ``BertProcessing``
+    post-processor: the special tokens around a single sequence."""
+    if post.get("type") == "BertProcessing":
+        return int(post["cls"][1]), int(post["sep"][1])
+    if post.get("type") == "TemplateProcessing":
+        names = [p["SpecialToken"]["id"] for p in post.get("single", []) if "SpecialToken" in p]
+        seq = [next(iter(p)) for p in post.get("single", [])]
+        if seq != ["SpecialToken", "Sequence", "SpecialToken"]:
+            raise ValueError(f"a post-processor template {seq} is not [CLS] $A [SEP]")
+        ids = [post["special_tokens"][n]["ids"] for n in names]
+        if any(len(i) != 1 for i in ids):
+            raise ValueError("a special token of the template is not one id")
+        return ids[0][0], ids[1][0]
+    raise ValueError(f"post-processor {post.get('type')!r} is not TemplateProcessing or BertProcessing")
+
+
+def _wordpiece_from_json(path: Path) -> WordPieceTokenizer:
+    """The BERT WordPiece pipeline of a ``tokenizer.json`` (the tokenizers
+    library's serialization), read without that library: the model's
+    vocab, ``unk_token``, ``continuing_subword_prefix`` and
+    ``max_input_chars_per_word``, the ``BertNormalizer``'s ``lowercase``
+    (accents strip with it), a ``BertPreTokenizer``, and the post
+    processor's [CLS] and [SEP] ids.  Any other model (byte-level BPE, as
+    RoBERTa-family checkpoints ship), normalizer or pre-tokenizer raises
+    ValueError."""
+    spec = json.loads(path.read_text(encoding="utf-8"))
+    model = spec.get("model") or {}
+    if model.get("type") != "WordPiece":
+        raise ValueError(f"{path}: a {model.get('type') or 'untyped'} tokenizer model; the port reads "
+                         "WordPiece tokenizer.json files only (byte-level BPE is not ported)")
+    norm = spec.get("normalizer") or {}
+    if norm.get("type") != "BertNormalizer" or not norm.get("clean_text", True) or not norm.get(
+            "handle_chinese_chars", True):
+        raise ValueError(f"{path}: normalizer {norm.get('type')!r} is not the BertNormalizer the port implements")
+    lowercase = bool(norm.get("lowercase", True))
+    if norm.get("strip_accents") not in (None, lowercase):
+        raise ValueError(f"{path}: strip_accents {norm['strip_accents']} apart from lowercase is not implemented")
+    pre = spec.get("pre_tokenizer") or {}
+    if pre.get("type") != "BertPreTokenizer":
+        raise ValueError(f"{path}: pre-tokenizer {pre.get('type')!r} is not BertPreTokenizer")
+    cls_id, sep_id = _special_ids(spec.get("post_processor") or {})
+    added = {t["content"]: int(t["id"]) for t in spec.get("added_tokens") or []}
+    return WordPieceTokenizer(
+        {str(k): int(v) for k, v in model["vocab"].items()}, lowercase=lowercase,
+        unk_token=model.get("unk_token", "[UNK]"), prefix=model.get("continuing_subword_prefix", CONTINUING_PREFIX),
+        max_chars=int(model.get("max_input_chars_per_word", MAX_INPUT_CHARS_PER_WORD)),
+        cls_id=cls_id, sep_id=sep_id, added=added,
+    )
+
+
 class TextTokenizer:
     """The tokenizer facade the models use: bucketed padding, the special
     wrap, token windows.  Thread-safe."""
@@ -239,21 +304,23 @@ class TextTokenizer:
 
     @classmethod
     def from_dir(cls, model_dir: str | Path, max_seq_length: int = 512) -> "TextTokenizer":
-        """Load from a checkpoint dir through its ``vocab.txt`` (a
-        ``tokenizer.json``-only checkpoint is not supported yet)."""
+        """Load from a checkpoint dir: its ``tokenizer.json`` first, as the
+        JAX package does (a WordPiece one: ``_wordpiece_from_json``; any other
+        model raises ValueError), else its ``vocab.txt``."""
         model_dir = Path(model_dir)
+        tj = model_dir / "tokenizer.json"
         vocab_file = model_dir / "vocab.txt"
-        if not vocab_file.exists():
-            raise FileNotFoundError(
-                f"no vocab.txt in {model_dir} (tokenizer.json-only checkpoints are not "
-                "supported yet: ROADMAP.md queue 1)"
-            )
-        lower = True
-        tc = model_dir / "tokenizer_config.json"
-        if tc.exists():
-            lower = json.loads(tc.read_text()).get("do_lower_case", True)
-        vocab = {w: i for i, w in enumerate(vocab_file.read_text().splitlines())}
-        tok = WordPieceTokenizer(vocab, lowercase=lower)
+        if tj.exists():
+            tok = _wordpiece_from_json(tj)
+        elif vocab_file.exists():
+            lower = True
+            tc = model_dir / "tokenizer_config.json"
+            if tc.exists():
+                lower = json.loads(tc.read_text()).get("do_lower_case", True)
+            vocab = {w: i for i, w in enumerate(vocab_file.read_text().splitlines())}
+            tok = WordPieceTokenizer(vocab, lowercase=lower)
+        else:
+            raise FileNotFoundError(f"no tokenizer.json or vocab.txt in {model_dir}")
         pad_token = None
         for cfg_name in ("tokenizer_config.json", "special_tokens_map.json"):
             cfg_file = model_dir / cfg_name

@@ -42,7 +42,9 @@ bf16 path
 layer has two: the doctor's build-and-launch check passes
 (``test_doctor_device_checks_pass``), and one served ``/search`` on a
 CUDA AppState returns the hits of ``scan_topk_plain`` over the same matrix
-(``test_served_search_equals_plain_scan``).
+(``test_served_search_equals_plain_scan``).  The sharded searcher has one:
+four slots on the card answer as the one-device searcher at every tier
+(``test_sharded_searcher_on_four_slots_equals_one_device``).
 """
 
 import pytest
@@ -1077,3 +1079,52 @@ def test_served_search_equals_plain_scan(dev, tmp_path, monkeypatch):
         srv.shutdown()
         srv.server_close()
         state.close()
+
+
+@pytest.mark.parametrize("tier", ["bf16", "f32", "int8", "int4", "int2+int8", "int2+int4"])
+def test_sharded_searcher_on_four_slots_equals_one_device(dev, tier, monkeypatch):
+    """A ShardedSearcher over [cuda:0] * 4 (each shard's own tensors, the
+    tier's kernels on each, the merge on the lead slot) answers as the
+    one-device Searcher on the card: single queries (the coarse route at
+    int2, filtered too), a batch of 256 (the slab kernels), upserts and
+    removals; every query sweeps 4 shards."""
+    import numpy as np
+
+    from perceive_tpu_torch.index.matrix import INT2, INT4
+    from perceive_tpu_torch.index.searcher import Searcher
+    from perceive_tpu_torch.parallel import ShardedSearcher, make_mesh
+
+    dtype, fine = {"bf16": (torch.bfloat16, None), "f32": (torch.float32, None), "int8": (torch.int8, None),
+                   "int4": (INT4, None), "int2+int8": (INT2, "int8"), "int2+int4": (INT2, "int4")}[tier]
+    if fine:
+        monkeypatch.setenv("PERCEIVE_TPU_INT2_FINE", fine)
+    monkeypatch.setenv("PERCEIVE_TPU_COARSE_AUDIT", "0")  # trust the coarse pass: K5/K6 serve
+    rng = np.random.default_rng(1)
+    n, d = 60_000, 384
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    ids, srcs = list(range(1, n + 1)), [i % 3 for i in range(n)]
+    ss = ShardedSearcher(0, 0, d, make_mesh(devices=[dev] * 4), dtype=dtype)
+    s1 = Searcher(0, 0, d, device=dev, dtype=dtype)
+    for s in (ss, s1):
+        s.upsert_embeddings(ids, srcs, vecs)
+    tol = 1e-4 if tier in ("bf16", "f32") else 1e-6
+    qs = vecs[rng.integers(0, n, 256)] + 0.05 * rng.standard_normal((256, d)).astype(np.float32)
+
+    def same(got, want):
+        assert [i for i, _ in got] == [i for i, _ in want]
+        assert max((abs(a[1] - b[1]) for a, b in zip(got, want)), default=0.0) <= tol
+
+    before = {**topk.launch_counts(), **int2.launch_counts()}
+    got = [ss.search_vector(q, 10, f) for q in qs[:4] for f in (None, [1])]
+    after = {**topk.launch_counts(), **int2.launch_counts()}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved and all(v % 4 == 0 for v in moved.values()), moved
+    for g, w in zip(got, [s1.search_vector(q, 10, f) for q in qs[:4] for f in (None, [1])]):
+        same(g, w)
+    for g, w in zip(ss.search_vectors_batch(qs, 10), s1.search_vectors_batch(qs, 10)):
+        same(g, w)
+    for s in (ss, s1):
+        s.remove_items([i for i, _ in s.search_vector(qs[0], 3)])
+        s.upsert_embeddings([n + 1], [2], qs[1:2])
+    same(ss.search_vector(qs[0], 10), s1.search_vector(qs[0], 10))

@@ -33,7 +33,8 @@ PORT_MODULES = (
         "perceive_tpu_torch.serve, perceive_tpu_torch.cli.doctor, perceive_tpu_torch.cli.repl, "
         "perceive_tpu_torch.cli.desktop, perceive_tpu_torch.db.import_reference, "
         "perceive_tpu_torch.utils.dispatchmeter, perceive_tpu_torch.utils.profiling, "
-        "perceive_tpu_torch.ops.similarity"
+        "perceive_tpu_torch.ops.similarity, perceive_tpu_torch.parallel, perceive_tpu_torch.parallel.mesh, "
+        "perceive_tpu_torch.parallel.search, perceive_tpu_torch.parallel.dryrun"
     )
 )
 

@@ -109,3 +109,46 @@ def test_offsets_slice_original_text():
     enc = port.encode_untruncated([text])[0]
     pieces = [text[s:e] for (s, e), sp in zip(enc.offsets, enc.special_tokens_mask) if not sp]
     assert "".join(pieces) == text.replace(" ", "")
+
+
+@pytest.mark.parametrize("lowercase,pad", [(True, None), (False, "[PAD]"), (True, "[SEP]")])
+def test_tokenizer_json_only_checkpoint_matches(tmp_path, lowercase, pad):
+    """A checkpoint that ships a WordPiece tokenizer.json and no vocab.txt
+    (written by the tokenizers library itself, with a custom continuing
+    prefix and word length): both packages' from_dir read it to the same
+    ids, padded batches and pad id."""
+    import json
+
+    from perceive_tpu.models.tokenize import _build_wordpiece
+
+    vocab = hf_tiny_vocab(["hello", "world", "search", "café", "x", "##ll", "straße", "über"])
+    tok = _build_wordpiece(vocab, lowercase=lowercase)
+    spec = json.loads(tok.to_str())
+    spec["model"]["continuing_subword_prefix"] = "@@"
+    spec["model"]["max_input_chars_per_word"] = 40
+    vocab_at = {w.replace("##", "@@"): i for w, i in spec["model"]["vocab"].items()}
+    spec["model"]["vocab"] = vocab_at
+    (tmp_path / "tokenizer.json").write_text(json.dumps(spec))
+    if pad is not None:
+        (tmp_path / "tokenizer_config.json").write_text(json.dumps({"pad_token": {"content": pad}}))
+    hf, port = HfTokenizer.from_dir(tmp_path, max_seq_length=64), TextTokenizer.from_dir(tmp_path, max_seq_length=64)
+    assert not (tmp_path / "vocab.txt").exists()
+    assert hf.pad_id == port.pad_id
+    for text in TEXTS:
+        _same_encoding(hf.encode_untruncated([text])[0], port.encode_untruncated([text])[0])
+    a, b = hf.encode_batch(TEXTS, pad_batch_to=32), port.encode_batch(TEXTS, pad_batch_to=32)
+    for name in ("input_ids", "attention_mask", "token_type_ids"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+def test_tokenizer_json_other_models_raise(tmp_path):
+    """A byte-level BPE tokenizer.json (as RoBERTa-family checkpoints ship)
+    is not read as WordPiece: a clear error, not wrong ids."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    bpe = Tokenizer(models.BPE(vocab={"a": 0, "b": 1, "ab": 2}, merges=[("a", "b")]))
+    bpe.pre_tokenizer = pre_tokenizers.ByteLevel()
+    bpe.save(str(tmp_path / "tokenizer.json"))
+    (tmp_path / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\na\n")
+    with pytest.raises(ValueError, match="BPE"):
+        TextTokenizer.from_dir(tmp_path)
