@@ -15,7 +15,8 @@ Phases (any failure exits non-zero before the final line):
   2. build the CUDA kernels from perceive_tpu_torch/csrc;
   3. K1 and K2 (bf16 scan + top-k, flat and slab) against their plain
      version at 1M x 384 bf16, K1 also over the same rows in f32, and K1
-     replayed 40 times on one input;
+     replayed 40 times on one input; K1 again at one query over 1M x 768
+     bf16 rows (the tokenizer.json families' width);
   4. K3 and K4 (int8 scan + top-k, flat and slab) against their plain
      version, bit for bit, at 2M x 384 int8 (K3 on both sides of its
      crossover to the tensor cores and at 255 queries), a sweep of 2,048
@@ -25,8 +26,9 @@ Phases (any failure exits non-zero before the final line):
      K4 at 2,048 queries (a 17 GB int32 product) timed alone;
   5. K11 (attention) against its plain version at every encoder bucket
      (timed beside the short-bucket route), at the ingest path's batch of
-     1,024 windows at 512 tokens, and on masks with whole padded key tiles
-     and one kept key;
+     1,024 windows at 512 tokens, at head width 64 (batches of 64 and
+     1,024 at 512 tokens: the 768-wide families'), and on masks with whole
+     padded key tiles and one kept key;
   6. the bf16 slice: 2,048 generated documents written as files (beside a
      hidden, a gitignored and an empty one) are ingested through the CLI's
      ``source add fs`` and ``source scan`` with an all-MiniLM-L6-v2-width
@@ -56,7 +58,15 @@ Phases (any failure exits non-zero before the final line):
      2,048-query batch (K2 on every shard) against the one-device answers,
      ``dryrun_multichip(4)`` over 4 slots, and the documents' 2,593 windows
      re-encoded through ``Model.shard_over`` at model-parallel 1 (2 slots)
-     and 2 (2 x 2) against the stored vectors, K11 on every slot;
+     and 2 (2 x 2) against the stored vectors, K11 on every slot; then the
+     tokenizer.json families (``family_phase``): all-distilroberta-v1
+     (byte-level BPE) and paraphrase-albert-small-v2 (Unigram) at their
+     published widths with seeded weights, each written under
+     PERCEIVE_TPU_MODEL_DATA with a synthetic tokenizer.json, ``model
+     set`` on a fresh database, 65,536 768-d filler rows, a fresh AppState
+     that must load the checkpoint, 256 files through ``source add fs`` +
+     ``source scan`` (the ingest gates; K11 at head width 64) and 16 CLI
+     queries (K1 over the 768-d rows) against an exact f32 top-10;
   8. the int8 slice: 1M more filler rows (2M in all), a fresh AppState whose
      auto rule picks the int8 tier, built from the bf16 base (another
      tier: its f32 rows stream) and the rows written since, replayed from
@@ -199,6 +209,9 @@ INT4_WIDE_ROWS = 34_603_008  # past 33,553,920 rows, where K9's first slab kerne
 INT2_TOP_ROWS, INT2_TOP_HWM = 25_165_824, 22_500_000  # K10 near the int2 tier's upper end (24M rows)
 SELECTS = ("tiletop", "window", "threshold")  # the int2 selects pinned on the int2 slice's state
 SCAN_TOL = 1e-4  # bf16 scans: f32 sums of bf16 products in another order
+# a bf16 row's score against its f32 row's: at most 2**-7 of |row| |query|
+# (both unit), one bf16 rounding (2**-8 relative) of each product's operands
+BF16_SCORE_TOL = 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -309,13 +322,13 @@ def bound(n_bytes: float, ops: float, kind: str, transcendentals: float = 0.0) -
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def scan_bound(live: int, n_sweep: int, nq: int, k: int, elem: int, kind: str):
+def scan_bound(live: int, n_sweep: int, nq: int, k: int, elem: int, kind: str, dim: int = DIM):
     """Bound of a scan with top-k: each live row read once (with its scale at
     int8), every source id once, the queries once, the (Q, k) result written
     once; 2 * D operations per live row and query."""
     scale = 4 * live if kind == "int8" else 0
-    n_bytes = live * DIM * elem + scale + 4 * n_sweep + nq * DIM * elem + nq * k * 8
-    return bound(n_bytes, 2.0 * nq * live * DIM, kind)
+    n_bytes = live * dim * elem + scale + 4 * n_sweep + nq * dim * elem + nq * k * 8
+    return bound(n_bytes, 2.0 * nq * live * dim, kind)
 
 
 # -- phase 1-2 -------------------------------------------------------------
@@ -395,8 +408,8 @@ def filters(dev) -> dict:
     return {"all": no_filter, "2src": two}
 
 
-def corpus_rows(g, dev, n: int, hwm: int):
-    """Seeded unit rows in (n, DIM) f32 chunks, source ids in {0, 1, 2} with
+def corpus_rows(g, dev, n: int, hwm: int, dim: int = DIM):
+    """Seeded unit rows in (n, dim) f32 chunks, source ids in {0, 1, 2} with
     5% tombstones and an unallocated tail from ``hwm``, and the sweep prefix
     the matrix's ladder gives that high-water mark."""
     import torch
@@ -405,7 +418,7 @@ def corpus_rows(g, dev, n: int, hwm: int):
 
     def chunks():
         for lo in range(0, n, 131072):
-            blk = torch.randn((min(131072, n - lo), DIM), generator=g, device=dev)
+            blk = torch.randn((min(131072, n - lo), dim), generator=g, device=dev)
             yield lo, blk / blk.norm(dim=1, keepdim=True)
 
     src = torch.randint(0, 3, (n,), generator=g, device=dev, dtype=torch.int32)
@@ -567,25 +580,38 @@ def check_bf16_scans(card: str) -> dict:
         q = torch.randn((nq, DIM), generator=g, device=dev)
         return q / q.norm(dim=1, keepdim=True)
 
+    def check(kid, fn, m, src, ns, q, k, suffix=""):
+        for fname, al in allowed.items():
+            err = check_case(f"{kid} Q={q.shape[0]:<4d} k={k:<5d} filter={fname:<4s}{suffix}",
+                             fn(m, src, q, al, k, ns), topk.scan_topk_plain(m, src, q, al, k, ns), SCAN_TOL)
+            worst[kid] = max(worst[kid], err)
+
+    def timed(kid, fn, m, src, ns, q, k):
+        """Kernel, plain and library (bf16 matmul + masked_fill + topk)
+        times beside the bound, logged with the card."""
+        keep = src[:ns] >= 0
+        mv = m[:ns]
+        nq, dim = q.shape
+        t = {"ms": cuda_ms(lambda: fn(m, src, q, allowed["all"], k, ns)),
+             "plain_ms": cuda_ms(lambda: topk.scan_topk_plain(m, src, q, allowed["all"], k, ns)),
+             "library_ms": cuda_ms(lambda: torch.topk(
+                 torch.matmul(q.to(torch.bfloat16), mv.T).masked_fill(~keep, float("-inf")), k))}
+        t["bound_ms"], t["bound_by"] = scan_bound(int(keep.sum()), ns, nq, k, 2, "bf16", dim=dim)
+        log(f"{kid} time Q={nq} k={k} n_sweep={ns}{'' if dim == DIM else f' D={dim}'}: kernel {t['ms']:.4f} ms  "
+            f"plain {t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})  [{card}]")
+        return t
+
     for kid, fn, widths in (("K1", topk.scan_topk_flat, (1, 8, 64, 512)),
                             ("K2", topk.scan_topk_slab, (256, 512, 2048))):
         ks = (16, BF16_KB, 1024, 8192) if kid == "K1" else tuple(sorted(KS + (BF16_KB,)))  # the slice's kb
         for nq in widths:
             q = queries(nq)
             for k in ks:
-                for fname, al in allowed.items():
-                    got = fn(m, src, q, al, k, ns)
-                    want = topk.scan_topk_plain(m, src, q, al, k, ns)
-                    err = check_case(f"{kid} Q={nq:<4d} k={k:<5d} filter={fname:<4s}", got, want, SCAN_TOL)
-                    worst[kid] = max(worst[kid], err)
+                check(kid, fn, m, src, ns, q, k)
     m32 = m.float()
     for nq in (1, 64):
-        q = queries(nq)
-        for fname, al in allowed.items():
-            got = topk.scan_topk_flat(m32, src, q, al, BF16_KB, ns)
-            want = topk.scan_topk_plain(m32, src, q, al, BF16_KB, ns)
-            err = check_case(f"K1 Q={nq:<4d} k={BF16_KB:<5d} filter={fname:<4s} f32", got, want, SCAN_TOL)
-            worst["K1"] = max(worst["K1"], err)
+        check("K1", topk.scan_topk_flat, m32, src, ns, queries(nq), BF16_KB, " f32")
     del m32
     for nq, k, fname in ((1, BF16_KB, "all"), (8, 8192, "2src")):  # the CUDA cores: their ring's releases
         q = queries(nq)
@@ -612,26 +638,26 @@ def check_bf16_scans(card: str) -> dict:
             raise SystemExit(f"{kid} tie order differs from the plain version")
     log("K1, K2 tie rule: equal scores order by the lower row  ok")
 
-    live = int((src[:ns] >= 0).sum())
-    keep = src[:ns] >= 0
-    mv = m[:ns]
+    times = {(kid, nq, k): timed(kid, fn, m, src, ns, queries(nq), k)
+             for kid, fn, nq, k in (("K1", topk.scan_topk_flat, 1, BF16_KB), ("K1", topk.scan_topk_flat, 16, BF16_KB),
+                                    ("K1", topk.scan_topk_flat, 64, BF16_KB),
+                                    ("K2", topk.scan_topk_slab, 512, BF16_KB),
+                                    ("K2", topk.scan_topk_slab, 2048, BF16_KB))}
+    del m
+    torch.cuda.empty_cache()
 
-    def library(q, k):  # bf16 matmul + masked_fill + topk
-        return torch.topk(torch.matmul(q.to(torch.bfloat16), mv.T).masked_fill(~keep, float("-inf")), k)
-
-    times = {}
-    for kid, fn, nq, k in (("K1", topk.scan_topk_flat, 1, BF16_KB), ("K1", topk.scan_topk_flat, 16, BF16_KB),
-                           ("K1", topk.scan_topk_flat, 64, BF16_KB),
-                           ("K2", topk.scan_topk_slab, 512, BF16_KB), ("K2", topk.scan_topk_slab, 2048, BF16_KB)):
-        q = queries(nq)
-        t = {"ms": cuda_ms(lambda: fn(m, src, q, allowed["all"], k, ns)),
-             "plain_ms": cuda_ms(lambda: topk.scan_topk_plain(m, src, q, allowed["all"], k, ns)),
-             "library_ms": cuda_ms(lambda: library(q, k))}
-        t["bound_ms"], t["bound_by"] = scan_bound(live, ns, nq, k, 2, "bf16")
-        times[(kid, nq, k)] = t
-        log(f"{kid} time Q={nq} k={k} n_sweep={ns}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
-            f"library {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
-    del m, mv
+    # K1 over 768-d rows: the tokenizer.json families' text query (one query,
+    # the bf16 slice's depth) over the same sweep of 958,464 rows
+    wide = FAMILIES["AllDistilrobertaV1"]["config"]["hidden_size"]
+    chunks, src, ns = corpus_rows(g, dev, n, hwm, dim=wide)
+    m = torch.empty((n, wide), dtype=torch.bfloat16, device=dev)
+    for lo, blk in chunks:
+        m[lo : lo + blk.shape[0]] = blk.to(torch.bfloat16)
+    q = torch.randn((1, wide), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    check("K1", topk.scan_topk_flat, m, src, ns, q, BF16_KB, f" D={wide}")
+    timed("K1", topk.scan_topk_flat, m, src, ns, q, BF16_KB)
+    del m
     torch.cuda.empty_cache()
     return {"K1": {"max_abs_err": worst["K1"], **times[("K1", 1, BF16_KB)]},
             "K2": {"max_abs_err": worst["K2"], **times[("K2", 512, BF16_KB)]}}
@@ -1346,12 +1372,13 @@ def check_k11(card: str) -> dict:
     """K11 (bf16 tensor-core path) against its plain version at 1e-2 on
     every timed shape and on masks with whole padded key tiles and one kept
     key; timed beside its plain version, SDPA and, at every encoder bucket,
-    the short-bucket route (``xla_attention_plain``).  The last shape is the
-    ingest path's: a batch of EMBED_BATCH_SIZE windows at the 512 bucket
-    (the plain versions run it 64 rows of the batch at a time, which
-    computes the same function in a sixteenth of the memory), logged on its
-    own line; the kernels record keeps (64, 512, 12, 32), as every earlier
-    run recorded it."""
+    the short-bucket route (``xla_attention_plain``).  The ingest path's
+    shape is a batch of EMBED_BATCH_SIZE windows at the 512 bucket (the
+    plain versions run it 64 rows of the batch at a time, which computes the
+    same function in a sixteenth of the memory), at head width 32 (MiniLM)
+    and 64 (the 768-wide tokenizer.json families, also at a batch of 64),
+    each logged on its own line; the kernels record keeps (64, 512, 12,
+    32), as every earlier run recorded it."""
     import torch
 
     from perceive_tpu_torch.ops import attention as attn
@@ -1392,7 +1419,10 @@ def check_k11(card: str) -> dict:
         return err
 
     ingest = (EMBED_BATCH_SIZE, 512, 12, 32)
-    shapes = [(64, s, 12, 32) for s in K11_BUCKETS] + [(8, 512, 12, 64), ingest]
+    # then head width 64, the tokenizer.json families' (768 wide, 12 heads):
+    # a batch of 64 and the ingest path's batch at the 512 bucket
+    shapes = [(64, s, 12, 32) for s in K11_BUCKETS] + [(8, 512, 12, 64), ingest, (64, 512, 12, 64),
+                                                       (EMBED_BATCH_SIZE, 512, 12, 64)]
     for b, s, nh, dh in shapes:
         q, k, v, mask = inputs(b, s, nh, dh)
         worst = max(worst, held(f"B={b} S={s} NH={nh} DH={dh}", q, k, v, mask))
@@ -1442,6 +1472,9 @@ N_CLIENTS = 16
 N_BATCH = 2048
 
 
+SYLLABLES = [c + v for c in "bcdfghjklmnprstvz" for v in "aeiou"]  # the generated words' syllables
+
+
 def minilm_vocab(size: int = 30522) -> list[str]:
     """A deterministic 30522-entry WordPiece vocabulary: specials, the
     single-character pieces of tiny_test_vocab, then generated words and
@@ -1450,8 +1483,7 @@ def minilm_vocab(size: int = 30522) -> list[str]:
 
     base = tiny_test_vocab([])
     words = list(base)
-    cons, vows = "bcdfghjklmnprstvz", "aeiou"
-    syll = [c + v for c in cons for v in vows]
+    syll = SYLLABLES
     words += ["##" + s for s in syll]
     words += [a + b for a in syll for b in syll]
     for a in syll:
@@ -1474,8 +1506,9 @@ def make_docs(rng, vocab: list[str]) -> list[str]:
     return docs
 
 
-def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, text: str, mid: int, ver: int):
-    """``n`` seeded unit-vector rows under ids first_id.. with one embedding
+def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, text: str, mid: int, ver: int,
+                 dim: int = DIM):
+    """``n`` seeded ``dim``-wide unit-vector rows under ids first_id.. with one embedding
     each, through the columns the ingest pipeline writes; the vectors come
     from ``gen``, a torch.Generator on the card (SQLite takes the time).
     ``db`` is an open Database, or the path of one that no connection holds
@@ -1495,7 +1528,7 @@ def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, te
     try:
         for lo in range(0, n, chunk):
             c = min(chunk, n - lo)
-            v = torch.randn((c, DIM), generator=gen, device=gen.device)
+            v = torch.randn((c, dim), generator=gen, device=gen.device)
             v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
             ids = range(first_id + lo, first_id + lo + c)
             with (contextlib.nullcontext(conn) if own else db.write()) as txn:
@@ -1544,25 +1577,35 @@ FAULT_SHIFT = 2  # the planted fault: each window after the first starts this ma
 def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
     """Phase 6's ingest through the port's CLI: ``source add fs`` and
     ``source scan`` on a fresh database, with an AppState whose searcher
-    takes the pipeline's hooks.  Gated on exact counts (2,048 items, one
-    embedding row and one matrix row per window of the port's chunker: a
-    failed embed batch writes its items without their rows), K11 launched
-    during the scan, and the stored vectors against a direct encode of the
-    same windows, matched by (document, window)."""
-    import importlib.util
-
-    import torch
-
+    takes the pipeline's hooks (``scan_and_check``)."""
     from perceive_tpu_torch.cli import AppState
-    from perceive_tpu_torch.cli import main as cli_main
-    from perceive_tpu_torch.native import fastwalk_available
-    from perceive_tpu_torch.ops import attention as attn
-    from perceive_tpu_torch.sources import chunk_config, chunk_token_windows_batch
 
     docs_dir = os.path.join(workdir, "docs")
     write_docs(docs_dir, docs)
     db_path = os.path.join(workdir, "smoke.sqlite3")
     state = AppState(db_path, model=model, highlights_model=model, device=dev)
+    out = scan_and_check(card, state, db_path, docs_dir, docs)
+    state.close()
+    return out
+
+
+def scan_and_check(card: str, state, db_path: str, docs_dir: str, docs: list[str], tag: str = "ingest") -> dict:
+    """``source add fs`` and ``source scan`` of ``docs_dir`` through the CLI
+    over the open ``state``, gated on exact counts (one item per document,
+    one embedding row and one new matrix row per window of the port's
+    chunker: a failed embed batch writes its items without their rows), K11
+    launched during the scan, and the stored vectors against a direct
+    encode of the same windows, matched by (document, window)."""
+    import importlib.util
+
+    import torch
+
+    from perceive_tpu_torch.cli import main as cli_main
+    from perceive_tpu_torch.native import fastwalk_available
+    from perceive_tpu_torch.ops import attention as attn
+    from perceive_tpu_torch.sources import chunk_config, chunk_token_windows_batch
+
+    model = state.model
 
     def cli(*argv):
         out = io.StringIO()
@@ -1576,10 +1619,27 @@ def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
 
     cli("source", "add", "fs", docs_dir, "--name", "docs")
     src = state.source_by_name("docs")
+    matrix_before = len(state.searcher.matrix)
     attn.LAUNCHES = 0  # the ingest path's count: this scan alone
+    # the tokenizer's seconds inside the scan: its one caller there, the
+    # embed stage's chunker, tokenizes between the stage's dispatches
+    tok, tok_s = model.tokenizer, [0.0]
+    untimed = tok.encode_untruncated
+
+    def timed_encode(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return untimed(*args, **kwargs)
+        finally:
+            tok_s[0] += time.perf_counter() - t
+
+    tok.encode_untruncated = timed_encode
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = cli("source", "scan", "docs")
+    try:
+        out = cli("source", "scan", "docs")
+    finally:
+        del tok.encode_untruncated
     torch.cuda.synchronize()
     t_scan = time.perf_counter() - t0
     launches = attn.LAUNCHES
@@ -1593,8 +1653,8 @@ def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
     rows = conn.execute(
         """SELECT i.external_id, e.chunk_idx, e.embedding FROM item_embeddings e
            JOIN items i ON i.id = e.item_id WHERE i.source_id = ?""", (src.id,)).fetchall()
-    n_matrix = len(state.searcher.matrix)
-    log(f"ingest: {len(items)} items, {len(rows)} embedding rows, {n_matrix} matrix rows; "
+    n_matrix = len(state.searcher.matrix) - matrix_before
+    log(f"{tag}: {len(items)} items, {len(rows)} embedding rows, {n_matrix} new matrix rows; "
         f"{n_win} windows from the port's chunker; K11 launches during the scan: {launches}")
     if len(items) != len(docs) or None in doc_ids:
         raise SystemExit(f"the scan wrote {len(items)} items; want exactly the {len(docs)} documents")
@@ -1615,7 +1675,7 @@ def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
     stored_embs = np.stack([stored[(d, c)] for d, c, _ in flat])
     err = float(np.abs(stored_embs - embs).max())
     cos = float((stored_embs * embs).sum(axis=1).min())
-    log(f"ingest: stored vectors vs a direct encode of the same windows: max_abs_err {err:.3g} "
+    log(f"{tag}: stored vectors vs a direct encode of the same windows: max_abs_err {err:.3g} "
         f"(tol {INGEST_TOL}), min cosine {cos:.6f}")
     if not err <= INGEST_TOL:
         raise SystemExit("the stored vectors disagree with a direct encode of their windows")
@@ -1630,7 +1690,7 @@ def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
     ])
     at = {(d, c): i for i, (d, c, _) in enumerate(flat)}
     fault_err = np.abs(fault - embs[[at[(d, c)] for d, c, _ in moved]]).max(axis=1)
-    log(f"ingest: planted fault (windows after a document's first start {FAULT_SHIFT} tokens late): "
+    log(f"{tag}: planted fault (windows after a document's first start {FAULT_SHIFT} tokens late): "
         f"{len(moved)} windows, max_abs_err against the direct encode max {fault_err.max():.3g}, "
         f"median {np.median(fault_err):.3g}, min {fault_err.min():.3g} (tol {INGEST_TOL})")
     if not fault_err.max() > INGEST_TOL:
@@ -1638,19 +1698,20 @@ def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
 
     n_tokens = sum(len(w) + 2 for _, _, w in flat)
     summary = [line for line in out.splitlines() if line.startswith("Finished in")]
-    log(f"ingest (source scan through the CLI: walk, read, tokenize, encode, SQLite, matrix hooks): "
+    log(f"{tag} (source scan through the CLI: walk, read, tokenize, encode, SQLite, matrix hooks): "
         f"{len(docs)} docs ({n_win} windows, {n_tokens} tokens) in {t_scan:.3f} s = "
         f"{len(docs) / t_scan:.1f} docs/s end to end, not comparable with the encode-only loop of "
-        f"earlier runs; {summary[0] if summary else 'no summary line'}  [{card}]")
-    log(f"ingest host: native walker {'used' if fastwalk_available() else 'unavailable (Python walk)'}; "
+        f"earlier runs; {summary[0] if summary else 'no summary line'}; the tokenizer took {tok_s[0]:.3f} s "
+        f"of the embed stage's thread ({100 * tok_s[0] / t_scan:.1f}% of the scan's wall time)  [{card}]")
+    log(f"{tag} host: native walker {'used' if fastwalk_available() else 'unavailable (Python walk)'}; "
         "importable: " + ", ".join(f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
                                    for m in ("yaml", "zstandard", "lxml", "requests")))
     next_id, next_seq = conn.execute(
         "SELECT (SELECT MAX(id) FROM items), (SELECT MAX(seq) FROM item_embeddings)").fetchone()
-    state.close()
     return {"db_path": db_path, "doc_ids": doc_ids, "doc_windows": [len(w) for w in wins],
             "embs": stored_embs, "launches": launches, "next_id": next_id + 1, "next_seq": next_seq + 1,
-            "windows": n_win, "flat_windows": [w for _, _, w in flat]}
+            "windows": n_win, "flat_windows": [w for _, _, w in flat], "scan_s": t_scan, "summary": summary,
+            "tok_s": tok_s[0]}
 
 
 def build_corpus(card: str, workdir: str, dev) -> dict:
@@ -2006,7 +2067,6 @@ def bf16_slice(card: str, ctx: dict, dev) -> dict:
     import torch
 
     from perceive_tpu_torch.cli import AppState
-    from perceive_tpu_torch.index.searcher import _k_bucket
     from perceive_tpu_torch.ops import topk
 
     t0 = time.perf_counter()
@@ -2020,21 +2080,33 @@ def bf16_slice(card: str, ctx: dict, dev) -> dict:
         raise SystemExit(f"searcher holds {len(m)} {m.tier_name} rows on {m.device}")
     results, p50, p95 = cli_queries(card, state, ctx, "bf16", "scan_topk")
     launches = topk.launch_counts()["scan_topk"]
+    hold_to_plain(searcher, torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]]), results, "bf16 slice")
+    return state, {"launches": launches, "p50": p50, "p95": p95, "results": results}
 
-    # the hits equal the plain scan over the same device matrix and queries
+
+def hold_to_plain(searcher, qvs, results, tag: str) -> None:
+    """Each query's CLI hits against the plain scan over the same device
+    matrix at the searcher's first fetch depth: the same ids in the same
+    order, scores within 1e-4."""
+    import torch
+
+    from perceive_tpu_torch.index.searcher import _k_bucket
+    from perceive_tpu_torch.ops import topk
+
+    m = searcher.matrix
     vectors, src, _ = m.device_view()
     kb = _k_bucket(searcher._first_fetch(10), m.sweep_rows)
-    allowed = torch.from_numpy(searcher._allowed_arrays(None)[0]).to(dev)
-    for qi, q in enumerate(ctx["queries"]):
-        vals, rows = topk.scan_topk_plain(vectors, src, query_vector(ctx, q, dev), allowed, kb, m.sweep_rows)
+    allowed = torch.from_numpy(searcher._allowed_arrays(None)[0]).to(m.device)
+    qvs = torch.nn.functional.pad(qvs[:, : m.dim], (0, m.padded_dim - m.dim))
+    for qi in range(len(qvs)):
+        vals, rows = topk.scan_topk_plain(vectors, src, qvs[qi : qi + 1], allowed, kb, m.sweep_rows)
         want = searcher._decode_hits(vals[0].cpu().numpy(), rows[0].cpu().numpy(), 10)
         got = [(r["id"], r["score"]) for r in results[qi]]
         if [i for i, _ in got] != [i for i, _ in want] or max(
             abs(a[1] - b[1]) for a, b in zip(got, want)
         ) > 1e-4:
-            raise SystemExit(f"query {qi}: hits differ from the plain scan:\n{got}\n{want}")
-    log("bf16 slice hits equal the plain scan's for 16/16 queries")
-    return state, {"launches": launches, "p50": p50, "p95": p95, "results": results}
+            raise SystemExit(f"{tag} query {qi}: hits differ from the plain scan:\n{got}\n{want}")
+    log(f"{tag} hits equal the plain scan's for {len(qvs)}/{len(qvs)} queries")
 
 
 # -- the serve phase (after the bf16 batch path) -------------------------------------
@@ -2504,10 +2576,11 @@ def real_entry_point(card: str, workdir: str, docs: list, prep: dict) -> dict:
     return out
 
 
-def exact_top10(searcher, qvs, dev, with_rows: bool = False):
-    """The exact f32 top-10 (chunk hits deduped) of each of the (Q, dim)
-    queries over the host mirror, in one pass over it; ``with_rows`` also
-    returns the (Q, 10) rows of highest exact score (chunks not deduped)."""
+def exact_top10(searcher, qvs, dev, with_rows: bool = False, k: int = 10):
+    """The exact f32 top-10 (top-``k``; chunk hits deduped) of each of the
+    (Q, dim) queries over the host mirror, in one pass over it;
+    ``with_rows`` also returns the (Q, 10) rows of highest exact score
+    (chunks not deduped)."""
     import torch
 
     m = searcher.matrix
@@ -2519,7 +2592,7 @@ def exact_top10(searcher, qvs, dev, with_rows: bool = False):
         rows = torch.from_numpy(m.host_vectors_for(slice(lo, hi))).to(dev)
         scores[:, lo:hi] = qvs[:, : m.dim] @ rows.T
     vals, rows = torch.topk(scores.masked_fill(~live, float("-inf")), 256, dim=1)
-    hits = [searcher._decode_hits(v, r, 10) for v, r in zip(vals.cpu().numpy(), rows.cpu().numpy())]
+    hits = [searcher._decode_hits(v, r, k) for v, r in zip(vals.cpu().numpy(), rows.cpu().numpy())]
     return (hits, rows[:, :10].cpu().numpy()) if with_rows else hits
 
 
@@ -3481,6 +3554,341 @@ def mesh_int2(card: str, state, ctx: dict, dev) -> float:
     return time.perf_counter() - t_all
 
 
+# -- the tokenizer.json families: byte-level BPE and Unigram checkpoints at full width --
+
+# the published config.json of each sentence-transformers checkpoint (the
+# widths; weights are seeded) and its sentence_bert_config's max_seq_length
+FAMILIES = {
+    "AllDistilrobertaV1": {
+        "config": {"model_type": "roberta", "architectures": ["RobertaModel"], "vocab_size": 50265,
+                   "hidden_size": 768, "num_hidden_layers": 6, "num_attention_heads": 12,
+                   "intermediate_size": 3072, "hidden_act": "gelu", "max_position_embeddings": 514,
+                   "type_vocab_size": 1, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+                   "layer_norm_eps": 1e-05},
+        "max_seq_length": 512, "tokenizer": "bpe"},
+    "ParaphraseAlbertSmallV2": {
+        "config": {"model_type": "albert", "architectures": ["AlbertModel"], "vocab_size": 30000,
+                   "embedding_size": 128, "hidden_size": 768, "num_hidden_layers": 6, "num_hidden_groups": 1,
+                   "inner_group_num": 1, "num_attention_heads": 12, "intermediate_size": 3072,
+                   "hidden_act": "gelu_new", "max_position_embeddings": 512, "type_vocab_size": 2,
+                   "pad_token_id": 0, "bos_token_id": 2, "eos_token_id": 3, "layer_norm_eps": 1e-12},
+        "max_seq_length": 512, "tokenizer": "unigram"},
+}
+FAMILY_DOCS = 256
+FAMILY_LONG = 64  # documents over 400 tokens: their 510-token windows ride the 512 bucket, K11's
+FAMILY_FILLER = 65_536
+FAMILY_PHASE_S = 90  # the phase's budget, both families
+
+
+def _added(i: int, content: str, lstrip: bool = False) -> dict:
+    return {"id": i, "content": content, "single_word": False, "lstrip": lstrip, "rstrip": False,
+            "normalized": False, "special": True}
+
+
+def bpe_tokenizer_json(vocab_size: int = 50265) -> dict:
+    """A RoBERTa-style byte-level BPE tokenizer.json: the five specials
+    (<mask> last, as RoBERTa has it), the 256 byte symbols, and merges that
+    build syllables, space-led syllables, then space-led two- and
+    three-syllable words (ranked before the bare two-syllable ones, so a
+    space-led word merges whole), up to ``vocab_size`` entries."""
+    from perceive_tpu_torch.models.tokenizer_json import BYTES_CHAR
+
+    vocab = {t: i for i, t in enumerate(("<s>", "<pad>", "</s>", "<unk>"))}
+    for b in range(256):
+        vocab[BYTES_CHAR[b]] = len(vocab)
+    merges: list = []
+    sp = BYTES_CHAR[ord(" ")]
+
+    def merge(a: str, b: str) -> None:
+        if len(vocab) < vocab_size - 1 and a + b not in vocab:
+            merges.append([a, b])
+            vocab[a + b] = len(vocab)
+
+    for syl in SYLLABLES:
+        merge(syl[0], syl[1])
+    for syl in SYLLABLES:
+        merge(sp, syl)
+    for a in SYLLABLES:
+        for b in SYLLABLES:
+            merge(sp + a, b)
+    for a in SYLLABLES:
+        for b in SYLLABLES:
+            merge(a, b)
+    for a in SYLLABLES:
+        for b in SYLLABLES:
+            for c in SYLLABLES:
+                merge(sp + a + b, c)
+    vocab["<mask>"] = vocab_size - 1
+    byte_level = {"add_prefix_space": False, "trim_offsets": True, "use_regex": True}
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [_added(i, t) for i, t in enumerate(("<s>", "<pad>", "</s>", "<unk>"))]
+            + [_added(vocab_size - 1, "<mask>", lstrip=True)],
+            "normalizer": None, "pre_tokenizer": {"type": "ByteLevel", **byte_level},
+            "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0],
+                               "trim_offsets": True, "add_prefix_space": False},
+            "decoder": {"type": "ByteLevel", **byte_level},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False, "byte_fallback": False,
+                      "ignore_merges": False, "vocab": vocab, "merges": merges}}
+
+
+def unigram_tokenizer_json(vocab_size: int = 30000, seed: int = 5) -> dict:
+    """An ALBERT-style Unigram tokenizer.json: <pad>, <unk>, [CLS], [SEP],
+    [MASK], then the letters, syllables and "▁"-led syllables and words
+    with seeded scores (a whole word outscores its pieces), up to
+    ``vocab_size`` entries; ALBERT's normalizer sequence without its
+    character map, WhitespaceSplit + Metaspace, and [CLS] $A [SEP]."""
+    rng = np.random.default_rng(seed)
+    specials = ("<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]")
+    pieces = [[t, 0.0] for t in specials]
+    seen = set(specials)
+
+    def add(piece: str, score: float) -> None:
+        if len(pieces) < vocab_size and piece not in seen:
+            seen.add(piece)
+            pieces.append([piece, float(score - rng.random())])
+
+    for c in "▁abcdefghijklmnopqrstuvwxyz0123456789":
+        add(c, -12.0)
+    for syl in SYLLABLES:
+        add(syl, -10.0)
+        add("▁" + syl, -9.0)
+    for a in SYLLABLES:
+        for b in SYLLABLES:
+            add("▁" + a + b, -8.0)
+    for a in SYLLABLES:
+        for b in SYLLABLES:
+            for c in SYLLABLES:
+                add("▁" + a + b + c, -8.5)
+    template = [{"SpecialToken": {"id": "[CLS]", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                {"SpecialToken": {"id": "[SEP]", "type_id": 0}}]
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [_added(i, t) for i, t in enumerate(specials)],
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+                {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+                {"type": "NFKD"}, {"type": "StripAccents"}, {"type": "Lowercase"}]},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "WhitespaceSplit"},
+                {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True}]},
+            "post_processor": {"type": "TemplateProcessing", "single": template,
+                               "pair": template + [{"Sequence": {"id": "B", "type_id": 1}},
+                                                   {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+                               "special_tokens": {t: {"id": t, "ids": [i], "tokens": [t]}
+                                                  for t, i in (("[CLS]", 2), ("[SEP]", 3))}},
+            "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+            "model": {"type": "Unigram", "unk_id": 1, "vocab": pieces, "byte_fallback": False}}
+
+
+def hf_state_dict(cfg: dict, seed: int) -> dict:
+    """Seeded weights (normal, std 0.02; LayerNorms near 1) under the key
+    names of HF's RobertaModel or AlbertModel (ALBERT: the factorized
+    embedding and the one shared layer)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    h, f = cfg["hidden_size"], cfg["intermediate_size"]
+    e = cfg.get("embedding_size", h)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g) * 0.02
+
+    def norm(prefix, n):
+        return {prefix + ".weight": 1.0 + w(n), prefix + ".bias": w(n)}
+
+    sd = {"embeddings.word_embeddings.weight": w(cfg["vocab_size"], e),
+          "embeddings.position_embeddings.weight": w(cfg["max_position_embeddings"], e),
+          "embeddings.token_type_embeddings.weight": w(cfg["type_vocab_size"], e),
+          **norm("embeddings.LayerNorm", e)}
+
+    def linear(name, n_out, n_in):
+        return {name + ".weight": w(n_out, n_in), name + ".bias": w(n_out)}
+
+    if cfg["model_type"] == "albert":
+        sd.update(linear("encoder.embedding_hidden_mapping_in", h, e))
+        at = "encoder.albert_layer_groups.0.albert_layers.0."
+        for name in ("query", "key", "value", "dense"):
+            sd.update(linear(at + "attention." + name, h, h))
+        sd.update({**norm(at + "attention.LayerNorm", h), **linear(at + "ffn", f, h),
+                   **linear(at + "ffn_output", h, f), **norm(at + "full_layer_layer_norm", h)})
+        return sd
+    for i in range(cfg["num_hidden_layers"]):
+        at = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            sd.update(linear(at + "attention.self." + name, h, h))
+        sd.update({**linear(at + "attention.output.dense", h, h), **norm(at + "attention.output.LayerNorm", h),
+                   **linear(at + "intermediate.dense", f, h), **linear(at + "output.dense", h, f),
+                   **norm(at + "output.LayerNorm", h)})
+    return sd
+
+
+def write_checkpoint(path: str, cfg: dict, tokenizer: dict, max_seq_length: int, seed: int) -> None:
+    """A sentence-transformers checkpoint directory: config.json, seeded
+    weights in pytorch_model.bin, mean pooling + Normalize, the
+    tokenizer.json and sentence_bert_config.json."""
+    import torch
+
+    os.makedirs(os.path.join(path, "1_Pooling"), exist_ok=True)
+    files = {
+        "config.json": cfg,
+        "modules.json": [
+            {"idx": 0, "name": "0", "path": "", "type": "sentence_transformers.models.Transformer"},
+            {"idx": 1, "name": "1", "path": "1_Pooling", "type": "sentence_transformers.models.Pooling"},
+            {"idx": 2, "name": "2", "path": "2_Normalize", "type": "sentence_transformers.models.Normalize"}],
+        "1_Pooling/config.json": {"word_embedding_dimension": cfg["hidden_size"], "pooling_mode_cls_token": False,
+                                  "pooling_mode_mean_tokens": True, "pooling_mode_max_tokens": False},
+        "sentence_bert_config.json": {"max_seq_length": max_seq_length, "do_lower_case": False},
+        "tokenizer.json": tokenizer,
+    }
+    for name, body in files.items():
+        with open(os.path.join(path, name), "w", encoding="utf-8") as fh:
+            json.dump(body, fh, ensure_ascii=False)
+    torch.save(hf_state_dict(cfg, seed), os.path.join(path, "pytorch_model.bin"))
+
+
+def family_docs(rng, tokenizer: dict, n_docs: int = FAMILY_DOCS, n_long: int = FAMILY_LONG) -> list[str]:
+    """``n_docs`` texts of the words the tokenizer holds whole (one token
+    each, mostly): the first ``n_long`` of 440 to 1,100 words, the rest 12
+    to 120, a few with punctuation and capitals."""
+    if tokenizer["model"]["type"] == "BPE":
+        sp = "Ġ"
+        words = [t[1:] for t in tokenizer["model"]["vocab"] if t.startswith(sp) and len(t) > 3]
+    else:
+        words = [p[1:] for p, _ in tokenizer["model"]["vocab"] if p.startswith("▁") and len(p) > 3]
+    docs = []
+    for i in range(n_docs):
+        n = int(rng.integers(440, 1100)) if i < n_long else int(rng.integers(12, 121))
+        picks = [words[j] for j in rng.integers(0, len(words), n)]
+        if i % 4 == 1:
+            picks[0] = picks[0].capitalize()
+            picks[-1] += "."
+        docs.append(" ".join(picks))
+    return docs
+
+
+def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
+    """Both tokenizer.json families through the normal entry points: each
+    checkpoint written under PERCEIVE_TPU_MODEL_DATA, ``model set`` on a
+    fresh database, 65,536 seeded 768-d filler rows, a fresh AppState that
+    must load the checkpoint (PERCEIVE_TPU_REQUIRE_CHECKPOINT=1), ``source
+    add fs`` + ``source scan`` of 256 documents (``scan_and_check``: K11 at
+    DH 64 during the scan), and 16 CLI queries (K1 over the 768-d matrix)
+    whose hits must equal the plain scan's over the same device matrix
+    (``hold_to_plain``) and an exact f32 top-10 over the host mirror."""
+    import torch
+
+    from perceive_tpu_torch.cli import AppState
+    from perceive_tpu_torch.cli import main as cli_main
+    from perceive_tpu_torch.db import add_source
+    from perceive_tpu_torch.models import ModelType
+    from perceive_tpu_torch.ops import topk
+    from perceive_tpu_torch.types import Source
+
+    t_phase = time.perf_counter()
+    models_dir = os.path.join(workdir, "model_data")
+    os.environ["PERCEIVE_TPU_MODEL_DATA"] = models_dir
+    os.environ["PERCEIVE_TPU_REQUIRE_CHECKPOINT"] = "1"
+    out = {"attention": 0, "scan_topk": 0}
+    try:
+        for seed, (name, fam) in enumerate(FAMILIES.items(), start=20):
+            t0 = time.perf_counter()
+            mt = ModelType.parse(name)
+            cfg = fam["config"]
+            spec = bpe_tokenizer_json(cfg["vocab_size"]) if fam["tokenizer"] == "bpe" else unigram_tokenizer_json(
+                cfg["vocab_size"])
+            write_checkpoint(os.path.join(models_dir, mt.checkpoint_dir_name), cfg, spec, fam["max_seq_length"], seed)
+            t_write = time.perf_counter() - t0
+            fdir = os.path.join(workdir, mt.checkpoint_dir_name)
+            docs = family_docs(np.random.default_rng(seed), spec)
+            write_docs(os.path.join(fdir, "docs"), docs)
+            db_path = os.path.join(fdir, "family.sqlite3")
+
+            # model set on the new database, then the filler under that model's keys
+            setter = AppState(db_path, model=ctx["model"], highlights_model=ctx["model"], device=dev,
+                              build_searcher=False)
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                rc = cli_main(["--db", db_path, "model", "set", name], state=setter)
+            if rc != 0:
+                raise SystemExit(f"model set {name} exited {rc}")
+            log(f"  cli: {said.getvalue().strip()}")
+            src_fill = add_source(setter.db, Source(name="filler", config={"type": "fs"},
+                                                   location="generated:filler"))
+            setter.close()
+            t1 = time.perf_counter()
+            filler_text = " ".join(docs[-1].split()[:16])
+            write_filler(db_path, src_fill.id, 1, 1, FAMILY_FILLER, torch.Generator(device=dev).manual_seed(seed),
+                         filler_text, mt.model_id, 0, dim=cfg["hidden_size"])
+            t_fill = time.perf_counter() - t1
+
+            t1 = time.perf_counter()
+            state = AppState(db_path, highlights_model=ctx["model"], device=dev)
+            t_state = time.perf_counter() - t1
+            m = state.searcher.matrix
+            log(f"{name}: AppState loaded {state.model.name!r} ({state.model.dim}-d, tokenizer "
+                f"{type(state.model.tokenizer.tokenizer).__name__}, max_seq_length "
+                f"{state.model.tokenizer.max_seq_length}) over {len(m)} rows, tier {m.tier_name}, in {t_state:.1f} s "
+                f"(checkpoint written in {t_write:.1f} s, filler in {t_fill:.1f} s)  [{card}]")
+            if state.model.name != name or state.model.model_id != mt.model_id:
+                raise SystemExit(f"AppState serves {state.model.name!r}, not the {name} checkpoint")
+            if len(m) != FAMILY_FILLER or m.dtype != torch.bfloat16 or m.dim != cfg["hidden_size"]:
+                raise SystemExit(f"{name}: the searcher holds {len(m)} {m.tier_name} rows of {m.dim}; "
+                                 f"want {FAMILY_FILLER} bf16 rows of {cfg['hidden_size']}")
+
+            reset_launch_counts()
+            ing = scan_and_check(card, state, db_path, os.path.join(fdir, "docs"), docs, tag=name)
+            out["attention"] += ing["launches"]
+
+            doc_ids = ing["doc_ids"]
+            self_docs = [FAMILY_LONG + i * ((FAMILY_DOCS - FAMILY_LONG) // N_SELF_QUERIES)
+                         for i in range(N_SELF_QUERIES)]
+            rng = np.random.default_rng(seed + 100)
+            words = " ".join(docs[FAMILY_LONG:]).split()
+            queries = [docs[d] for d in self_docs] + [
+                " ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(3, 9))))
+                for _ in range(16 - N_SELF_QUERIES)]
+            fctx = {"db_path": db_path, "docs": docs, "queries": queries, "self_docs": self_docs,
+                    "doc_ids": doc_ids, "filler_text": filler_text, "first_fill_id": 1,
+                    "tok": state.model.tokenizer, "model": state.model}
+            topk.reset_launch_counts()
+            results, p50, p95 = cli_queries(card, state, fctx, name, "scan_topk")
+            out["scan_topk"] += topk.launch_counts()["scan_topk"]
+            qvs = torch.cat([query_vector(fctx, q, dev) for q in queries])
+            hold_to_plain(state.searcher, qvs, results, name)
+            # and against an exact f32 top-10 over the host mirror: the bf16
+            # rows score within BF16_SCORE_TOL of their f32 rows, and two hits
+            # (the 10th and 11th too) may trade places within twice that
+            exact = exact_top10(state.searcher, qvs, dev, k=11)
+            worst, same = 0.0, 0
+            for qi, want in enumerate(exact):
+                got = [(r["id"], r["score"]) for r in results[qi]]
+                if not hits_match(got + [want[10]], want, BF16_SCORE_TOL):
+                    raise SystemExit(f"{name} query {qi}: hits differ from the exact f32 top-10:\n{got}\n{want}")
+                worst = max(worst, max(abs(a[1] - b[1]) for a, b in zip(got, want)))
+                same += len({i for i, _ in got} & {i for i, _ in want[:10]})
+            log(f"{name}: hits within the exact f32 top-10 for 16/16 queries (recall@10 {same / (10 * len(exact)):.4f}, "
+                f"max score error {worst:.3g}, tol {BF16_SCORE_TOL}); smoke readings over {len(docs)} documents "
+                f"and {len(m)} rows: docs/s {len(docs) / ing['scan_s']:.1f} end to end "
+                f"({ing['summary'][0] if ing['summary'] else 'no summary'}); query p50 {p50:.2f} ms p95 {p95:.2f} ms; "
+                f"launches: attention {ing['launches']} in the scan, scan_topk "
+                f"{topk.launch_counts()['scan_topk']} in the queries  [{card}]")
+            out[name] = {"docs_s": len(docs) / ing["scan_s"], "p50": p50, "p95": p95, "tok_s": ing["tok_s"],
+                         "scan_s": ing["scan_s"], "s": time.perf_counter() - t0}
+            state.close()
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("PERCEIVE_TPU_REQUIRE_CHECKPOINT", None)
+        os.environ.pop("PERCEIVE_TPU_MODEL_DATA", None)
+    took = time.perf_counter() - t_phase
+    each = ", ".join(f"{n} {out[n]['s']:.1f} s" for n in FAMILIES)
+    log(f"tokenizer.json families: {took:.1f} s of the phase's {FAMILY_PHASE_S} s budget ({each})  [{card}]")
+    if out["attention"] == 0 or out["scan_topk"] == 0:
+        raise SystemExit(f"the families' main path launched attention {out['attention']}, "
+                         f"scan_topk {out['scan_topk']} times")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3542,6 +3950,8 @@ def main(argv=None) -> int:
         state.close()
         del state
         torch.cuda.empty_cache()
+        with phase("tokenizer.json families: distilroberta (BPE) and albert (Unigram) at full width"):
+            families = family_phase(card, workdir, dev, ctx)
         with phase("int8 slice: 2M rows, built from the bf16 base and 1M rows replayed, 16 CLI queries"):
             state, int8_sl = int8_slice(card, ctx, dev)
             launches["scan_int8"] = int8_sl["launches"]
@@ -3588,7 +3998,8 @@ def main(argv=None) -> int:
         del adopted
     note_peak()
     log(f"max_memory_allocated {PEAK_BYTES[0] / 2**30:.3f} GiB  [{card}]")
-    log(f"kernel launches on the main paths: {launches}")
+    log(f"kernel launches on the main paths: {launches}; the tokenizer.json families' scans and queries: "
+        f"attention {families['attention']}, scan_topk {families['scan_topk']}")
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"the main path launched no {name} kernel")

@@ -135,8 +135,10 @@ def _check_models(rep: _Report) -> None:
                 "on a networked machine")
     try:
         from ..models.tokenize import TextTokenizer  # noqa: F401
+        from ..models.tokenizer_json import pipeline_from_json  # noqa: F401
 
-        rep.add(OK, "tokenizer", "WordPiece in Python (models/tokenize.py)")
+        rep.add(OK, "tokenizer", "WordPiece, byte-level BPE and Unigram in Python "
+                "(models/tokenize.py, models/tokenizer_json.py)")
     except Exception as e:  # noqa: BLE001
         rep.add(FAIL, "tokenizer", str(e))
 

@@ -1,4 +1,4 @@
-"""BERT WordPiece tokenizer in pure Python, with bucketed padding.
+"""Tokenizers in pure Python, with bucketed padding.
 
 Port of perceive_tpu/models/tokenize.py without the Rust ``tokenizers``
 library.  It reproduces that library's BERT pipeline token for token:
@@ -16,9 +16,10 @@ library.  It reproduces that library's BERT pipeline token for token:
     specials included.
 
 ``TextTokenizer.from_dir`` reads a checkpoint's ``tokenizer.json`` first,
-as the JAX package does, where it serializes that same WordPiece pipeline
-(``_wordpiece_from_json``; another model, such as byte-level BPE, raises),
-else its ``vocab.txt``.
+as the JAX package does (``_tokenizer_from_json``): a WordPiece one as
+that same pipeline, a byte-level BPE (the RoBERTa family) or a Unigram
+(ALBERT) as a ``tokenizer_json.Pipeline``; another model, such as
+WordLevel, raises ValueError.  Else it reads ``vocab.txt``.
 
 Every normalized character remembers the original character it came from,
 so token offsets are character ranges of the ORIGINAL text (the highlight
@@ -102,6 +103,44 @@ def _is_punctuation(c: str) -> bool:
     return unicodedata.category(c).startswith("P")
 
 
+def bert_normalize(text: str, lowercase: bool) -> tuple[str, list[int]]:
+    """The ``BertNormalizer`` (clean text, Chinese chars spaced, accents
+    stripped when lowercasing): (normalized text, index in ``text`` of the
+    char each normalized char came from)."""
+    chars: list[str] = []
+    align: list[int] = []
+    ascii_only = text.isascii()
+    for i, c in enumerate(text):
+        if ascii_only:
+            o = ord(c)
+            if o == 0 or (o < 32 and c not in "\t\n\r") or o == 127:
+                continue
+            if c in "\t\n\r":
+                c = " "
+            chars.append(c.lower() if lowercase else c)
+            align.append(i)
+            continue
+        if c == "\x00" or c == "\ufffd" or _is_control(c):
+            continue
+        if _is_whitespace(c):
+            chars.append(" ")
+            align.append(i)
+            continue
+        for p in (" ", c, " ") if _is_cjk(ord(c)) else (c,):
+            if p == " " or not lowercase:
+                chars.append(p)
+                align.append(i)
+                continue
+            # accents strip whenever the text lowercases
+            for d in unicodedata.normalize("NFD", p):
+                if unicodedata.category(d) == "Mn":
+                    continue
+                for low in d.lower():
+                    chars.append(low)
+                    align.append(i)
+    return "".join(chars), align
+
+
 class WordPieceTokenizer:
     """The normalizer + pre-tokenizer + WordPiece model above, over one
     vocabulary.  Thread-safe (its only mutable state is a word cache
@@ -132,38 +171,7 @@ class WordPieceTokenizer:
 
     def normalize(self, text: str) -> tuple[str, list[int]]:
         """(normalized text, original char index of each normalized char)."""
-        chars: list[str] = []
-        align: list[int] = []
-        lower, ascii_only = self.lowercase, text.isascii()
-        for i, c in enumerate(text):
-            if ascii_only:
-                o = ord(c)
-                if o == 0 or (o < 32 and c not in "\t\n\r") or o == 127:
-                    continue
-                if c in "\t\n\r":
-                    c = " "
-                chars.append(c.lower() if lower else c)
-                align.append(i)
-                continue
-            if c == "\x00" or c == "\ufffd" or _is_control(c):
-                continue
-            if _is_whitespace(c):
-                chars.append(" ")
-                align.append(i)
-                continue
-            for p in (" ", c, " ") if _is_cjk(ord(c)) else (c,):
-                if p == " " or not lower:
-                    chars.append(p)
-                    align.append(i)
-                    continue
-                # accents strip whenever the text lowercases
-                for d in unicodedata.normalize("NFD", p):
-                    if unicodedata.category(d) == "Mn":
-                        continue
-                    for low in d.lower():
-                        chars.append(low)
-                        align.append(i)
-        return "".join(chars), align
+        return bert_normalize(text, self.lowercase)
 
     @staticmethod
     def pre_tokenize(text: str) -> list[tuple[int, int]]:
@@ -240,48 +248,47 @@ class WordPieceTokenizer:
         return Encoding(ids, [0] * len(ids), offsets, special)
 
 
-def _special_ids(post: dict) -> tuple[Optional[int], Optional[int]]:
-    """(cls id, sep id) of a ``TemplateProcessing`` or ``BertProcessing``
-    post-processor: the special tokens around a single sequence."""
-    if post.get("type") == "BertProcessing":
-        return int(post["cls"][1]), int(post["sep"][1])
-    if post.get("type") == "TemplateProcessing":
-        names = [p["SpecialToken"]["id"] for p in post.get("single", []) if "SpecialToken" in p]
-        seq = [next(iter(p)) for p in post.get("single", [])]
-        if seq != ["SpecialToken", "Sequence", "SpecialToken"]:
-            raise ValueError(f"a post-processor template {seq} is not [CLS] $A [SEP]")
-        ids = [post["special_tokens"][n]["ids"] for n in names]
-        if any(len(i) != 1 for i in ids):
-            raise ValueError("a special token of the template is not one id")
-        return ids[0][0], ids[1][0]
-    raise ValueError(f"post-processor {post.get('type')!r} is not TemplateProcessing or BertProcessing")
+def _tokenizer_from_json(path: Path):
+    """The pipeline of a ``tokenizer.json`` (the tokenizers library's
+    serialization), read once without that library: a WordPiece model as
+    ``_wordpiece_from_spec``'s pipeline, a BPE or Unigram one as a
+    ``tokenizer_json.Pipeline``.  Any other model or component raises
+    ValueError naming the file."""
+    from .tokenizer_json import Pipeline
+
+    spec = json.loads(path.read_text(encoding="utf-8"))
+    try:
+        if (spec.get("model") or {}).get("type") == "WordPiece":
+            return _wordpiece_from_spec(spec)
+        return Pipeline(spec)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
-def _wordpiece_from_json(path: Path) -> WordPieceTokenizer:
-    """The BERT WordPiece pipeline of a ``tokenizer.json`` (the tokenizers
-    library's serialization), read without that library: the model's
-    vocab, ``unk_token``, ``continuing_subword_prefix`` and
+def _wordpiece_from_spec(spec: dict) -> WordPieceTokenizer:
+    """The BERT WordPiece pipeline of a parsed ``tokenizer.json``: the
+    model's vocab, ``unk_token``, ``continuing_subword_prefix`` and
     ``max_input_chars_per_word``, the ``BertNormalizer``'s ``lowercase``
     (accents strip with it), a ``BertPreTokenizer``, and the post
-    processor's [CLS] and [SEP] ids.  Any other model (byte-level BPE, as
-    RoBERTa-family checkpoints ship), normalizer or pre-tokenizer raises
-    ValueError."""
-    spec = json.loads(path.read_text(encoding="utf-8"))
-    model = spec.get("model") or {}
-    if model.get("type") != "WordPiece":
-        raise ValueError(f"{path}: a {model.get('type') or 'untyped'} tokenizer model; the port reads "
-                         "WordPiece tokenizer.json files only (byte-level BPE is not ported)")
+    processor's [CLS] and [SEP] ids.  Any other normalizer or
+    pre-tokenizer raises ValueError."""
+    model = spec["model"]
     norm = spec.get("normalizer") or {}
     if norm.get("type") != "BertNormalizer" or not norm.get("clean_text", True) or not norm.get(
             "handle_chinese_chars", True):
-        raise ValueError(f"{path}: normalizer {norm.get('type')!r} is not the BertNormalizer the port implements")
+        raise ValueError(f"normalizer {norm.get('type')!r} is not the BertNormalizer the port implements")
     lowercase = bool(norm.get("lowercase", True))
     if norm.get("strip_accents") not in (None, lowercase):
-        raise ValueError(f"{path}: strip_accents {norm['strip_accents']} apart from lowercase is not implemented")
+        raise ValueError(f"strip_accents {norm['strip_accents']} apart from lowercase is not implemented")
     pre = spec.get("pre_tokenizer") or {}
     if pre.get("type") != "BertPreTokenizer":
-        raise ValueError(f"{path}: pre-tokenizer {pre.get('type')!r} is not BertPreTokenizer")
-    cls_id, sep_id = _special_ids(spec.get("post_processor") or {})
+        raise ValueError(f"pre-tokenizer {pre.get('type')!r} is not BertPreTokenizer")
+    from .tokenizer_json import PostProcessor
+
+    post = PostProcessor(spec.get("post_processor"))
+    if len(post.pre) != 1 or len(post.suf) != 1 or post.type_id or post.trim is not None:
+        raise ValueError(f"a WordPiece post-processor that does not wrap one sequence as [CLS] $A [SEP]")
+    cls_id, sep_id = post.pre[0][0], post.suf[0][0]
     added = {t["content"]: int(t["id"]) for t in spec.get("added_tokens") or []}
     return WordPieceTokenizer(
         {str(k): int(v) for k, v in model["vocab"].items()}, lowercase=lowercase,
@@ -293,9 +300,12 @@ def _wordpiece_from_json(path: Path) -> WordPieceTokenizer:
 
 class TextTokenizer:
     """The tokenizer facade the models use: bucketed padding, the special
-    wrap, token windows.  Thread-safe."""
+    wrap, token windows.  ``tokenizer`` is any pipeline with ``encode(text,
+    add_special_tokens=, max_length=) -> Encoding``, ``token_to_id`` and a
+    ``vocab`` dict (a WordPieceTokenizer, or a tokenizer.json Pipeline).
+    Thread-safe."""
 
-    def __init__(self, tokenizer: WordPieceTokenizer, max_seq_length: int = 512, pad_id: int = 0):
+    def __init__(self, tokenizer, max_seq_length: int = 512, pad_id: int = 0):
         self.tokenizer = tokenizer
         self.max_seq_length = max_seq_length
         self.pad_id = pad_id
@@ -305,13 +315,14 @@ class TextTokenizer:
     @classmethod
     def from_dir(cls, model_dir: str | Path, max_seq_length: int = 512) -> "TextTokenizer":
         """Load from a checkpoint dir: its ``tokenizer.json`` first, as the
-        JAX package does (a WordPiece one: ``_wordpiece_from_json``; any other
-        model raises ValueError), else its ``vocab.txt``."""
+        JAX package does (``_tokenizer_from_json``: WordPiece, BPE or
+        Unigram; any other model raises ValueError), else its
+        ``vocab.txt``."""
         model_dir = Path(model_dir)
         tj = model_dir / "tokenizer.json"
         vocab_file = model_dir / "vocab.txt"
         if tj.exists():
-            tok = _wordpiece_from_json(tj)
+            tok = _tokenizer_from_json(tj)
         elif vocab_file.exists():
             lower = True
             tc = model_dir / "tokenizer_config.json"
@@ -394,8 +405,24 @@ class TextTokenizer:
         return ids
 
     def _special_wrap(self) -> tuple[list[int], list[int]]:
-        """(prefix, suffix) special-token ids around a single sequence."""
-        return [self.tokenizer.cls_id], [self.tokenizer.sep_id]
+        """(prefix, suffix) special-token ids around a single sequence, as the
+        JAX package finds them: a probe text encoded with and without
+        specials, the wrap split around where the bare ids land (else the
+        extra ids split in half)."""
+        wrap = getattr(self, "_wrap_ids", None)
+        if wrap is None:
+            wrapped = self.tokenizer.encode("a").ids
+            bare = self.tokenizer.encode("a", add_special_tokens=False).ids
+            for at in range(len(wrapped) - len(bare) + 1) if bare else ():
+                if wrapped[at: at + len(bare)] == bare:
+                    wrap = (wrapped[:at], wrapped[at + len(bare):])
+                    break
+            else:
+                ids = [t for t in wrapped if t not in bare]
+                half = (len(ids) + 1) // 2
+                wrap = (ids[:half], ids[half:])
+            self._wrap_ids = wrap
+        return wrap
 
     @property
     def wrap_budget(self) -> int:

@@ -62,10 +62,17 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
 
 
 def test_port_imports_no_jax_or_tokenizers():
+    """Nor does the tokenizer.json reader load the tokenizers library or
+    regex, even as it reads a file."""
     res = _run(
-        "import sys\n"
-        f"import {PORT_MODULES}\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'tokenizers') if m in sys.modules]\n"
+        "import sys, json, tempfile, pathlib\n"
+        f"import {PORT_MODULES}, perceive_tpu_torch.models.tokenizer_json\n"
+        "from perceive_tpu_torch.models.tokenizer_json import pipeline_from_json\n"
+        "p = pathlib.Path(tempfile.mkdtemp()) / 'tokenizer.json'\n"
+        "p.write_text(json.dumps({'model': {'type': 'BPE', 'vocab': {'a': 0, 'b': 1, 'ab': 2}, 'merges': [['a', 'b']]},"
+        " 'pre_tokenizer': {'type': 'ByteLevel'}}))\n"
+        "assert pipeline_from_json(p).encode('ab').ids\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'tokenizers', 'regex') if m in sys.modules]\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -134,6 +134,7 @@ def test_tokenizer_json_only_checkpoint_matches(tmp_path, lowercase, pad):
     hf, port = HfTokenizer.from_dir(tmp_path, max_seq_length=64), TextTokenizer.from_dir(tmp_path, max_seq_length=64)
     assert not (tmp_path / "vocab.txt").exists()
     assert hf.pad_id == port.pad_id
+    assert hf._special_wrap() == port._special_wrap() and hf.wrap_budget == port.wrap_budget
     for text in TEXTS:
         _same_encoding(hf.encode_untruncated([text])[0], port.encode_untruncated([text])[0])
     a, b = hf.encode_batch(TEXTS, pad_batch_to=32), port.encode_batch(TEXTS, pad_batch_to=32)
@@ -142,13 +143,13 @@ def test_tokenizer_json_only_checkpoint_matches(tmp_path, lowercase, pad):
 
 
 def test_tokenizer_json_other_models_raise(tmp_path):
-    """A byte-level BPE tokenizer.json (as RoBERTa-family checkpoints ship)
-    is not read as WordPiece: a clear error, not wrong ids."""
+    """A tokenizer.json whose model the port does not read (WordLevel) is
+    not read as another model: a clear error naming it, not wrong ids."""
     from tokenizers import Tokenizer, models, pre_tokenizers
 
-    bpe = Tokenizer(models.BPE(vocab={"a": 0, "b": 1, "ab": 2}, merges=[("a", "b")]))
-    bpe.pre_tokenizer = pre_tokenizers.ByteLevel()
-    bpe.save(str(tmp_path / "tokenizer.json"))
+    wl = Tokenizer(models.WordLevel(vocab={"a": 0, "b": 1, "[UNK]": 2}, unk_token="[UNK]"))
+    wl.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    wl.save(str(tmp_path / "tokenizer.json"))
     (tmp_path / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\na\n")
-    with pytest.raises(ValueError, match="BPE"):
+    with pytest.raises(ValueError, match="WordLevel"):
         TextTokenizer.from_dir(tmp_path)
