@@ -12,7 +12,9 @@ prints no result line.
 
 Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
-  2. build the CUDA kernels from perceive_tpu_torch/csrc;
+  2. build the CUDA kernels from perceive_tpu_torch/csrc, and beside them
+     the compiled tokenizer (g++: native/tokenizer.cpp and its Unicode
+     tables) and the fs walker;
   3. K1 and K2 (bf16 scan + top-k, flat and slab) against their plain
      version at 1M x 384 bf16, K1 also over the same rows in f32, and K1
      replayed 40 times on one input; K1 again at one query over 1M x 768
@@ -34,7 +36,9 @@ Phases (any failure exits non-zero before the final line):
      ``source add fs`` and ``source scan`` with an all-MiniLM-L6-v2-width
      model (seeded random weights) on the card, gated on exact item,
      embedding-row and matrix-row counts, K11 launched during the scan and
-     the stored vectors against a direct encode; SQLite is filled to 1M
+     the stored vectors against a direct encode, and the compiled
+     tokenizer held to its plain version (ids, offsets and special masks)
+     over all 2,048 documents; SQLite is filled to 1M
      rows, AppState builds the searcher on the card, and 16 queries run
      through the CLI;
   7. the bf16 batch path: 1,024 vector queries from 16 threads through a
@@ -65,7 +69,8 @@ Phases (any failure exits non-zero before the final line):
      PERCEIVE_TPU_MODEL_DATA with a synthetic tokenizer.json, ``model
      set`` on a fresh database, 65,536 768-d filler rows, a fresh AppState
      that must load the checkpoint, 256 files through ``source add fs`` +
-     ``source scan`` (the ingest gates; K11 at head width 64) and 16 CLI
+     ``source scan`` (the ingest gates, the engine against the plain
+     pipeline over the 256 documents; K11 at head width 64) and 16 CLI
      queries (K1 over the 768-d rows) against an exact f32 top-10;
   8. the int8 slice: 1M more filler rows (2M in all), a fresh AppState whose
      auto rule picks the int8 tier, built from the bf16 base (another
@@ -359,6 +364,38 @@ def build_walker(card: str) -> None:
     built = fastwalk_available()
     log(f"fs walker build+load {time.perf_counter() - t0:.2f} s: "
         f"{'native' if built else 'unavailable, the Python walk serves'}  [{card}]")
+
+
+def build_tokenizer(card: str) -> None:
+    """The compiled tokenizer (g++ into perceive_tpu_torch/_build/, its
+    tables generated from this Python's unicodedata): no model loads
+    without it."""
+    from perceive_tpu_torch.native import tokenizer as native_tokenizer
+
+    t0 = time.perf_counter()
+    native_tokenizer.library()
+    log(f"tokenizer library build+load {time.perf_counter() - t0:.2f} s (tables and g++ "
+        f"{native_tokenizer.build_seconds} s): {native_tokenizer.library_path().name}  [{card}]")
+
+
+def hold_tokenizer(card: str, tok, docs: list, tag: str) -> None:
+    """The compiled tokenizer against its plain version over every document:
+    ids, offsets and special-token masks equal, untruncated, as the
+    highlight path asks for them; both sides' seconds on this host."""
+    t0 = time.perf_counter()
+    got = tok.encode_untruncated(docs)
+    t_engine = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [tok.tokenizer.encode(d) for d in docs]
+    t_plain = time.perf_counter() - t0
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if (a.ids, a.offsets, a.special_tokens_mask) != (b.ids, b.offsets, b.special_tokens_mask)]
+    n_tok = sum(len(e.ids) for e in want)
+    log(f"{tag}: the compiled tokenizer against its plain {type(tok.tokenizer).__name__} over {len(docs)} documents "
+        f"({sum(map(len, docs))} chars, {n_tok} tokens): {len(docs) - len(bad)} equal; engine {t_engine:.3f} s "
+        f"({tok.engine.threads} threads), plain {t_plain:.3f} s  [{card}]")
+    if bad or len(got) != len(docs):
+        raise SystemExit(f"{tag}: the compiled tokenizer differs from its plain version on documents {bad[:8]}")
 
 
 def build_kernels(card: str) -> None:
@@ -1506,6 +1543,17 @@ def make_docs(rng, vocab: list[str]) -> list[str]:
     return docs
 
 
+def text_queries(rng, docs: list[str], vocab: list[str]) -> tuple:
+    """The 16 text queries of the bf16 slice: 8 documents' own texts (their
+    indices first), 8 random word lists."""
+    self_docs = [N_LONG + i * ((N_DOCS - N_LONG) // N_SELF_QUERIES) for i in range(N_SELF_QUERIES)]
+    queries = [docs[d] for d in self_docs]
+    words = vocab[200:]
+    for _ in range(16 - N_SELF_QUERIES):
+        queries.append(" ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(3, 9)))))
+    return self_docs, queries
+
+
 def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, text: str, mid: int, ver: int,
                  dim: int = DIM):
     """``n`` seeded ``dim``-wide unit-vector rows under ids first_id.. with one embedding
@@ -1695,6 +1743,7 @@ def scan_and_check(card: str, state, db_path: str, docs_dir: str, docs: list[str
         f"median {np.median(fault_err):.3g}, min {fault_err.min():.3g} (tol {INGEST_TOL})")
     if not fault_err.max() > INGEST_TOL:
         raise SystemExit("the stored-vector tolerance would pass the planted chunker fault")
+    hold_tokenizer(card, model.tokenizer, docs, tag)
 
     n_tokens = sum(len(w) + 2 for _, _, w in flat)
     summary = [line for line in out.splitlines() if line.startswith("Finished in")]
@@ -1749,12 +1798,7 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
     log(f"sqlite corpus: {ing['windows']} document rows + {n_fill} filler rows = {TOTAL_ROWS} rows "
         f"(filler written in {time.perf_counter() - t0:.1f} s)")
 
-    # 16 text queries: 8 documents' own texts, 8 random word lists
-    self_docs = [N_LONG + i * ((N_DOCS - N_LONG) // N_SELF_QUERIES) for i in range(N_SELF_QUERIES)]
-    queries = [docs[d] for d in self_docs]
-    words = vocab_list[200:]
-    for _ in range(16 - N_SELF_QUERIES):
-        queries.append(" ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(3, 9)))))
+    self_docs, queries = text_queries(rng, docs, vocab_list)
     # N_BATCH vector queries, half near a stored window and half random, and
     # N_BATCH random ones
     half = N_BATCH // 2
@@ -2471,8 +2515,8 @@ def serve_phase(card: str, state, ctx: dict, cli_results: list, workdir: str) ->
 
 
 def doctor_check(card: str, db_path: str) -> None:
-    """``doctor`` must exit 0 with its device, build-and-launch and
-    kernel-cache checks ok."""
+    """``doctor`` must exit 0 with its device, build-and-launch,
+    kernel-cache and tokenizer-library checks ok."""
     from perceive_tpu_torch.cli.doctor import doctor
 
     out = io.StringIO()
@@ -2485,7 +2529,7 @@ def doctor_check(card: str, db_path: str) -> None:
     log(f"serve: doctor exited {rc} in {time.perf_counter() - t0:.2f} s  [{card}]")
     if rc != 0:
         raise SystemExit(f"serve phase: doctor exited {rc}")
-    for name in ("device", "kernel build+launch", "kernel cache"):
+    for name in ("device", "kernel build+launch", "kernel cache", "tokenizer library"):
         if not any(line.startswith(f"  ✓ {name}:") for line in lines):
             raise SystemExit(f"serve phase: the doctor's {name} check is not ok")
 
@@ -3824,8 +3868,8 @@ def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
             state = AppState(db_path, highlights_model=ctx["model"], device=dev)
             t_state = time.perf_counter() - t1
             m = state.searcher.matrix
-            log(f"{name}: AppState loaded {state.model.name!r} ({state.model.dim}-d, tokenizer "
-                f"{type(state.model.tokenizer.tokenizer).__name__}, max_seq_length "
+            log(f"{name}: AppState loaded {state.model.name!r} ({state.model.dim}-d, tokenizer: the compiled "
+                f"engine over a {type(state.model.tokenizer.tokenizer).__name__}, max_seq_length "
                 f"{state.model.tokenizer.max_seq_length}) over {len(m)} rows, tier {m.tier_name}, in {t_state:.1f} s "
                 f"(checkpoint written in {t_write:.1f} s, filler in {t_fill:.1f} s)  [{card}]")
             if state.model.name != name or state.model.model_id != mt.model_id:
@@ -3908,8 +3952,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     with phase("build"):
-        build_kernels(card)
-        build_walker(card)
+        # g++ builds the tokenizer while nvcc builds the kernels
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            tokenizer_built = pool.submit(build_tokenizer, card)
+            build_kernels(card)
+            build_walker(card)
+            tokenizer_built.result()
     with phase("K1, K2 against their plain version"):
         bf16 = check_bf16_scans(card)
     with phase("K3, K4 against their plain version"):

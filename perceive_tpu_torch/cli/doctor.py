@@ -4,8 +4,9 @@ The doctor walks every dependency the serving stack needs and prints a
 ✓/!/✗ line for each, exiting non-zero only on hard failures.  The port's
 dependencies are the GPU (CUDA, the card, its power limit), the CUDA
 toolkit's ``nvcc`` that builds the kernels at their first launch, the
-kernel library built for today's sources, the checkpoints, the native
-walker and the database with its snapshot manifest.
+kernel library built for today's sources, the checkpoints, the compiled
+tokenizer (g++), the native walker and the database with its snapshot
+manifest.
 
 Deliberately does NOT build AppState: no model load, no device matrix:
 each check is independent and cheap, so the doctor works precisely when
@@ -137,7 +138,7 @@ def _check_models(rep: _Report) -> None:
         from ..models.tokenize import TextTokenizer  # noqa: F401
         from ..models.tokenizer_json import pipeline_from_json  # noqa: F401
 
-        rep.add(OK, "tokenizer", "WordPiece, byte-level BPE and Unigram in Python "
+        rep.add(OK, "tokenizer", "WordPiece, byte-level BPE and Unigram checkpoints read "
                 "(models/tokenize.py, models/tokenizer_json.py)")
     except Exception as e:  # noqa: BLE001
         rep.add(FAIL, "tokenizer", str(e))
@@ -151,6 +152,14 @@ _OPTIONAL = {
 
 
 def _check_native(rep: _Report) -> None:
+    # the compiled tokenizer has no fallback: without it no model loads
+    try:
+        from ..native import tokenizer as native_tokenizer
+
+        native_tokenizer.library()
+        rep.add(OK, "tokenizer library", f"loaded {native_tokenizer.library_path().name}")
+    except (RuntimeError, OSError) as e:
+        rep.add(FAIL, "tokenizer library", f"{e} — no model loads without it")
     try:
         from .. import native
 

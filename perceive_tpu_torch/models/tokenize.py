@@ -1,7 +1,14 @@
-"""Tokenizers in pure Python, with bucketed padding.
+"""The tokenizer facade, with bucketed padding, and the plain WordPiece
+pipeline.
 
 Port of perceive_tpu/models/tokenize.py without the Rust ``tokenizers``
-library.  It reproduces that library's BERT pipeline token for token:
+library.  ``TextTokenizer`` encodes through the compiled engine
+(``native.tokenizer.NativeTokenizer``, one GIL-free call a batch), built
+from a plain pipeline object: ``WordPieceTokenizer`` here, or a
+``tokenizer_json.Pipeline``.  The plain pipelines are the engine's plain
+versions, which the tests and the smoke hold it to; nothing on the main
+path encodes through them.  ``WordPieceTokenizer`` reproduces the
+library's BERT pipeline token for token:
 
   * normalizer (``BertNormalizer``): drop NUL, U+FFFD and control
     characters, map whitespace to a space, surround CJK ideographs with
@@ -300,13 +307,17 @@ def _wordpiece_from_spec(spec: dict) -> WordPieceTokenizer:
 
 class TextTokenizer:
     """The tokenizer facade the models use: bucketed padding, the special
-    wrap, token windows.  ``tokenizer`` is any pipeline with ``encode(text,
-    add_special_tokens=, max_length=) -> Encoding``, ``token_to_id`` and a
-    ``vocab`` dict (a WordPieceTokenizer, or a tokenizer.json Pipeline).
-    Thread-safe."""
+    wrap, token windows.  ``tokenizer`` is the plain pipeline (a
+    WordPieceTokenizer, or a tokenizer.json Pipeline: its ``vocab`` and
+    ``token_to_id``); ``engine``, the compiled tokenizer built from it,
+    encodes every batch (its first construction in a process builds the
+    library; a failed build raises RuntimeError).  Thread-safe."""
 
     def __init__(self, tokenizer, max_seq_length: int = 512, pad_id: int = 0):
+        from ..native.tokenizer import NativeTokenizer
+
         self.tokenizer = tokenizer
+        self.engine = NativeTokenizer(tokenizer)
         self.max_seq_length = max_seq_length
         self.pad_id = pad_id
 
@@ -360,9 +371,6 @@ class TextTokenizer:
 
     # -- encoding ------------------------------------------------------------
 
-    def _encode_all(self, texts: Sequence[str]) -> list[Encoding]:
-        return [self.tokenizer.encode(t, max_length=self.max_seq_length) for t in texts]
-
     def encode_batch(
         self,
         texts: Sequence[str],
@@ -371,38 +379,31 @@ class TextTokenizer:
         pad_batch_to: Optional[int] = None,
     ) -> TokenBatch:
         """Tokenize + truncate to max_seq_length + pad to a bucket
-        (``pad_to`` forces a length, ``pad_batch_to`` a batch size)."""
-        encs = self._encode_all(texts)
-        if pad_batch_to is not None and len(encs) > pad_batch_to:
-            raise ValueError(f"{len(encs)} texts exceed pad_batch_to={pad_batch_to}")
-        longest = max((len(e.ids) for e in encs), default=1)
+        (``pad_to`` forces a length, ``pad_batch_to`` a batch size): one
+        engine call."""
+        enc = self.engine.encode_arrays(list(texts), max_length=self.max_seq_length)
+        n_texts = len(enc.splits) - 1
+        if pad_batch_to is not None and n_texts > pad_batch_to:
+            raise ValueError(f"{n_texts} texts exceed pad_batch_to={pad_batch_to}")
+        longest = int(np.diff(enc.splits).max()) if n_texts else 1
         if pad_to is not None and pad_to < longest:
             raise ValueError(f"pad_to={pad_to} is shorter than the longest row ({longest})")
         target = pad_to or bucket_length(longest, self.max_seq_length)
-        n = len(encs) if pad_batch_to is None else pad_batch_to
+        n = n_texts if pad_batch_to is None else pad_batch_to
+        rows, cols = enc.rows_cols()
+        keep = cols < target
+        rows, cols = rows[keep], cols[keep]
         ids = np.full((n, target), self.pad_id, dtype=np.int32)
         mask = np.zeros((n, target), dtype=np.int32)
         type_ids = np.zeros((n, target), dtype=np.int32)
-        for r, e in enumerate(encs):
-            L = min(len(e.ids), target)
-            ids[r, :L] = e.ids[:L]
-            mask[r, :L] = 1
-            type_ids[r, :L] = e.type_ids[:L]
+        ids[rows, cols] = enc.ids[keep]
+        mask[rows, cols] = 1
+        type_ids[rows, cols] = enc.type_ids[keep]
         return TokenBatch(ids, mask, type_ids)
 
     def encode_batch_ids(self, texts: Sequence[str], *, pad_batch_to: Optional[int] = None) -> np.ndarray:
         """Padded (N, S) int32 ids only (the mask is ids != pad)."""
-        encs = self._encode_all(texts)
-        if pad_batch_to is not None and len(encs) > pad_batch_to:
-            raise ValueError(f"{len(encs)} texts exceed pad_batch_to={pad_batch_to}")
-        longest = max((len(e.ids) for e in encs), default=1)
-        target = bucket_length(longest, self.max_seq_length)
-        n = len(encs) if pad_batch_to is None else pad_batch_to
-        ids = np.full((n, target), self.pad_id, dtype=np.int32)
-        for r, e in enumerate(encs):
-            L = min(len(e.ids), target)
-            ids[r, :L] = e.ids[:L]
-        return ids
+        return self.encode_batch(texts, pad_batch_to=pad_batch_to).input_ids
 
     def _special_wrap(self) -> tuple[list[int], list[int]]:
         """(prefix, suffix) special-token ids around a single sequence, as the
@@ -411,8 +412,8 @@ class TextTokenizer:
         extra ids split in half)."""
         wrap = getattr(self, "_wrap_ids", None)
         if wrap is None:
-            wrapped = self.tokenizer.encode("a").ids
-            bare = self.tokenizer.encode("a", add_special_tokens=False).ids
+            wrapped = self.engine.encode("a").ids
+            bare = self.engine.encode("a", add_special_tokens=False).ids
             for at in range(len(wrapped) - len(bare) + 1) if bare else ():
                 if wrapped[at: at + len(bare)] == bare:
                     wrap = (wrapped[:at], wrapped[at + len(bare):])
@@ -449,10 +450,11 @@ class TextTokenizer:
         return ids
 
     def encode_untruncated(self, texts: Sequence[str], *, fast: bool = False) -> list[Encoding]:
-        """Full-length encodings with offsets and special-token masks
-        (``fast`` is accepted for interface parity; offsets cost little
-        here)."""
-        return [self.tokenizer.encode(t) for t in texts]
+        """Full-length encodings with offsets and special-token masks, one
+        engine call.  ``fast=True`` is for callers that read only ids and
+        the special mask (the ingest chunker): every offset is (0, 0), as
+        in the JAX package's ``encode_batch_fast`` route."""
+        return self.engine.encode_batch(list(texts), offsets=not fast)
 
     def encode_token_chunks(self, chunks: Sequence[Sequence[int]]) -> TokenBatch:
         """Pack token-id windows into a padded batch with the special wrap

@@ -24,6 +24,12 @@ the original text, token for token:
 
 Any other component raises ValueError naming it.
 
+The pipeline is the plain version of the compiled tokenizer
+(``native.tokenizer``), which ``TextTokenizer`` encodes with: each
+component carries a ``native`` descriptor (its kind and parameters) that
+the engine is built from, so this module parses ``tokenizer.json`` for
+both.
+
 A piece of text under normalization is a string and, for each of its
 characters, the index of the original character it came from; every
 transformation assigns those indices the way the library's
@@ -61,6 +67,13 @@ Piece = tuple[str, list]
 
 def _unsupported(what: str) -> ValueError:
     return ValueError(f"tokenizer.json: {what} is not supported by the port")
+
+
+def _described(fn: Callable, *native) -> Callable:
+    """``fn`` with ``native``: the component's kind and parameters, which
+    ``native.tokenizer`` serializes into the compiled engine."""
+    fn.native = native
+    return fn
 
 
 def transform(text: str, align: list, dest, initial_offset: int = 0) -> Piece:
@@ -160,7 +173,7 @@ def _normalization(form: str) -> Callable:
         seq = _decomposed(text, decompose)
         return transform(text, align, seq if form == decompose else _recompose(seq))
 
-    return run
+    return _described(run, form)
 
 
 def _filter(p: Piece, keep: Callable) -> Piece:
@@ -188,11 +201,17 @@ def _strip_accents(p: Piece) -> Piece:
     return _filter(p, lambda c: unicodedata.category(c)[0] != "M")
 
 
+_described(_strip_accents, "StripAccents")
+
+
 def _lowercase(p: Piece) -> Piece:
     text, align = p
     if text.isascii():
         return text.lower(), align
     return transform(text, align, ((low, 1 if i else 0) for c in text for i, low in enumerate(c.lower())))
+
+
+_described(_lowercase, "Lowercase")
 
 
 def _replace_matches(text: str, align: list, spans, content: str) -> Piece:
@@ -223,7 +242,7 @@ def _replace(pattern: dict, content: str) -> Callable:
             at = text.find(needle, at + len(needle))
         return _replace_matches(text, p[1], spans, content) if spans else p
 
-    return run
+    return _described(run, "Replace", needle, content)
 
 
 def _prepend(p: Piece, prefix: str) -> Piece:
@@ -402,7 +421,7 @@ def _normalizer(spec: Optional[dict]) -> Optional[Callable]:
                 p = s(p)
             return p
 
-        return run
+        return _described(run, "Sequence", steps)
     if kind in ("NFD", "NFKD", "NFC", "NFKC"):
         return _normalization(kind)
     if kind == "StripAccents":
@@ -424,7 +443,7 @@ def _normalizer(spec: Optional[dict]) -> Optional[Callable]:
             text, local = bert_normalize(p[0], lowercase)
             return text, [p[1][i] for i in local]
 
-        return bert
+        return _described(bert, "BertNormalizer", lowercase)
     raise _unsupported(f"the normalizer {kind!r}")
 
 
@@ -496,7 +515,7 @@ def _byte_level(add_prefix_space: bool, use_regex: bool) -> Callable:
             out.append(("".join(chars), al))
         return out
 
-    return run
+    return _described(run, "ByteLevel", add_prefix_space, use_regex)
 
 
 def _whitespace_split(p: Piece) -> list:
@@ -512,6 +531,9 @@ def _whitespace_split(p: Piece) -> list:
     if start is not None:
         out.append((text[start:], align[start:]))
     return out
+
+
+_described(_whitespace_split, "WhitespaceSplit")
 
 
 def _metaspace(spec: dict) -> Callable:
@@ -537,7 +559,7 @@ def _metaspace(spec: dict) -> Callable:
         cuts = [0] + [i for i in range(1, len(text)) if text[i] == replacement] + [len(text)]
         return [(text[a:b], align[a:b]) for a, b in zip(cuts, cuts[1:])]
 
-    return run
+    return _described(run, "Metaspace", replacement, scheme, split)
 
 
 def _pre_tokenizer(spec: Optional[dict]) -> Optional[Callable]:
@@ -553,7 +575,7 @@ def _pre_tokenizer(spec: Optional[dict]) -> Optional[Callable]:
                 pieces = [q for piece in pieces for q in s(piece) if q[0]]
             return pieces
 
-        return run
+        return _described(run, "Sequence", steps)
     if kind == "ByteLevel":
         return _byte_level(bool(spec.get("add_prefix_space", True)), bool(spec.get("use_regex", True)))
     if kind == "WhitespaceSplit":

@@ -1,8 +1,9 @@
 """Native (C++) host-runtime components, bound via ctypes.
 
-Port of perceive_tpu/native/__init__.py.  Currently: ``fastwalk`` — the
-parallel gitignore-aware directory walker (reference `ignore` crate,
-fs.rs:42-45), used by the fs connector's scan.
+Port of perceive_tpu/native/__init__.py: ``fastwalk`` — the parallel
+gitignore-aware directory walker (reference `ignore` crate, fs.rs:42-45),
+used by the fs connector's scan.  The compiled tokenizer, which builds the
+same way but has no fallback, is ``native.tokenizer``.
 
 The shared object builds with g++ the first time it's needed, into
 ``perceive_tpu_torch/_build/`` under a name keyed by a hash of the source

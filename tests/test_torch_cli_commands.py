@@ -448,6 +448,21 @@ def test_doctor_database_rows_match_jax(states, tmp_path):
     assert "! device platform" in _doctor_rows(doctor, str(healthy))[2]
 
 
+def test_doctor_reports_the_tokenizer_library(tmp_path, monkeypatch):
+    """The compiled tokenizer is a hard dependency: ok when its library
+    loads, a failure (with the build's error) when it does not build."""
+    from perceive_tpu_torch.native import tokenizer as native_tokenizer
+
+    db = str(tmp_path / "missing.sqlite3")
+    rc, _, out = _doctor_rows(doctor, db)
+    assert rc == 0 and f"✓ tokenizer library: loaded {native_tokenizer.library_path().name}" in out, out
+    monkeypatch.setattr(native_tokenizer, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_tokenizer, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native_tokenizer, "_lib", None)
+    rc, _, out = _doctor_rows(doctor, db)
+    assert rc == 1 and "✗ tokenizer library: the tokenizer library did not build" in out, out
+
+
 # -- REPL, desktop entry ------------------------------------------------------------------
 
 

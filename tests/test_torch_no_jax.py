@@ -79,6 +79,27 @@ def test_port_imports_no_jax_or_tokenizers():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_compiled_tokenizer_loads_no_jax_or_tokenizers():
+    """Building and using the compiled tokenizer, for WordPiece and for a
+    tokenizer.json pipeline, loads no jax, tokenizers or JAX-package module."""
+    res = _run(
+        "import sys\n"
+        "from perceive_tpu_torch.models.tokenize import TextTokenizer, tiny_test_vocab\n"
+        "from perceive_tpu_torch.models.tokenizer_json import Pipeline\n"
+        "tok = TextTokenizer.from_vocab(tiny_test_vocab(['hello']))\n"
+        "assert tok.encode_batch(['hello world']).input_ids.shape == (1, 16)\n"
+        "assert tok.encode_untruncated(['hello'])[0].ids == [1, 5, 2]\n"
+        "bpe = TextTokenizer(Pipeline({'model': {'type': 'BPE', 'vocab': {'a': 0, 'b': 1, 'ab': 2}, "
+        "'merges': [['a', 'b']]}, 'pre_tokenizer': {'type': 'ByteLevel', 'add_prefix_space': False}}))\n"
+        "assert bpe.encode_untruncated(['ab'])[0].ids == [2]\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'tokenizers', 'regex') if m in sys.modules]\n"
+        "bad += sorted(m for m in sys.modules if m == 'perceive_tpu' or m.startswith('perceive_tpu.'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_connectors_import_no_optional_packages():
     """A machine that runs the port may lack yaml, zstandard, lxml and requests: the
     connectors import each at its first use, never at import."""
