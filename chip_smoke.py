@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py [--audit-case CASE.npz]
     python3 chip_smoke.py --ladder
+    python3 chip_smoke.py --only widths|families|default [--only ...]
 
 ``--audit-case`` also writes the int2+int4 self-audit's worst sample and
 the rows around it to CASE.npz, for ``tests/audit_case.py`` to reproduce
 off the card in the port and in the JAX package.  ``--ladder`` runs only
 the build and the flat scans' times by depth and by width (K3, K7 and K9
 flat), and K5's, K6's and K10's at 1 and 8 queries (``ladders``), and
-prints no result line.
+prints no result line.  ``--only`` runs the build and the named phases
+alone (the kernels at the registry's other widths, the registry families,
+the default configuration) and prints no result line either.
 
 Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
@@ -63,15 +66,40 @@ Phases (any failure exits non-zero before the final line):
      ``dryrun_multichip(4)`` over 4 slots, and the documents' 2,593 windows
      re-encoded through ``Model.shard_over`` at model-parallel 1 (2 slots)
      and 2 (2 x 2) against the stored vectors, K11 on every slot; then the
-     tokenizer.json families (``family_phase``): all-distilroberta-v1
-     (byte-level BPE) and paraphrase-albert-small-v2 (Unigram) at their
-     published widths with seeded weights, each written under
-     PERCEIVE_TPU_MODEL_DATA with a synthetic tokenizer.json, ``model
-     set`` on a fresh database, 65,536 768-d filler rows, a fresh AppState
-     that must load the checkpoint, 256 files through ``source add fs`` +
-     ``source scan`` (the ingest gates, the engine against the plain
-     pipeline over the 256 documents; K11 at head width 64) and 16 CLI
-     queries (K1 over the 768-d rows) against an exact f32 top-10;
+     registry families (``family_phase``): all-distilroberta-v1
+     (byte-level BPE tokenizer.json), paraphrase-albert-small-v2 (Unigram),
+     msmarco-distilbert-base-tas-b (DistilBERT, WordPiece vocab.txt, CLS
+     pooling, no Normalize) and distiluse-base-multilingual-cased
+     (DistilBERT, a cased 119,547-entry vocabulary with accented words and
+     CJK ideographs, a Dense 768 -> 512 tanh head, max_seq_length 128) at
+     their published widths with seeded weights, each written under
+     PERCEIVE_TPU_MODEL_DATA, ``model set`` on a fresh database, a fresh
+     AppState that must load the checkpoint, 256 files through ``source
+     add fs`` + ``source scan`` (the ingest gates, the engine against the
+     plain pipeline over the 256 documents; K11 at head width 64, none at
+     distiluse's 128 tokens), 65,536 filler rows at the model's width with
+     the scanned windows' norms, and 16 CLI queries (K1 over the 768- or
+     512-d rows) against an exact f32 top-10, every tolerance scaled by the
+     operands' norms; then the default configuration (``default_phase``):
+     msmarco-bert-base-dot-v5 (12 layers, 768 wide, mean pooling, no
+     Normalize) and all-MiniLM-L6-v2 loaded by AppState's own defaults
+     from PERCEIVE_TPU_MODEL_DATA with no fallback, the 2,048 files scanned
+     (K11 through 12 layers; the ingest gates), ``python3 -m
+     perceive_tpu_torch.cli serve`` in a subprocess over the scanned rows
+     (its /search against the CLI's, SIGTERM exit 0), 786,432 filler rows
+     with the windows' norms (the int8 tier by auto at 1.58M effective
+     rows: 16 CLI queries equal to an exact f32 top-10, highlight on the
+     MiniLM model, a 2,048-query batch through K4 equal to search_vector's),
+     and the same database pinned to int2 (streamed from the int8 state's
+     snapshot: K5, K6 and K7, the pipeline against the plain one,
+     served_recall_at_10 >= 0.99), within 150 s.  The kernel checks run
+     in two parts, the card busy and the host all but idle, while worker
+     processes (``host_job``) write to disk: phases 3-5 after the bf16
+     slice's scan (meanwhile the checkpoints, ~1.4 GB of seeded weights,
+     and the bf16 slice's filler rows), the rest after the default
+     configuration's scan and server (meanwhile its filler rows, then the
+     int8 slice's, and a copy of that database which takes the int2
+     slice's rows);
   8. the int8 slice: 1M more filler rows (2M in all), a fresh AppState whose
      auto rule picks the int8 tier, built from the bf16 base (another
      tier: its f32 rows stream) and the rows written since, replayed from
@@ -134,6 +162,14 @@ Phases (any failure exits non-zero before the final line):
      bit and timed at 34,603,008 rows, and on the same rows unpacked to the companion's (D, N) int8
      layout and transposed to (N, D) rows, K8 and K4: the three agree bit
      for bit (and with the plain version on a filter), each timed once;
+ 16b. K1-K10 at the registry's other widths (``check_wide_kernels``), each
+     against its plain version under both filters (K3-K10 bit for bit, K1
+     and K2 within SCAN_TOL) and timed by events and by device time beside
+     its plain version, its library call and its bound: K3 and K4 over
+     1,572,864 x 768 int8, K5 + K6, K7, K10 and K8 over 4,194,304 x 768
+     int2 with its (768, N) companion, K9 flat and slab over 12,582,912 x
+     768 packed int4 (the rows where auto puts a 768-d corpus on each
+     tier), K1 and K2 over 1,048,576 x 512 bf16 (distiluse's Dense width);
  17. the int4 slice: a fresh AppState pinned to the int4 tier on the int2
      slice's corpus, streamed from the int2 base (another tier) with 0 rows
      from SQLite, the same 16 queries through the CLI (flat K9), hits
@@ -165,6 +201,7 @@ import concurrent.futures
 import contextlib
 import gc
 import io
+import itertools
 import json
 import math
 import os
@@ -553,19 +590,19 @@ def replay(kid: str, name: str, run, want, times: int = 40) -> None:
         raise SystemExit(f"{kid} answered differently in {bad} of {times} replays ({name})")
 
 
-def int2_bound(n_sweep: int, nq: int):
+def int2_bound(n_sweep: int, nq: int, dim: int = DIM):
     """Bound of K5: the sweep's packed bytes, scales and ids read once, the
     queries once, the (Q, n_sweep) scores written once; 2 * D int8
     operations a row and query."""
-    return bound(n_sweep * (DIM // 4 + 8) + nq * DIM + nq * n_sweep * 4, 2.0 * nq * n_sweep * DIM, "int8")
+    return bound(n_sweep * (dim // 4 + 8) + nq * dim + nq * n_sweep * 4, 2.0 * nq * n_sweep * dim, "int8")
 
 
-def int4_bound(live: int, n_sweep: int, nq: int, k: int):
+def int4_bound(live: int, n_sweep: int, nq: int, k: int, dim: int = DIM):
     """Bound of a packed-int4 scan: the live rows' packed bytes and scales
     read once, every source id of the sweep once, the queries once, the
     (Q, k) result written once; 2 * D int8 operations a live row and
     query."""
-    return bound(live * (DIM // 2 + 4) + 4 * n_sweep + nq * DIM + nq * k * 8, 2.0 * nq * live * DIM, "int8")
+    return bound(live * (dim // 2 + 4) + 4 * n_sweep + nq * dim + nq * k * 8, 2.0 * nq * live * dim, "int8")
 
 
 def crossover_widths(widths: tuple, table: str, key: str) -> tuple:
@@ -700,15 +737,15 @@ def check_bf16_scans(card: str) -> dict:
             "K2": {"max_abs_err": worst["K2"], **times[("K2", 512, BF16_KB)]}}
 
 
-def int8_rows(g, dev, n: int, hwm: int):
+def int8_rows(g, dev, n: int, hwm: int, dim: int = DIM):
     """Seeded unit rows as the int8 tier stores them, quantized on the card
-    (per-row symmetric, as the matrix's ``_quantize``): the (n, DIM) int8
+    (per-row symmetric, as the matrix's ``_quantize``): the (n, dim) int8
     matrix, its row scales, source ids and the sweep prefix as corpus_rows
     gives them."""
     import torch
 
-    chunks, src, ns = corpus_rows(g, dev, n, hwm)
-    m = torch.empty((n, DIM), dtype=torch.int8, device=dev)
+    chunks, src, ns = corpus_rows(g, dev, n, hwm, dim)
+    m = torch.empty((n, dim), dtype=torch.int8, device=dev)
     scales = torch.empty((n,), dtype=torch.float32, device=dev)
     for lo, blk in chunks:
         s = torch.clamp(blk.abs().amax(dim=1), min=1e-12) / 127.0
@@ -825,18 +862,18 @@ def k3_ladder(card: str, m, scales, src, ns: int, queries) -> None:
                     lambda q, qsc: topk.scan_topk_int8_flat(m, scales, src, q, qsc, allowed, INT8_KB, ns), queries)
 
 
-def int2_corpus(g, dev, n: int, hwm: int):
+def int2_corpus(g, dev, n: int, hwm: int, dim: int = DIM):
     """Seeded unit rows as the int2 tier stores them, built on the card: the
-    (DIM/4, n) packed coarse matrix with its row scales (crumbs of the
-    rows on the {-3, -1, 1, 3} * rms/2 grid) and the (DIM, n) int8
+    (dim/4, n) packed coarse matrix with its row scales (crumbs of the
+    rows on the {-3, -1, 1, 3} * rms/2 grid) and the (dim, n) int8
     companion with its scales; source ids and the sweep prefix as
     corpus_rows gives them."""
     import torch
 
-    chunks, src, ns = corpus_rows(g, dev, n, hwm)
-    d4 = DIM // 4
+    chunks, src, ns = corpus_rows(g, dev, n, hwm, dim)
+    d4 = dim // 4
     packed = torch.empty((d4, n), dtype=torch.uint8, device=dev)
-    fine = torch.empty((DIM, n), dtype=torch.int8, device=dev)
+    fine = torch.empty((dim, n), dtype=torch.int8, device=dev)
     s2 = torch.empty((n,), dtype=torch.float32, device=dev)
     s8 = torch.empty((n,), dtype=torch.float32, device=dev)
     for lo, blk in chunks:
@@ -998,11 +1035,11 @@ def k6_times(card: str, sc, kc: int, what: str = "") -> dict:
     return t
 
 
-def tiletop_bound(ns: int, nq: int, width: int):
+def tiletop_bound(ns: int, nq: int, width: int, dim: int = DIM):
     """Bound of K10: the sweep's packed bytes, scales and ids read once, the
     queries once, the (Q, T * M) (score, row) pairs written once; 2 * D
     int8 operations a row and query."""
-    return bound(ns * (DIM // 4 + 8) + nq * DIM + nq * width * 8, 2.0 * nq * ns * DIM, "int8")
+    return bound(ns * (dim // 4 + 8) + nq * dim + nq * width * 8, 2.0 * nq * ns * dim, "int8")
 
 
 def check_tiletop(card: str, packed, s2, src, ns: int, allowed: dict, queries, kc: int = 4096,
@@ -1040,7 +1077,7 @@ def check_tiletop(card: str, packed, s2, src, ns: int, allowed: dict, queries, k
              "plain_ms": (cuda_ms(lambda: int2.int2_tiletop_plain(packed, s2, src, qi8, qs, al, ns, kc=kc), reps=3)
                           if time_plain else math.nan),
              "library_ms": None}
-        t["bound_ms"], t["bound_by"] = tiletop_bound(ns, nq, width)
+        t["bound_ms"], t["bound_by"] = tiletop_bound(ns, nq, width, 4 * packed.shape[0])
         times[nq] = t
         log(f"K10 time Q={nq} kc={kc} n_sweep={ns} width={width}: kernel {t['ms']:.4f} ms  "
             f"plain {t['plain_ms']:.4f} ms  library n/a  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
@@ -1086,20 +1123,20 @@ def check_tiletop_top(card: str, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def int4_matrix(g, dev, n: int):
+def int4_matrix(g, dev, n: int, dim: int = DIM):
     """Seeded unit rows as the int4 tier stores them, quantized on the card
     in chunks of 131,072 rows (f32 never holds the matrix: 38.7 GB at 25M
-    rows): the (DIM/2, n) packed matrix with its row scales (max|v| / 7),
+    rows): the (dim/2, n) packed matrix with its row scales (max|v| / 7),
     1% of its bytes with a low nibble of 0 (-8, which the tier's
     quantization never writes), and source ids with 5% tombstones."""
     import torch
 
-    d2 = DIM // 2
+    d2 = dim // 2
     packed = torch.empty((d2, n), dtype=torch.uint8, device=dev)
     scales = torch.empty((n,), dtype=torch.float32, device=dev)
     for lo in range(0, n, 131072):
         hi = min(n, lo + 131072)
-        blk = torch.randn((hi - lo, DIM), generator=g, device=dev)
+        blk = torch.randn((hi - lo, dim), generator=g, device=dev)
         blk = blk / blk.norm(dim=1, keepdim=True)
         s = torch.clamp(blk.abs().amax(dim=1), min=1e-12) / 7.0
         v = torch.clamp(torch.round(blk / s[:, None]), -7, 7).to(torch.int32)
@@ -1283,6 +1320,155 @@ def check_wide_int8(card: str, packed, scales, src, queries, allowed: dict) -> N
             f"bound {b:.4f} ms ({by})  [{card}]")
     del m8, rows
     torch.cuda.empty_cache()
+
+
+# the registry's other widths: where auto puts a 768-d corpus (rows x 768 /
+# 384 effective rows: int8 past 1.5M, int2 past 4M, int4 past 24M) and the
+# 512-d rows of distiluse-base-multilingual-cased's Dense head (bf16)
+WIDE_DIM, DENSE_DIM = 768, 512
+WIDE_INT8_ROWS, WIDE_INT8_HWM = 1_572_864, 1_400_000  # a sweep of 1,400,832 rows
+WIDE_INT2_ROWS, WIDE_INT2_HWM = 4_194_304, 3_800_000  # a sweep of 3,809,280
+WIDE_INT4_ROWS = 12_582_912
+DENSE_ROWS, DENSE_HWM = 1_048_576, 950_000  # a sweep of 958,464
+
+
+def timed_kernel(card: str, label: str, run, plain, library, bound_of) -> dict:
+    """``run``'s time by CUDA events (the wrapper's host prologue inside)
+    and by device time alone (``device_ms``), beside its plain version's
+    (a median of 3: it repeats the kernel's arithmetic, no yardstick of
+    speed), the library call's (``library`` None: no single PyTorch call
+    computes it) and ``bound_of`` = (ms, what bounds it); logged on one
+    line."""
+    t = {"ms": cuda_ms(run), "device_ms": device_ms(run), "plain_ms": cuda_ms(plain, reps=3),
+         "library_ms": None if library is None else cuda_ms(library)}
+    t["bound_ms"], t["bound_by"] = bound_of
+    lib = "n/a" if library is None else f"{t['library_ms']:.4f} ms"
+    log(f"{label}: kernel {t['ms']:.4f} ms  device {t['device_ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+        f"library {lib}  bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    return t
+
+
+def check_wide_kernels(card: str) -> dict:
+    """K1-K10 at the registry's other widths, at the row counts where the
+    auto rule puts a corpus of that width: K3 (Q = 1, k = 128) and K4 (Q =
+    512) over 1,572,864 x 768 int8; K5 + K6 (kc = 4,096), K7 (Q = 1, k =
+    128), K10 (kc = 4,096) and K8 (Q = 512) over 4,194,304 x 768 int2 and
+    its (768, N) int8 companion; K9 flat (Q = 1, k = 256) and slab (Q = 512)
+    over 12,582,912 x 768 packed int4; K1 (Q = 1, k = 32) and K2 (Q = 512)
+    over 1,048,576 x 512 bf16.  Each against its plain version under both
+    filters (K3-K10 bit for bit, K1 and K2 within SCAN_TOL), then timed
+    once (``timed_kernel``).  The rows are generated on the card, each
+    matrix freed before the next."""
+    import torch
+
+    from perceive_tpu_torch.ops import int2, topk
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(13)
+    allowed = filters(dev)
+    al = allowed["all"]
+    out = {}
+
+    def queries(nq, dim=WIDE_DIM):
+        return topk.quantize_queries(torch.randn((nq, dim), generator=g, device=dev))
+
+    def held(label, nq, k, ns, run, plain, tol=0.0):
+        for fname, a in allowed.items():
+            check_case(f"{label} Q={nq:<4d} k={k:<5d} filter={fname:<4s} n_sweep={ns}", run(a), plain(a), tol)
+
+    # int8 rows: K3, K4
+    m, scales, src, ns = int8_rows(g, dev, WIDE_INT8_ROWS, WIDE_INT8_HWM, WIDE_DIM)
+    keep = src[:ns] >= 0
+    live = int(keep.sum())
+    library = int8_yardstick(m[:ns], scales[:ns], keep)
+    for kid, fn, nq in (("K3", topk.scan_topk_int8_flat, 1), ("K4", topk.scan_topk_int8_slab, 512)):
+        qi8, qs = queries(nq)
+        held(f"{kid} D={WIDE_DIM}", nq, INT8_KB, ns, lambda a: fn(m, scales, src, qi8, qs, a, INT8_KB, ns),
+             lambda a: topk.scan_topk_int8_plain(m, scales, src, qi8, qs, a, INT8_KB, ns))
+        out[kid] = timed_kernel(
+            card, f"{kid} time D={WIDE_DIM} Q={nq} k={INT8_KB} n_sweep={ns}",
+            lambda: fn(m, scales, src, qi8, qs, al, INT8_KB, ns),
+            lambda: topk.scan_topk_int8_plain(m, scales, src, qi8, qs, al, INT8_KB, ns),
+            lambda: library(qi8, qs, INT8_KB), scan_bound(live, ns, nq, INT8_KB, 1, "int8", dim=WIDE_DIM))
+    del m, scales, src, keep, library
+    torch.cuda.empty_cache()
+
+    # int2 rows and their int8 companion: K5, K6, K7, K10, K8
+    packed, s2, fine, s8, src, ns = int2_corpus(g, dev, WIDE_INT2_ROWS, WIDE_INT2_HWM, WIDE_DIM)
+    keep = src[:ns] >= 0
+    live = int(keep.sum())
+    qi8, qs = queries(1)
+    for fname, a in allowed.items():
+        got = int2.int2_scores(packed, s2, src, qi8, qs, a, ns)
+        if not torch.equal(got, int2.int2_scores_plain(packed, s2, src, qi8, qs, a, ns)):
+            raise SystemExit(f"K5 disagrees with its plain version at D={WIDE_DIM} (filter {fname})")
+        if not torch_equal(int2.select_topk(got, 4096), int2.select_topk_plain(got, 4096)):
+            raise SystemExit(f"K6 disagrees with its plain version over K5's D={WIDE_DIM} scores (filter {fname})")
+        log(f"K5 D={WIDE_DIM} Q=1    n_sweep={ns} filter={fname:<4s} bit-exact ok; K6 kc=4096 over it: set, "
+            f"order and floor bit-exact ok")
+    out["K5"] = timed_kernel(card, f"K5 time D={WIDE_DIM} Q=1 n_sweep={ns}",
+                             lambda: int2.int2_scores(packed, s2, src, qi8, qs, al, ns),
+                             lambda: int2.int2_scores_plain(packed, s2, src, qi8, qs, al, ns), None,
+                             int2_bound(ns, 1, WIDE_DIM))
+    sc = int2.int2_scores(packed, s2, src, qi8, qs, al, ns)
+    out["K6"] = timed_kernel(card, f"K6 time Q=1 kc=4096 n={ns} (K5's D={WIDE_DIM} scores)",
+                             lambda: int2.select_topk(sc, 4096), lambda: int2.select_topk_plain(sc, 4096),
+                             lambda: torch.topk(sc, 4096), bound(ns * 4 + 4096 * 8 + 4, 0.0, "int8"))
+    del sc
+    out["K10"] = check_tiletop(card, packed, s2, src, ns, allowed, queries)
+    qi8, qs = queries(1)
+    out["K10"]["device_ms"] = device_ms(lambda: int2.int2_tiletop(packed, s2, src, qi8, qs, al, ns, kc=4096))
+    log(f"K10 time D={WIDE_DIM} Q=1 kc=4096 n_sweep={ns}: device {out['K10']['device_ms']:.4f} ms  [{card}]")
+    library = int8_yardstick(fine[:, :ns], s8[:ns], keep, cols=True)
+    for kid, fn, nq in (("K7", topk.scan_topk_int8t_flat, 1), ("K8", topk.scan_topk_int8t_slab, 512)):
+        qi8, qs = queries(nq)
+        held(f"{kid} D={WIDE_DIM}", nq, INT8_KB, ns, lambda a: fn(fine, s8, src, qi8, qs, a, INT8_KB, ns),
+             lambda a: topk.scan_topk_int8t_plain(fine, s8, src, qi8, qs, a, INT8_KB, ns))
+        out[kid] = timed_kernel(
+            card, f"{kid} time D={WIDE_DIM} Q={nq} k={INT8_KB} n_sweep={ns}",
+            lambda: fn(fine, s8, src, qi8, qs, al, INT8_KB, ns),
+            lambda: topk.scan_topk_int8t_plain(fine, s8, src, qi8, qs, al, INT8_KB, ns),
+            lambda: library(qi8, qs, INT8_KB), scan_bound(live, ns, nq, INT8_KB, 1, "int8", dim=WIDE_DIM))
+    del packed, s2, fine, s8, src, keep, library
+    torch.cuda.empty_cache()
+
+    # packed int4 rows: K9 flat and slab over the whole matrix
+    packed, scales, src = int4_matrix(g, dev, WIDE_INT4_ROWS, WIDE_DIM)
+    n = WIDE_INT4_ROWS
+    live = int((src >= 0).sum())
+    for kid, fn, nq in (("K9-flat", topk.scan_topk_int4_flat, 1), ("K9-slab", topk.scan_topk_int4_slab, 512)):
+        qi8, qs = queries(nq)
+        held(f"{kid} D={WIDE_DIM}", nq, INT4_KB, n, lambda a: fn(packed, scales, src, qi8, qs, a, INT4_KB),
+             lambda a: topk.scan_topk_int4_plain(packed, scales, src, qi8, qs, a, INT4_KB))
+        out[kid] = timed_kernel(
+            card, f"{kid} time D={WIDE_DIM} Q={nq} k={INT4_KB} n_sweep={n}",
+            lambda: fn(packed, scales, src, qi8, qs, al, INT4_KB),
+            lambda: topk.scan_topk_int4_plain(packed, scales, src, qi8, qs, al, INT4_KB), None,
+            int4_bound(live, n, nq, INT4_KB, WIDE_DIM))
+    del packed, scales, src
+    torch.cuda.empty_cache()
+
+    # bf16 rows at the Dense head's width: K1, K2 within SCAN_TOL
+    chunks, src, ns = corpus_rows(g, dev, DENSE_ROWS, DENSE_HWM, DENSE_DIM)
+    m = torch.empty((DENSE_ROWS, DENSE_DIM), dtype=torch.bfloat16, device=dev)
+    for lo, blk in chunks:
+        m[lo : lo + blk.shape[0]] = blk.to(torch.bfloat16)
+    keep = src[:ns] >= 0
+    live = int(keep.sum())
+    for kid, fn, nq in (("K1", topk.scan_topk_flat, 1), ("K2", topk.scan_topk_slab, 512)):
+        q = torch.randn((nq, DENSE_DIM), generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        held(f"{kid} D={DENSE_DIM}", nq, BF16_KB, ns, lambda a: fn(m, src, q, a, BF16_KB, ns),
+             lambda a: topk.scan_topk_plain(m, src, q, a, BF16_KB, ns), SCAN_TOL)
+        out[kid] = timed_kernel(
+            card, f"{kid} time D={DENSE_DIM} Q={nq} k={BF16_KB} n_sweep={ns}",
+            lambda: fn(m, src, q, al, BF16_KB, ns), lambda: topk.scan_topk_plain(m, src, q, al, BF16_KB, ns),
+            lambda: torch.topk(torch.matmul(q.to(torch.bfloat16), m[:ns].T).masked_fill(~keep, float("-inf")),
+                               BF16_KB),
+            scan_bound(live, ns, nq, BF16_KB, 2, "bf16", dim=DENSE_DIM))
+    del m, src, keep
+    torch.cuda.empty_cache()
+    return out
 
 
 def crossover_times(card: str, kid: str, table: str, key: str, run, queries) -> None:
@@ -1554,30 +1740,49 @@ def text_queries(rng, docs: list[str], vocab: list[str]) -> tuple:
     return self_docs, queries
 
 
+FILLER_CHUNK = 500_000  # filler rows a transaction
+
+
+def filler_vectors(gen, n: int, dim: int = DIM, norms=None):
+    """``n`` seeded ``dim``-wide unit vectors drawn on the card from ``gen``
+    (a torch.Generator there), in host chunks of FILLER_CHUNK rows; with
+    ``norms`` (a 1-d array: a model's stored vectors' norms, where it
+    writes unnormalized rows) each is scaled to one of them, drawn at
+    random."""
+    import torch
+
+    for lo in range(0, n, FILLER_CHUNK):
+        c = min(FILLER_CHUNK, n - lo)
+        v = torch.randn((c, dim), generator=gen, device=gen.device)
+        v = v / v.norm(dim=1, keepdim=True)
+        if norms is not None:
+            pick = torch.randint(0, len(norms), (c,), generator=gen, device=gen.device)
+            v *= torch.as_tensor(norms, dtype=torch.float32, device=gen.device)[pick, None]
+        yield v.cpu().numpy()
+
+
 def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, text: str, mid: int, ver: int,
-                 dim: int = DIM):
+                 dim: int = DIM, norms=None, vectors=None):
     """``n`` seeded ``dim``-wide unit-vector rows under ids first_id.. with one embedding
-    each, through the columns the ingest pipeline writes; the vectors come
-    from ``gen``, a torch.Generator on the card (SQLite takes the time).
+    each, through the columns the ingest pipeline writes; the vectors are
+    ``filler_vectors(gen, n, dim, norms)`` (SQLite takes the time), or the
+    host chunks ``vectors`` drawn so before.
     ``db`` is an open Database, or the path of one that no connection holds
     open: then the rows go in through a connection of their own with no
     journal, no sync and no foreign-key lookups (every row it writes is
     valid), and the database is back in WAL mode after it."""
     import sqlite3
 
-    import torch
-
     own = isinstance(db, str)
     if own:
         conn = sqlite3.connect(db, isolation_level=None)
         for pragma in ("journal_mode = OFF", "synchronous = OFF", "foreign_keys = OFF"):
             conn.execute(f"PRAGMA {pragma}")
-    chunk = 500_000
+    if vectors is None:
+        vectors = filler_vectors(gen, n, dim, norms)
     try:
-        for lo in range(0, n, chunk):
-            c = min(chunk, n - lo)
-            v = torch.randn((c, dim), generator=gen, device=gen.device)
-            v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+        for lo, v in zip(range(0, n, FILLER_CHUNK), vectors):
+            c = len(v)
             ids = range(first_id + lo, first_id + lo + c)
             with (contextlib.nullcontext(conn) if own else db.write()) as txn:
                 if own:
@@ -1600,6 +1805,100 @@ def write_filler(db, src_id: int, first_id: int, first_seq: int, n: int, gen, te
             conn.close()
 
 
+SLICE_FILLER = (INT8_ROWS - TOTAL_ROWS, INT2_ROWS - INT8_ROWS)  # the int8 and int2 slices' filler rows
+
+
+def slice_filler(ctx: dict, vectors: list) -> dict:
+    """The int8 and int2 slices' filler rows (``vectors``: their host
+    chunks, drawn by ``filler_vectors`` from the slices' generator on the
+    main thread), written by worker processes (``filler_job``) while the
+    kernel checks run (nothing holds the slices' database open then):
+    INT8_ROWS - TOTAL_ROWS rows into the database, then a copy of it
+    (``int2_db``, the int2 slice's, with the bf16 base in its manifest as
+    before) takes the INT2_ROWS - INT8_ROWS more.  The ids and seqs follow
+    on from the bf16 slice's rows, as before; returns the seconds of each
+    step."""
+    ctx["int2_db"] = os.path.join(os.path.dirname(ctx["db_path"]), "int2.sqlite3")
+    int8 = filler_job(ctx, ctx["db_path"], SLICE_FILLER[0], vectors[0])
+    int2 = filler_job(ctx, ctx["int2_db"], SLICE_FILLER[1], vectors[1], copy_from=ctx["db_path"])
+    return {"int8_s": int8["seconds"], "copy_s": int2["copy_s"], "int2_s": int2["seconds"]}
+
+
+def host_job(kind: str, job: dict, chunks=()) -> dict:
+    """Runs ``kind`` ("filler" or "checkpoints") in a process of its own
+    (``python3 chip_smoke.py --worker``): the job as one JSON line on its
+    stdin, then the filler's f32 rows, chunk by chunk; returns the JSON line
+    it answers.  The smoke's own threads only wait on the pipe, so the
+    SQLite writes and the checkpoints' pickling hold no interpreter lock
+    that the kernel checks beside them need (a writer thread in this
+    process doubled a kernel wrapper's host time)."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker"], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE)
+    try:
+        proc.stdin.write((json.dumps({"kind": kind, **job}) + "\n").encode())
+        for chunk in chunks:
+            proc.stdin.write(np.ascontiguousarray(chunk, dtype="<f4").data)
+        proc.stdin.close()
+        out = proc.stdout.read()
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise SystemExit(f"the {kind} worker exited {rc} (its errors above)")
+    return json.loads(out)
+
+
+def worker() -> int:
+    """``--worker``: one ``host_job`` read from stdin.  "filler": optionally
+    a copy of the database ``copy_from`` first (SQLite's backup), then
+    ``write_filler`` of the ``n`` rows that follow on stdin; "checkpoints":
+    ``install_checkpoints``.  Answers one JSON line of seconds."""
+    import sqlite3
+
+    stdin = sys.stdin.buffer
+    job = json.loads(stdin.readline())
+    out = {}
+    if job["kind"] == "checkpoints":
+        import torch
+
+        torch.set_num_threads(2)  # beside the smoke's own host work
+        out = install_checkpoints(job["models_dir"])
+    else:
+        if job.get("copy_from"):
+            t0 = time.perf_counter()
+            with contextlib.closing(sqlite3.connect(job["copy_from"])) as src, \
+                    contextlib.closing(sqlite3.connect(job["db"])) as dst:
+                src.backup(dst)
+            out["copy_s"] = time.perf_counter() - t0
+        n, dim = job["n"], job["dim"]
+
+        def chunks():
+            for lo in range(0, n, FILLER_CHUNK):
+                c = min(FILLER_CHUNK, n - lo)
+                yield np.frombuffer(stdin.read(c * dim * 4), dtype="<f4").reshape(c, dim)
+
+        t0 = time.perf_counter()
+        write_filler(job["db"], job["src"], job["first_id"], job["first_seq"], n, None, job["text"], job["mid"],
+                     job["ver"], dim=dim, vectors=chunks())
+        out["seconds"] = time.perf_counter() - t0
+    sys.stdout.write(json.dumps(out))
+    return 0
+
+
+def filler_job(ctx: dict, db: str, n: int, chunks, dim: int = DIM, mid=None, copy_from: str = "") -> dict:
+    """``host_job("filler")`` of ``n`` rows following on from ``ctx``'s ids
+    and seqs (advanced past them) under the filler source and text of
+    ``ctx``, the model's keys unless ``mid`` is given."""
+    job = {"db": db, "src": ctx["fill_source"], "first_id": ctx["next_id"], "first_seq": ctx["next_seq"], "n": n,
+           "dim": dim, "text": ctx["filler_text"], "mid": ctx["model"].model_id if mid is None else mid,
+           "ver": 0 if mid is not None else ctx["model"].model_version, "copy_from": copy_from}
+    ctx["next_id"] += n
+    ctx["next_seq"] += n
+    return host_job("filler", job, chunks)
+
+
 def write_docs(docs_dir: str, docs: list[str]) -> None:
     """The documents as files doc{d}.txt, beside three that the walker must
     not ingest: a hidden file, a file under a directory named in a
@@ -1615,9 +1914,11 @@ def write_docs(docs_dir: str, docs: list[str]) -> None:
 
 
 # stored vs direct encode (bf16 encoder; a window rides other buckets in the
-# two).  On the H100 the sound runs read 4.98e-4 and the planted fault below
-# 9.54e-3 at its worst window: the tolerance sits between them, about 4x
-# from each, and the run fails if the fault does not exceed it
+# two), as a share of the window's norm (bf16 rounding scales with it; the
+# unit rows of a model with Normalize read the same as before).  On the H100
+# the sound runs read 4.98e-4 and the planted fault below 9.54e-3 at its
+# worst window: the tolerance sits between them, about 4x from each, and
+# the run fails if the fault does not exceed it
 INGEST_TOL = 2e-3
 FAULT_SHIFT = 2  # the planted fault: each window after the first starts this many tokens late
 
@@ -1637,13 +1938,29 @@ def ingest(card: str, workdir: str, dev, model, docs: list[str]) -> dict:
     return out
 
 
-def scan_and_check(card: str, state, db_path: str, docs_dir: str, docs: list[str], tag: str = "ingest") -> dict:
+def encode_windows(model, windows: list, width: int) -> np.ndarray:
+    """Token windows through ``model`` in batches of ENCODE_BATCH, each
+    batch packed with the special wrap and padded to ``width`` tokens; f32
+    rows on the host."""
+    import torch
+
+    tok, out = model.tokenizer, []
+    for s in range(0, len(windows), ENCODE_BATCH):
+        ids = tok.pack_token_windows(windows[s : s + ENCODE_BATCH])
+        ids = np.pad(ids, ((0, 0), (0, width - ids.shape[1])), constant_values=tok.pad_id)
+        out.append(model.encode_ids(torch.from_numpy(ids).to(model.device)).float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def scan_and_check(card: str, state, db_path: str, docs_dir: str, docs: list[str], tag: str = "ingest",
+                   attention: bool = True) -> dict:
     """``source add fs`` and ``source scan`` of ``docs_dir`` through the CLI
     over the open ``state``, gated on exact counts (one item per document,
     one embedding row and one new matrix row per window of the port's
     chunker: a failed embed batch writes its items without their rows), K11
-    launched during the scan, and the stored vectors against a direct
-    encode of the same windows, matched by (document, window)."""
+    launched during the scan (none where not ``attention``: windows below
+    KERNEL_MIN_SEQ), and the stored vectors against a direct encode of the
+    same windows, matched by (document, window)."""
     import importlib.util
 
     import torch
@@ -1710,21 +2027,25 @@ def scan_and_check(card: str, state, db_path: str, docs_dir: str, docs: list[str
         raise SystemExit(f"the scan wrote {len(rows)} embedding rows; want {n_win} (a failed embed batch?)")
     if n_matrix != n_win:
         raise SystemExit(f"the searcher's hooks put {n_matrix} rows in the matrix; want {n_win}")
-    if launches == 0:
+    if attention and launches == 0:
         raise SystemExit("the ingest scan launched no attention kernel")
+    if not attention and launches:
+        raise SystemExit(f"the ingest scan's windows under {attn.KERNEL_MIN_SEQ} tokens launched K11 {launches} times")
 
-    # the stored vectors against a direct encode of the same windows
+    # the stored vectors against a direct encode of the same windows, each
+    # padded to the sequence bucket of the longest window: every embed batch
+    # of the scan held one (a document over 400 tokens fills a window), so
+    # the two sides take the same attention route (K11 from 384 tokens on)
     stored = {(index[ext], c): np.frombuffer(b, dtype="<f4") for ext, c, b in rows}
     flat = [(d, c, w) for d, ws in enumerate(wins) for c, w in enumerate(ws)]
-    embs = np.concatenate([
-        model.materialize(model.encode_dispatch_token_windows([w for _, _, w in flat[s : s + ENCODE_BATCH]]))
-        for s in range(0, len(flat), ENCODE_BATCH)
-    ])
+    width = model.tokenizer.pack_token_windows([max((w for _, _, w in flat), key=len)]).shape[1]
+    embs = encode_windows(model, [w for _, _, w in flat], width)
     stored_embs = np.stack([stored[(d, c)] for d, c, _ in flat])
-    err = float(np.abs(stored_embs - embs).max())
-    cos = float((stored_embs * embs).sum(axis=1).min())
-    log(f"{tag}: stored vectors vs a direct encode of the same windows: max_abs_err {err:.3g} "
-        f"(tol {INGEST_TOL}), min cosine {cos:.6f}")
+    norms = np.linalg.norm(embs, axis=1)
+    err = float((np.abs(stored_embs - embs).max(axis=1) / norms).max())
+    cos = float(((stored_embs * embs).sum(axis=1) / (np.linalg.norm(stored_embs, axis=1) * norms)).min())
+    log(f"{tag}: stored vectors vs a direct encode of the same windows at {width} tokens: max_abs_err {err:.3g} "
+        f"of the row's norm (tol {INGEST_TOL}; norms {norms.min():.4g} to {norms.max():.4g}), min cosine {cos:.6f}")
     if not err <= INGEST_TOL:
         raise SystemExit("the stored vectors disagree with a direct encode of their windows")
     # the gate's power: a chunker whose overlap is FAULT_SHIFT tokens short
@@ -1732,12 +2053,10 @@ def scan_and_check(card: str, state, db_path: str, docs_dir: str, docs: list[str
     ct, co = chunk_config(src, model.tokenizer)
     late = chunk_token_windows_batch(model.tokenizer, docs, ct, co - FAULT_SHIFT)
     moved = [(d, c, w) for d, ws in enumerate(late) for c, w in enumerate(ws) if 0 < c < len(wins[d])]
-    fault = np.concatenate([
-        model.materialize(model.encode_dispatch_token_windows([w for _, _, w in moved[s : s + ENCODE_BATCH]]))
-        for s in range(0, len(moved), ENCODE_BATCH)
-    ])
+    fault = encode_windows(model, [w for _, _, w in moved], width)
     at = {(d, c): i for i, (d, c, _) in enumerate(flat)}
-    fault_err = np.abs(fault - embs[[at[(d, c)] for d, c, _ in moved]]).max(axis=1)
+    sound = [at[(d, c)] for d, c, _ in moved]
+    fault_err = np.abs(fault - embs[sound]).max(axis=1) / norms[sound]
     log(f"{tag}: planted fault (windows after a document's first start {FAULT_SHIFT} tokens late): "
         f"{len(moved)} windows, max_abs_err against the direct encode max {fault_err.max():.3g}, "
         f"median {np.median(fault_err):.3g}, min {fault_err.min():.3g} (tol {INGEST_TOL})")
@@ -1763,42 +2082,51 @@ def scan_and_check(card: str, state, db_path: str, docs_dir: str, docs: list[str
             "tok_s": tok_s[0]}
 
 
-def build_corpus(card: str, workdir: str, dev) -> dict:
-    """Phase 6's corpus: the model, the documents ingested through the CLI
-    (``ingest``), and the SQLite database filled to TOTAL_ROWS rows."""
+def smoke_texts(dev) -> dict:
+    """The smoke's all-MiniLM-L6-v2-width model (seeded random weights, its
+    tokenizer over ``minilm_vocab``), its N_DOCS documents, the 16 text
+    queries and the filler rows' text, and the seeded numpy generator
+    they were drawn from (its next draws: the batch queries)."""
     import torch
 
-    from perceive_tpu_torch.db import Database, add_source
     from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, ModelType, TextTokenizer
-    from perceive_tpu_torch.types import Source
 
     rng = np.random.default_rng(11)
     vocab_list = minilm_vocab()
-    vocab = {w: i for i, w in enumerate(vocab_list)}
-    tok = TextTokenizer.from_vocab(vocab, max_seq_length=512)
+    tok = TextTokenizer.from_vocab({w: i for i, w in enumerate(vocab_list)}, max_seq_length=512)
     arch = EncoderArch(vocab_size=30522, hidden_size=384, num_layers=6, num_heads=12,
                        intermediate_size=1536, max_position_embeddings=512)
     model = Model.random(arch, HeadConfig(pooling="mean", normalize=True), tok, seed=0,
                          device=dev, compute_dtype=torch.bfloat16)
     model.model_id = ModelType.ALL_MINILM_L6_V2.model_id
     docs = make_docs(rng, vocab_list)
+    self_docs, queries = text_queries(rng, docs, vocab_list)
+    return {"rng": rng, "vocab": vocab_list, "tok": tok, "model": model, "docs": docs, "self_docs": self_docs,
+            "queries": queries, "filler_text": " ".join(vocab_list[300:316])}
+
+
+def build_corpus(card: str, workdir: str, dev) -> dict:
+    """Phase 6's corpus: the model, the documents ingested through the CLI
+    (``ingest``), and the filler rows that fill SQLite to TOTAL_ROWS rows,
+    drawn here (``ctx["fill"]``) for ``fill_corpus`` to write."""
+    import torch
+
+    from perceive_tpu_torch.db import Database, add_source
+    from perceive_tpu_torch.types import Source
+
+    texts = smoke_texts(dev)
+    rng, vocab_list, tok, model, docs = (texts[k] for k in ("rng", "vocab", "tok", "model", "docs"))
     ing = ingest(card, workdir, dev, model, docs)
     embs = ing["embs"]
-
-    # SQLite filled to TOTAL_ROWS through the columns the ingest pipeline writes
-    t0 = time.perf_counter()
     db = Database(ing["db_path"])
     src_fill = add_source(db, Source(name="filler", config={"type": "fs"}, location="generated:filler"))
     db.close()
-    mid, ver = model.model_id, model.model_version
     n_fill = TOTAL_ROWS - ing["windows"]
-    filler_text = " ".join(vocab_list[300:316])
+    filler_text = texts["filler_text"]
     gen = torch.Generator(device=dev).manual_seed(12)
-    write_filler(ing["db_path"], src_fill.id, ing["next_id"], ing["next_seq"], n_fill, gen, filler_text, mid, ver)
-    log(f"sqlite corpus: {ing['windows']} document rows + {n_fill} filler rows = {TOTAL_ROWS} rows "
-        f"(filler written in {time.perf_counter() - t0:.1f} s)")
+    fill = list(filler_vectors(gen, n_fill))
 
-    self_docs, queries = text_queries(rng, docs, vocab_list)
+    self_docs, queries = texts["self_docs"], texts["queries"]
     # N_BATCH vector queries, half near a stored window and half random, and
     # N_BATCH random ones
     half = N_BATCH // 2
@@ -1810,10 +2138,18 @@ def build_corpus(card: str, workdir: str, dev) -> dict:
     return {"model": model, "tok": tok, "docs": docs, "doc_ids": ing["doc_ids"],
             "doc_windows": ing["doc_windows"], "db_path": ing["db_path"],
             "gen": gen, "fill_source": src_fill.id, "first_fill_id": ing["next_id"],
-            "next_id": ing["next_id"] + n_fill, "next_seq": ing["next_seq"] + n_fill,
+            "next_id": ing["next_id"], "next_seq": ing["next_seq"], "fill": fill,
             "attention_launches": ing["launches"], "filler_text": filler_text, "self_docs": self_docs,
             "windows": ing["flat_windows"], "stored": embs,
             "queries": queries, "vecs": vecs, "vecs_random": vecs_random}
+
+
+def fill_corpus(ctx: dict) -> float:
+    """Writes ``build_corpus``'s filler rows (TOTAL_ROWS in all, with the
+    document windows) through a worker process (``filler_job``) beside
+    the first kernel checks; returns its seconds."""
+    chunks = ctx.pop("fill")
+    return filler_job(ctx, ctx["db_path"], sum(map(len, chunks)), chunks)["seconds"]
 
 
 def cli_queries(card: str, state, ctx: dict, tier: str, kernel: str, gate_self: bool = True):
@@ -2128,10 +2464,14 @@ def bf16_slice(card: str, ctx: dict, dev) -> dict:
     return state, {"launches": launches, "p50": p50, "p95": p95, "results": results}
 
 
-def hold_to_plain(searcher, qvs, results, tag: str) -> None:
+def hold_to_plain(searcher, qvs, results, tag: str, scale=None) -> None:
     """Each query's CLI hits against the plain scan over the same device
     matrix at the searcher's first fetch depth: the same ids in the same
-    order, scores within 1e-4."""
+    order, scores within 1e-4 (f32 sums of bf16 products in another order),
+    times ``scale[q]`` where given (``score_scale``: the operands' norms).
+    Two hits may trade places only where their plain scores lie within
+    twice that, the tie band of the kernel checks (``compare_topk``); the
+    plain scan's 11th hit stands beside its 10th."""
     import torch
 
     from perceive_tpu_torch.index.searcher import _k_bucket
@@ -2144,11 +2484,9 @@ def hold_to_plain(searcher, qvs, results, tag: str) -> None:
     qvs = torch.nn.functional.pad(qvs[:, : m.dim], (0, m.padded_dim - m.dim))
     for qi in range(len(qvs)):
         vals, rows = topk.scan_topk_plain(vectors, src, qvs[qi : qi + 1], allowed, kb, m.sweep_rows)
-        want = searcher._decode_hits(vals[0].cpu().numpy(), rows[0].cpu().numpy(), 10)
+        want = searcher._decode_hits(vals[0].cpu().numpy(), rows[0].cpu().numpy(), 11)
         got = [(r["id"], r["score"]) for r in results[qi]]
-        if [i for i, _ in got] != [i for i, _ in want] or max(
-            abs(a[1] - b[1]) for a, b in zip(got, want)
-        ) > 1e-4:
+        if not hits_match(got + want[10:], want, 1e-4 * (1.0 if scale is None else scale[qi])):
             raise SystemExit(f"{tag} query {qi}: hits differ from the plain scan:\n{got}\n{want}")
     log(f"{tag} hits equal the plain scan's for {len(qvs)}/{len(qvs)} queries")
 
@@ -2641,22 +2979,19 @@ def exact_top10(searcher, qvs, dev, with_rows: bool = False, k: int = 10):
 
 
 def int8_slice(card: str, ctx: dict, dev) -> tuple:
-    """Phase 8: fill SQLite to INT8_ROWS rows, a fresh AppState (auto tier
-    -> int8) from the bf16 base plus exactly the rows written since, 16 CLI
-    queries, hits held against the exact f32 top-10."""
+    """Phase 8: SQLite holds INT8_ROWS rows (``slice_filler``), a fresh
+    AppState (auto tier -> int8) from the bf16 base plus exactly the rows
+    written since, 16 CLI queries, hits held against the exact f32
+    top-10."""
     import torch
 
     from perceive_tpu_torch.cli import AppState
     from perceive_tpu_torch.ops import topk
 
-    t0 = time.perf_counter()
     model = ctx["model"]
     n_more = INT8_ROWS - TOTAL_ROWS
-    write_filler(ctx["db_path"], ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
-                 ctx["filler_text"], model.model_id, model.model_version)
-    ctx["next_id"] += n_more
-    ctx["next_seq"] += n_more
-    log(f"sqlite corpus: {n_more} more filler rows = {INT8_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
+    log(f"sqlite corpus: {n_more} more filler rows = {INT8_ROWS} rows, written in "
+        f"{ctx['slice_filler']['int8_s']:.1f} s beside the kernel checks")
 
     # the bf16 base (phase 7) is of another tier: its f32 rows stream, and
     # only the rows written since replay from SQLite
@@ -2712,7 +3047,7 @@ def audit_routes(searcher):
 
 
 def int2_slice(card: str, ctx: dict, dev) -> tuple:
-    """Phase 12: fill SQLite to INT2_ROWS rows, a fresh AppState (auto tier
+    """Phase 12: SQLite filled to INT2_ROWS rows (``slice_filler``: a copy of the int8 slice's database), a fresh AppState (auto tier
     -> int2 with its int8 companion) built cold, and its self-audit, gated on its filler
     stratum (``audit_strata``), 16 CLI queries on each of ``audit_routes``
     (coarse pass serving: K5, K6 and K7 must all run; demoted: K7), hits
@@ -2723,14 +3058,12 @@ def int2_slice(card: str, ctx: dict, dev) -> tuple:
     from perceive_tpu_torch.cli import AppState
     from perceive_tpu_torch.index.matrix import INT2
 
-    t0 = time.perf_counter()
     model = ctx["model"]
-    n_more = INT2_ROWS - INT8_ROWS
-    write_filler(ctx["db_path"], ctx["fill_source"], ctx["next_id"], ctx["next_seq"], n_more, ctx["gen"],
-                 ctx["filler_text"], model.model_id, model.model_version)
-    ctx["next_id"] += n_more
-    ctx["next_seq"] += n_more
-    log(f"sqlite corpus: {n_more} more filler rows = {INT2_ROWS} rows, written in {time.perf_counter() - t0:.1f} s")
+    ctx["db_path"] = ctx["int2_db"]
+    filler = ctx["slice_filler"]
+    log(f"sqlite corpus: the int8 slice's database copied in {filler['copy_s']:.1f} s and "
+        f"{INT2_ROWS - INT8_ROWS} more filler rows = {INT2_ROWS} rows written into the copy in "
+        f"{filler['int2_s']:.1f} s, beside the kernel checks; the int2 slice and those after it run on the copy")
 
     # the bf16 base has served the int8 build: without it this build is cold
     os.unlink(ctx["snap"])
@@ -3114,17 +3447,19 @@ def sqlite_live_keys(db_path: str, model) -> np.ndarray:
         return np.fromiter(itertools.chain.from_iterable(cur), dtype=np.int64)
 
 
-def served_recall(tier: str, results, exact, gate: bool = True) -> float:
+def served_recall(tier: str, results, exact, gate: bool = True, scale=None) -> float:
     """The share of the exact f32 top-10 ids the CLI served, over the 16
     queries; fails (where ``gate``) under 0.99 or where a served score of
-    one of them is off by more than 1e-5."""
+    one of them is off by more than 1e-5 (of ``scale[q]`` where given:
+    ``score_scale``, the operands' norms)."""
     hit = total = 0
     worst = 0.0
     for qi, want in enumerate(exact):
         got = dict((r["id"], r["score"]) for r in results[qi])
         hit += sum(i in got for i, _ in want)
         total += len(want)
-        worst = max([worst] + [abs(got[i] - s) for i, s in want if i in got])
+        unit = 1.0 if scale is None else scale[qi]
+        worst = max([worst] + [abs(got[i] - s) / unit for i, s in want if i in got])
     recall = hit / max(total, 1)
     log(f"{tier} served_recall_at_10 {recall:.6f} ({hit}/{total}) against the exact f32 top-10; "
         f"max score error {worst:.3g}")
@@ -3617,11 +3952,95 @@ FAMILIES = {
                    "hidden_act": "gelu_new", "max_position_embeddings": 512, "type_vocab_size": 2,
                    "pad_token_id": 0, "bos_token_id": 2, "eos_token_id": 3, "layer_norm_eps": 1e-12},
         "max_seq_length": 512, "tokenizer": "unigram"},
+    # the DistilBERT checkpoints: WordPiece vocab.txt files, DistilBERT key
+    # names; tas-b pools the CLS token, distiluse has the registry's one
+    # Dense head (768 -> 512, tanh); neither normalizes
+    "MsMarcoDistilbertBaseTasB": {
+        "config": {"model_type": "distilbert", "architectures": ["DistilBertModel"], "vocab_size": 30522,
+                   "dim": 768, "n_layers": 6, "n_heads": 12, "hidden_dim": 3072, "activation": "gelu",
+                   "max_position_embeddings": 512, "sinusoidal_pos_embds": False, "pad_token_id": 0},
+        "max_seq_length": 512, "tokenizer": "wordpiece", "pooling": "cls", "normalize": False},
+    "DistiluseBaseMultilingualCased": {
+        "config": {"model_type": "distilbert", "architectures": ["DistilBertModel"], "vocab_size": 119547,
+                   "dim": 768, "n_layers": 6, "n_heads": 12, "hidden_dim": 3072, "activation": "gelu",
+                   "max_position_embeddings": 512, "sinusoidal_pos_embds": False, "pad_token_id": 0},
+        "max_seq_length": 128, "tokenizer": "wordpiece-cased", "dense": 512, "normalize": False},
+}
+# the default configuration (cli/state.py DEFAULT_MODEL, DEFAULT_HIGHLIGHT_MODEL)
+DEFAULT_CHECKPOINTS = {
+    "MsMarcoBertBaseDotV5": {  # mean pooling, no Normalize: unnormalized dot-product rows
+        "config": {"model_type": "bert", "architectures": ["BertModel"], "vocab_size": 30522, "hidden_size": 768,
+                   "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+                   "hidden_act": "gelu", "max_position_embeddings": 512, "type_vocab_size": 2, "pad_token_id": 0,
+                   "layer_norm_eps": 1e-12},
+        "max_seq_length": 512, "tokenizer": "wordpiece", "normalize": False},
+    "AllMiniLmL6V2": {
+        "config": {"model_type": "bert", "architectures": ["BertModel"], "vocab_size": 30522, "hidden_size": 384,
+                   "num_hidden_layers": 6, "num_attention_heads": 12, "intermediate_size": 1536,
+                   "hidden_act": "gelu", "max_position_embeddings": 512, "type_vocab_size": 2, "pad_token_id": 0,
+                   "layer_norm_eps": 1e-12},
+        "max_seq_length": 256, "tokenizer": "wordpiece"},
 }
 FAMILY_DOCS = 256
 FAMILY_LONG = 64  # documents over 400 tokens: their 510-token windows ride the 512 bucket, K11's
 FAMILY_FILLER = 65_536
-FAMILY_PHASE_S = 90  # the phase's budget, both families
+FAMILY_PHASE_S = 90  # the phase's budget, all four families
+ACCENTED = {"a": "á", "e": "é", "i": "í", "o": "ó", "u": "ú"}
+CJK_CHARS = 4096  # CJK ideographs from U+4E00, each a token of the cased vocabulary
+
+
+def cased_vocab(size: int = 119547) -> list[str]:
+    """A deterministic ``size``-entry cased WordPiece vocabulary: the
+    specials and single characters of tiny_test_vocab, capital and
+    accented letters, CJK_CHARS ideographs, continuation syllables (plain
+    and accented), then two-syllable words in lower case, capitalized and
+    with an accented second syllable, and three-syllable words lower and
+    capitalized."""
+    from perceive_tpu_torch.models.tokenize import tiny_test_vocab
+
+    accented = [c + ACCENTED[v] for c in "bcdfghjklmnprstvz" for v in "aeiou"]
+    letters = [chr(c) for c in range(ord("A"), ord("Z") + 1)] + list("áéíóúÁÉÍÓÚñÑçÇüÜöÖ")
+    two = [w for a in SYLLABLES for b in SYLLABLES for w in (a + b, (a + b).capitalize())]
+    words = dict.fromkeys([*tiny_test_vocab([]), *letters, *("##" + c for c in letters),
+                           *(chr(0x4E00 + i) for i in range(CJK_CHARS)), *("##" + x for x in SYLLABLES + accented),
+                           *two, *(a + b for a in SYLLABLES for b in accented)])
+    need = size - len(words)
+    three = (w for a in SYLLABLES for b in SYLLABLES for c in SYLLABLES for w in (a + b + c, (a + b + c).capitalize()))
+    words.update(dict.fromkeys(itertools.islice(three, need)))
+    return list(words)[:size]
+
+
+def checkpoint_tokenizer(spec: dict):
+    """The tokenizer a checkpoint spec names: a tokenizer.json dict (bpe,
+    unigram) or a WordPiece vocabulary list (uncased, cased)."""
+    kind, size = spec["tokenizer"], spec["config"]["vocab_size"]
+    return {"bpe": bpe_tokenizer_json, "unigram": unigram_tokenizer_json, "wordpiece": minilm_vocab,
+            "wordpiece-cased": cased_vocab}[kind](size)
+
+
+def install_checkpoints(models_dir: str) -> dict:
+    """Every checkpoint the families and the default configuration load,
+    under ``models_dir``: name -> the seconds it took.
+    The smoke writes them in a worker process (``host_job``) while the
+    kernel checks run."""
+    specs = [(name, spec, seed) for seed, (name, spec) in enumerate(FAMILIES.items(), start=20)]
+    specs += [(name, spec, seed) for seed, (name, spec) in enumerate(DEFAULT_CHECKPOINTS.items(), start=30)]
+    return {name: install_checkpoint(models_dir, name, spec, seed) for name, spec, seed in specs}
+
+
+def install_checkpoint(models_dir: str, name: str, spec: dict, seed: int):
+    """Writes the checkpoint ``spec`` describes for the registry's ``name``
+    under ``models_dir`` (its hub name as the folder): seeded weights at
+    the published widths.  Returns the seconds taken."""
+    from perceive_tpu_torch.models import ModelType
+
+    t0 = time.perf_counter()
+    tok = checkpoint_tokenizer(spec)
+    write_checkpoint(os.path.join(models_dir, ModelType.parse(name).checkpoint_dir_name), spec["config"], tok,
+                     spec["max_seq_length"], seed, pooling=spec.get("pooling", "mean"),
+                     normalize=spec.get("normalize", True), dense=spec.get("dense", 0),
+                     lower=spec["tokenizer"] != "wordpiece-cased")
+    return time.perf_counter() - t0
 
 
 def _added(i: int, content: str, lstrip: bool = False) -> dict:
@@ -3726,12 +4145,14 @@ def unigram_tokenizer_json(vocab_size: int = 30000, seed: int = 5) -> dict:
 
 def hf_state_dict(cfg: dict, seed: int) -> dict:
     """Seeded weights (normal, std 0.02; LayerNorms near 1) under the key
-    names of HF's RobertaModel or AlbertModel (ALBERT: the factorized
-    embedding and the one shared layer)."""
+    names of HF's BertModel, RobertaModel, AlbertModel (the factorized
+    embedding and the one shared layer) or DistilBertModel (its own layer
+    names, no token-type table)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    h, f = cfg["hidden_size"], cfg["intermediate_size"]
+    distil = cfg["model_type"] == "distilbert"
+    h, f = (cfg["dim"], cfg["hidden_dim"]) if distil else (cfg["hidden_size"], cfg["intermediate_size"])
     e = cfg.get("embedding_size", h)
 
     def w(*shape):
@@ -3740,14 +4161,21 @@ def hf_state_dict(cfg: dict, seed: int) -> dict:
     def norm(prefix, n):
         return {prefix + ".weight": 1.0 + w(n), prefix + ".bias": w(n)}
 
-    sd = {"embeddings.word_embeddings.weight": w(cfg["vocab_size"], e),
-          "embeddings.position_embeddings.weight": w(cfg["max_position_embeddings"], e),
-          "embeddings.token_type_embeddings.weight": w(cfg["type_vocab_size"], e),
-          **norm("embeddings.LayerNorm", e)}
-
     def linear(name, n_out, n_in):
         return {name + ".weight": w(n_out, n_in), name + ".bias": w(n_out)}
 
+    sd = {"embeddings.word_embeddings.weight": w(cfg["vocab_size"], e),
+          "embeddings.position_embeddings.weight": w(cfg["max_position_embeddings"], e),
+          **norm("embeddings.LayerNorm", e)}
+    if distil:
+        for i in range(cfg["n_layers"]):
+            at = f"transformer.layer.{i}."
+            for name in ("q_lin", "k_lin", "v_lin", "out_lin"):
+                sd.update(linear(at + "attention." + name, h, h))
+            sd.update({**norm(at + "sa_layer_norm", h), **linear(at + "ffn.lin1", f, h),
+                       **linear(at + "ffn.lin2", h, f), **norm(at + "output_layer_norm", h)})
+        return sd
+    sd["embeddings.token_type_embeddings.weight"] = w(cfg["type_vocab_size"], e)
     if cfg["model_type"] == "albert":
         sd.update(linear("encoder.embedding_hidden_mapping_in", h, e))
         at = "encoder.albert_layer_groups.0.albert_layers.0."
@@ -3766,35 +4194,66 @@ def hf_state_dict(cfg: dict, seed: int) -> dict:
     return sd
 
 
-def write_checkpoint(path: str, cfg: dict, tokenizer: dict, max_seq_length: int, seed: int) -> None:
+def write_checkpoint(path: str, cfg: dict, tokenizer, max_seq_length: int, seed: int, pooling: str = "mean",
+                     normalize: bool = True, dense: int = 0, lower: bool = True) -> None:
     """A sentence-transformers checkpoint directory: config.json, seeded
-    weights in pytorch_model.bin, mean pooling + Normalize, the
-    tokenizer.json and sentence_bert_config.json."""
+    weights in pytorch_model.bin, ``pooling`` ("mean" or "cls"), an
+    optional 2_Dense (hidden -> ``dense``, tanh), an optional Normalize,
+    sentence_bert_config.json, and the tokenizer: a tokenizer.json (a dict)
+    or a WordPiece vocab.txt (a list of tokens) with a
+    tokenizer_config.json giving ``lower`` as do_lower_case."""
     import torch
 
-    os.makedirs(os.path.join(path, "1_Pooling"), exist_ok=True)
+    hidden = cfg.get("hidden_size", cfg.get("dim"))
+    modules = [{"idx": 0, "name": "0", "path": "", "type": "sentence_transformers.models.Transformer"},
+               {"idx": 1, "name": "1", "path": "1_Pooling", "type": "sentence_transformers.models.Pooling"}]
     files = {
         "config.json": cfg,
-        "modules.json": [
-            {"idx": 0, "name": "0", "path": "", "type": "sentence_transformers.models.Transformer"},
-            {"idx": 1, "name": "1", "path": "1_Pooling", "type": "sentence_transformers.models.Pooling"},
-            {"idx": 2, "name": "2", "path": "2_Normalize", "type": "sentence_transformers.models.Normalize"}],
-        "1_Pooling/config.json": {"word_embedding_dimension": cfg["hidden_size"], "pooling_mode_cls_token": False,
-                                  "pooling_mode_mean_tokens": True, "pooling_mode_max_tokens": False},
+        "1_Pooling/config.json": {"word_embedding_dimension": hidden, "pooling_mode_cls_token": pooling == "cls",
+                                  "pooling_mode_mean_tokens": pooling == "mean", "pooling_mode_max_tokens": False},
         "sentence_bert_config.json": {"max_seq_length": max_seq_length, "do_lower_case": False},
-        "tokenizer.json": tokenizer,
     }
+    if dense:
+        modules.append({"idx": 2, "name": "2", "path": "2_Dense", "type": "sentence_transformers.models.Dense"})
+        files["2_Dense/config.json"] = {"in_features": hidden, "out_features": dense, "bias": True,
+                                        "activation_function": "torch.nn.modules.activation.Tanh"}
+    if normalize:
+        n = len(modules)
+        modules.append({"idx": n, "name": str(n), "path": f"{n}_Normalize",
+                        "type": "sentence_transformers.models.Normalize"})
+    files["modules.json"] = modules
+    if isinstance(tokenizer, dict):
+        files["tokenizer.json"] = tokenizer
+    else:
+        files["tokenizer_config.json"] = {"do_lower_case": lower, "tokenize_chinese_chars": True,
+                                          "strip_accents": None, "pad_token": "[PAD]",
+                                          "model_max_length": max_seq_length}
     for name, body in files.items():
+        os.makedirs(os.path.dirname(os.path.join(path, name)), exist_ok=True)
         with open(os.path.join(path, name), "w", encoding="utf-8") as fh:
             json.dump(body, fh, ensure_ascii=False)
+    if not isinstance(tokenizer, dict):
+        with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as fh:
+            fh.write("\n".join(tokenizer) + "\n")
     torch.save(hf_state_dict(cfg, seed), os.path.join(path, "pytorch_model.bin"))
+    if dense:
+        g = torch.Generator().manual_seed(seed + 1)
+        torch.save({"linear.weight": torch.randn((dense, hidden), generator=g) / hidden ** 0.5,
+                    "linear.bias": torch.randn((dense,), generator=g) * 0.02},
+                   os.path.join(path, "2_Dense", "pytorch_model.bin"))
 
 
 def family_docs(rng, tokenizer: dict, n_docs: int = FAMILY_DOCS, n_long: int = FAMILY_LONG) -> list[str]:
     """``n_docs`` texts of the words the tokenizer holds whole (one token
     each, mostly): the first ``n_long`` of 440 to 1,100 words, the rest 12
-    to 120, a few with punctuation and capitals."""
-    if tokenizer["model"]["type"] == "BPE":
+    to 120, a few with punctuation and capitals.  ``tokenizer`` is a
+    tokenizer.json dict or a WordPiece vocabulary; where the vocabulary
+    holds CJK ideographs, every tenth word is a run of 2 to 4 of them."""
+    cjk = []
+    if isinstance(tokenizer, list):
+        words = [t for t in tokenizer if len(t) > 3 and not t.startswith(("##", "["))]
+        cjk = [t for t in tokenizer if len(t) == 1 and "\u4e00" <= t <= "\u9fff"]
+    elif tokenizer["model"]["type"] == "BPE":
         sp = "Ġ"
         words = [t[1:] for t in tokenizer["model"]["vocab"] if t.startswith(sp) and len(t) > 3]
     else:
@@ -3803,6 +4262,9 @@ def family_docs(rng, tokenizer: dict, n_docs: int = FAMILY_DOCS, n_long: int = F
     for i in range(n_docs):
         n = int(rng.integers(440, 1100)) if i < n_long else int(rng.integers(12, 121))
         picks = [words[j] for j in rng.integers(0, len(words), n)]
+        if cjk:
+            for j in range(0, n, 10):
+                picks[j] = "".join(cjk[c] for c in rng.integers(0, len(cjk), int(rng.integers(2, 5))))
         if i % 4 == 1:
             picks[0] = picks[0].capitalize()
             picks[-1] += "."
@@ -3810,21 +4272,47 @@ def family_docs(rng, tokenizer: dict, n_docs: int = FAMILY_DOCS, n_long: int = F
     return docs
 
 
-def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
-    """Both tokenizer.json families through the normal entry points: each
-    checkpoint written under PERCEIVE_TPU_MODEL_DATA, ``model set`` on a
-    fresh database, 65,536 seeded 768-d filler rows, a fresh AppState that
-    must load the checkpoint (PERCEIVE_TPU_REQUIRE_CHECKPOINT=1), ``source
-    add fs`` + ``source scan`` of 256 documents (``scan_and_check``: K11 at
-    DH 64 during the scan), and 16 CLI queries (K1 over the 768-d matrix)
-    whose hits must equal the plain scan's over the same device matrix
-    (``hold_to_plain``) and an exact f32 top-10 over the host mirror."""
+def row_norm_max(searcher) -> float:
+    """The largest row norm in the searcher's host mirror."""
+    m = searcher.matrix
+    step = 262_144
+    return max(float(np.linalg.norm(m.host_vectors_for(slice(lo, min(m.rows, lo + step))), axis=1).max())
+               for lo in range(0, m.rows, step))
+
+
+def score_scale(searcher, qvs):
+    """Per query, |q| times the largest row norm in the searcher's host
+    mirror: a dot product's rounding error scales with its operands' norms,
+    so every score tolerance below is a unit tolerance times this (1 for
+    unit queries over unit rows)."""
+    return qvs[:, : searcher.matrix.dim].norm(dim=1).cpu().numpy() * row_norm_max(searcher)
+
+
+def family_phase(card: str, workdir: str, dev, ctx: dict, installed: dict) -> dict:
+    """The registry families the main slices do not run, through the normal
+    entry points: the tokenizer.json ones (byte-level BPE, Unigram) and the
+    DistilBERT ones (WordPiece vocab.txt, CLS pooling, a Dense head, a
+    cased vocabulary).  Each checkpoint is written under
+    PERCEIVE_TPU_MODEL_DATA, ``model set`` on a fresh database, a fresh
+    AppState must load it (PERCEIVE_TPU_REQUIRE_CHECKPOINT=1) and scans 256
+    documents (``scan_and_check``: K11 at DH 64 where the 512 bucket is
+    reached, none where max_seq_length is 128); ``installed`` holds each
+    checkpoint's write seconds (``install_checkpoints`` into
+    ``workdir``/model_data, in a worker process); then 65,536 filler rows at
+    the model's width, their norms drawn from the scanned windows', and an
+    AppState over them all (that model) answers 16 CLI queries (K1 over
+    the matrix) whose hits must equal the plain scan's over the same
+    device matrix (``hold_to_plain``) and an exact f32 top-10 over the
+    host mirror."""
+    import shutil
+
     import torch
 
     from perceive_tpu_torch.cli import AppState
     from perceive_tpu_torch.cli import main as cli_main
     from perceive_tpu_torch.db import add_source
     from perceive_tpu_torch.models import ModelType
+    from perceive_tpu_torch.ops import attention as attn
     from perceive_tpu_torch.ops import topk
     from perceive_tpu_torch.types import Source
 
@@ -3838,16 +4326,15 @@ def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
             t0 = time.perf_counter()
             mt = ModelType.parse(name)
             cfg = fam["config"]
-            spec = bpe_tokenizer_json(cfg["vocab_size"]) if fam["tokenizer"] == "bpe" else unigram_tokenizer_json(
-                cfg["vocab_size"])
-            write_checkpoint(os.path.join(models_dir, mt.checkpoint_dir_name), cfg, spec, fam["max_seq_length"], seed)
-            t_write = time.perf_counter() - t0
+            width = fam.get("dense") or cfg.get("hidden_size", cfg.get("dim"))
+            spec, t_write = checkpoint_tokenizer(fam), installed[name]
             fdir = os.path.join(workdir, mt.checkpoint_dir_name)
             docs = family_docs(np.random.default_rng(seed), spec)
             write_docs(os.path.join(fdir, "docs"), docs)
             db_path = os.path.join(fdir, "family.sqlite3")
 
-            # model set on the new database, then the filler under that model's keys
+            # model set on the new database, then a fresh AppState that must
+            # load the checkpoint, and the scan
             setter = AppState(db_path, model=ctx["model"], highlights_model=ctx["model"], device=dev,
                               build_searcher=False)
             with contextlib.redirect_stdout(io.StringIO()) as said:
@@ -3859,28 +4346,39 @@ def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
                                                    location="generated:filler"))
             setter.close()
             t1 = time.perf_counter()
-            filler_text = " ".join(docs[-1].split()[:16])
-            write_filler(db_path, src_fill.id, 1, 1, FAMILY_FILLER, torch.Generator(device=dev).manual_seed(seed),
-                         filler_text, mt.model_id, 0, dim=cfg["hidden_size"])
-            t_fill = time.perf_counter() - t1
-
-            t1 = time.perf_counter()
             state = AppState(db_path, highlights_model=ctx["model"], device=dev)
             t_state = time.perf_counter() - t1
-            m = state.searcher.matrix
-            log(f"{name}: AppState loaded {state.model.name!r} ({state.model.dim}-d, tokenizer: the compiled "
-                f"engine over a {type(state.model.tokenizer.tokenizer).__name__}, max_seq_length "
-                f"{state.model.tokenizer.max_seq_length}) over {len(m)} rows, tier {m.tier_name}, in {t_state:.1f} s "
-                f"(checkpoint written in {t_write:.1f} s, filler in {t_fill:.1f} s)  [{card}]")
-            if state.model.name != name or state.model.model_id != mt.model_id:
-                raise SystemExit(f"AppState serves {state.model.name!r}, not the {name} checkpoint")
-            if len(m) != FAMILY_FILLER or m.dtype != torch.bfloat16 or m.dim != cfg["hidden_size"]:
-                raise SystemExit(f"{name}: the searcher holds {len(m)} {m.tier_name} rows of {m.dim}; "
-                                 f"want {FAMILY_FILLER} bf16 rows of {cfg['hidden_size']}")
-
+            model = state.model
+            log(f"{name}: AppState loaded {model.name!r} ({model.dim}-d, {model.head.pooling} pooling, "
+                f"dense {model.head.dense_dim or 'none'}, normalize {model.head.normalize}; tokenizer: the compiled "
+                f"engine over a {type(model.tokenizer.tokenizer).__name__}, max_seq_length "
+                f"{model.tokenizer.max_seq_length}) in {t_state:.1f} s (checkpoint written in {t_write:.1f} s)  "
+                f"[{card}]")
+            if model.name != name or model.model_id != mt.model_id or model.dim != width:
+                raise SystemExit(f"AppState serves {model.name!r} ({model.dim}-d), not the {name} checkpoint")
             reset_launch_counts()
-            ing = scan_and_check(card, state, db_path, os.path.join(fdir, "docs"), docs, tag=name)
+            ing = scan_and_check(card, state, db_path, os.path.join(fdir, "docs"), docs, tag=name,
+                                 attention=fam["max_seq_length"] >= attn.KERNEL_MIN_SEQ)
             out["attention"] += ing["launches"]
+            state.close()
+
+            # the filler at the model's width and its windows' norms, then an
+            # AppState over all the rows
+            t1 = time.perf_counter()
+            norms = np.linalg.norm(ing["embs"], axis=1)
+            filler_text = " ".join(docs[-1].split()[:16])
+            write_filler(db_path, src_fill.id, ing["next_id"], ing["next_seq"], FAMILY_FILLER,
+                         torch.Generator(device=dev).manual_seed(seed), filler_text, mt.model_id, 0, dim=width,
+                         norms=norms)
+            t_fill = time.perf_counter() - t1
+            state = AppState(db_path, model=model, highlights_model=ctx["model"], device=dev)
+            m = state.searcher.matrix
+            log(f"{name}: {FAMILY_FILLER} filler rows (norms {norms.min():.4g} to {norms.max():.4g}, median "
+                f"{np.median(norms):.4g}: the windows') written in {t_fill:.1f} s; AppState over {len(m)} rows, "
+                f"tier {m.tier_name}")
+            if len(m) != FAMILY_FILLER + ing["windows"] or m.dtype != torch.bfloat16 or m.dim != width:
+                raise SystemExit(f"{name}: the searcher holds {len(m)} {m.tier_name} rows of {m.dim}; "
+                                 f"want {FAMILY_FILLER + ing['windows']} bf16 rows of {width}")
 
             doc_ids = ing["doc_ids"]
             self_docs = [FAMILY_LONG + i * ((FAMILY_DOCS - FAMILY_LONG) // N_SELF_QUERIES)
@@ -3891,26 +4389,31 @@ def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
                 " ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(3, 9))))
                 for _ in range(16 - N_SELF_QUERIES)]
             fctx = {"db_path": db_path, "docs": docs, "queries": queries, "self_docs": self_docs,
-                    "doc_ids": doc_ids, "filler_text": filler_text, "first_fill_id": 1,
-                    "tok": state.model.tokenizer, "model": state.model}
+                    "doc_ids": doc_ids, "filler_text": filler_text, "first_fill_id": ing["next_id"],
+                    "tok": model.tokenizer, "model": model}
             topk.reset_launch_counts()
-            results, p50, p95 = cli_queries(card, state, fctx, name, "scan_topk")
+            # a stored window's own text ranks it first by cosine; by dot
+            # product (no Normalize) a longer row may outscore it: reported
+            results, p50, p95 = cli_queries(card, state, fctx, name, "scan_topk", gate_self=model.head.normalize)
             out["scan_topk"] += topk.launch_counts()["scan_topk"]
             qvs = torch.cat([query_vector(fctx, q, dev) for q in queries])
-            hold_to_plain(state.searcher, qvs, results, name)
-            # and against an exact f32 top-10 over the host mirror: the bf16
-            # rows score within BF16_SCORE_TOL of their f32 rows, and two hits
-            # (the 10th and 11th too) may trade places within twice that
+            scale = score_scale(state.searcher, qvs)
+            hold_to_plain(state.searcher, qvs, results, name, scale)
+            # and against an exact f32 top-10 over the host mirror: a bf16
+            # row's score lies within BF16_SCORE_TOL * |q| |r| of its f32
+            # row's, and two hits (the 10th and 11th too) may trade places
+            # within twice that
             exact = exact_top10(state.searcher, qvs, dev, k=11)
             worst, same = 0.0, 0
             for qi, want in enumerate(exact):
                 got = [(r["id"], r["score"]) for r in results[qi]]
-                if not hits_match(got + [want[10]], want, BF16_SCORE_TOL):
+                if not hits_match(got + [want[10]], want, BF16_SCORE_TOL * scale[qi]):
                     raise SystemExit(f"{name} query {qi}: hits differ from the exact f32 top-10:\n{got}\n{want}")
-                worst = max(worst, max(abs(a[1] - b[1]) for a, b in zip(got, want)))
+                worst = max(worst, max(abs(a[1] - b[1]) / scale[qi] for a, b in zip(got, want)))
                 same += len({i for i, _ in got} & {i for i, _ in want[:10]})
             log(f"{name}: hits within the exact f32 top-10 for 16/16 queries (recall@10 {same / (10 * len(exact)):.4f}, "
-                f"max score error {worst:.3g}, tol {BF16_SCORE_TOL}); smoke readings over {len(docs)} documents "
+                f"max score error {worst:.3g} of |q| |r|max, tol {BF16_SCORE_TOL}; |q| |r|max "
+                f"{scale.min():.4g} to {scale.max():.4g}); smoke readings over {len(docs)} documents "
                 f"and {len(m)} rows: docs/s {len(docs) / ing['scan_s']:.1f} end to end "
                 f"({ing['summary'][0] if ing['summary'] else 'no summary'}); query p50 {p50:.2f} ms p95 {p95:.2f} ms; "
                 f"launches: attention {ing['launches']} in the scan, scan_topk "
@@ -3918,7 +4421,8 @@ def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
             out[name] = {"docs_s": len(docs) / ing["scan_s"], "p50": p50, "p95": p95, "tok_s": ing["tok_s"],
                          "scan_s": ing["scan_s"], "s": time.perf_counter() - t0}
             state.close()
-            del state
+            del state, model, fctx
+            shutil.rmtree(os.path.join(models_dir, mt.checkpoint_dir_name))
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -3926,10 +4430,374 @@ def family_phase(card: str, workdir: str, dev, ctx: dict) -> dict:
         os.environ.pop("PERCEIVE_TPU_MODEL_DATA", None)
     took = time.perf_counter() - t_phase
     each = ", ".join(f"{n} {out[n]['s']:.1f} s" for n in FAMILIES)
-    log(f"tokenizer.json families: {took:.1f} s of the phase's {FAMILY_PHASE_S} s budget ({each})  [{card}]")
+    log(f"registry families: {took:.1f} s of the phase's {FAMILY_PHASE_S} s budget ({each})  [{card}]")
     if out["attention"] == 0 or out["scan_topk"] == 0:
         raise SystemExit(f"the families' main path launched attention {out['attention']}, "
                          f"scan_topk {out['scan_topk']} times")
+    if took > FAMILY_PHASE_S:
+        raise SystemExit(f"the families' phase took {took:.1f} s, past its {FAMILY_PHASE_S} s budget")
+    return out
+
+
+# -- the default configuration: the models AppState loads when none is named --
+
+DEFAULT_FILLER = 786_432  # with the 2,593 windows, 1.58M effective rows at 768-d: the int8 tier by auto
+DEFAULT_PHASE_S = 150  # the phase's budget
+
+
+@contextlib.contextmanager
+def timed_loads():
+    """Seconds of each ``cli.state.load_model`` call inside the block, by
+    model name (AppState loads its two models on two threads)."""
+    from perceive_tpu_torch.cli import state as cli_state
+
+    loads, load = {}, cli_state.load_model
+
+    def timed(model_type, device):
+        t0 = time.perf_counter()
+        model = load(model_type, device)
+        loads[model_type.value] = time.perf_counter() - t0
+        return model
+
+    cli_state.load_model = timed
+    try:
+        yield loads
+    finally:
+        cli_state.load_model = load
+
+
+def default_state(card: str, db_path: str, dev, tier: str):
+    """AppState(db_path) with no model passed: it must load the default
+    main model (MsMarcoBertBaseDotV5: id 7, 768-d, from its checkpoint) and,
+    as a model of its own, the default highlight model (AllMiniLmL6V2: id
+    0, 384-d)."""
+    from perceive_tpu_torch.cli import AppState
+    from perceive_tpu_torch.cli.state import DEFAULT_HIGHLIGHT_MODEL, DEFAULT_MODEL
+
+    t0 = time.perf_counter()
+    with timed_loads() as loads, build_route() as route:
+        state = AppState(db_path, device=dev)
+    main, hl = state.model, state.highlights_model
+    m = state.searcher.matrix
+    log(f"default AppState ({tier}): main {main.name!r} (id {main.model_id}, v{main.model_version}, {main.dim}-d, "
+        f"{main.head.pooling} pooling, normalize {main.head.normalize}) loaded in "
+        f"{loads.get(DEFAULT_MODEL.value, math.nan):.2f} s; highlight {hl.name!r} (id {hl.model_id}, {hl.dim}-d) in "
+        f"{loads.get(DEFAULT_HIGHLIGHT_MODEL.value, math.nan):.2f} s; {len(m)} rows, tier {m.tier_name}, in "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    if (main.name, main.model_id, main.dim, main.model_version) != (DEFAULT_MODEL.value, 7, 768, 0):
+        raise SystemExit(f"AppState's default main model is {main.name!r} ({main.dim}-d), not MsMarcoBertBaseDotV5")
+    if hl is main or (hl.name, hl.model_id, hl.dim, hl.model_version) != (DEFAULT_HIGHLIGHT_MODEL.value, 0, 384, 0):
+        raise SystemExit(f"AppState's default highlight model is {hl.name!r} ({hl.dim}-d), not its own AllMiniLmL6V2")
+    return state, route
+
+
+def default_phase(card: str, workdir: str, dev, ctx: dict, installed: dict, background) -> dict:
+    """The default configuration's first half: MsMarcoBertBaseDotV5 (12
+    layers, 768 wide, mean pooling, no Normalize) and AllMiniLmL6V2 written
+    under PERCEIVE_TPU_MODEL_DATA (``workdir``/model_data: ``installed``)
+    at their published widths with seeded weights,
+    PERCEIVE_TPU_REQUIRE_CHECKPOINT=1, and a database with no ``model
+    set``:
+      (a) AppState(db_path) loads both by its defaults (``default_state``);
+      (b) ``source add fs`` + ``source scan`` of the smoke's 2,048 files
+          (``scan_and_check``): K11 at head width 64 through 12 layers;
+      (c) ``python3 -m perceive_tpu_torch.cli serve --port 0`` over a copy
+          of the scanned database (bf16, D = 768): ready, one /search equal
+          to the in-process CLI's, SIGTERM exit 0 (``default_serve``),
+          while ``background`` (an executor of one thread) writes
+          DEFAULT_FILLER rows with the scanned windows' norms into the
+          database, for ``default_tiers``.
+    Every score tolerance scales with the operands' norms (``score_scale``):
+    these rows are not unit vectors.  Returns what ``default_tiers``
+    needs."""
+    import sqlite3
+
+    import torch
+
+    from perceive_tpu_torch.cli.state import DEFAULT_HIGHLIGHT_MODEL, DEFAULT_MODEL
+    from perceive_tpu_torch.db import add_source
+    from perceive_tpu_torch.types import Source
+
+    t_phase = time.perf_counter()
+    ddir = os.path.join(workdir, "default")
+    # its checkpoints' folder, no random fallback, a data dir of its own
+    env = {"PERCEIVE_TPU_MODEL_DATA": os.path.join(workdir, "model_data"), "PERCEIVE_TPU_REQUIRE_CHECKPOINT": "1",
+           "PERCEIVE_TPU_DATA_DIR": os.path.join(ddir, "data")}
+    os.environ.update(env)
+    out = {}
+    try:
+        for model_type in (DEFAULT_MODEL, DEFAULT_HIGHLIGHT_MODEL):
+            log(f"default configuration: {model_type.checkpoint_dir_name} written in "
+                f"{installed[model_type.value]:.1f} s, beside the first kernel checks")
+        docs, db_path = ctx["docs"], os.path.join(ddir, "default.sqlite3")
+        write_docs(os.path.join(ddir, "docs"), docs)
+
+        # (a) and (b)
+        state, _ = default_state(card, db_path, dev, "empty")
+        reset_launch_counts()
+        ing = scan_and_check(card, state, db_path, os.path.join(ddir, "docs"), docs, tag="default ingest")
+        layers = state.model.arch.num_layers
+        log(f"default ingest: K11 launched {ing['launches']} times through {layers} layers "
+            f"({ing['launches'] / layers:g} batches at a bucket of 384 or more)")
+        if ing["launches"] == 0 or ing["launches"] % layers:
+            raise SystemExit(f"the default ingest launched K11 {ing['launches']} times, not a multiple of {layers}")
+        out["ingest_docs_s"], out["attention"] = len(docs) / ing["scan_s"], ing["launches"]
+        norms = np.linalg.norm(ing["embs"], axis=1)
+        log(f"default ingest: the stored rows' norms {norms.min():.4g} to {norms.max():.4g}, median "
+            f"{np.median(norms):.4g} (mean pooling, no Normalize)")
+        dctx = {"db_path": db_path, "docs": docs, "queries": ctx["queries"], "self_docs": ctx["self_docs"],
+                "doc_ids": ing["doc_ids"], "filler_text": ctx["filler_text"], "first_fill_id": ing["next_id"],
+                "tok": state.model.tokenizer, "model": state.model}
+
+        # (c) the real entry point over the installed checkpoints, serving a
+        # copy of the scanned database while the filler goes into this one
+        q = ctx["queries"][N_SELF_QUERIES]
+        want = cli_json(state, dctx, "search", q, "-n", "10")
+        scale = float(score_scale(state.searcher, query_vector(dctx, q, dev))[0])
+        serve_db = os.path.join(ddir, "serve.sqlite3")
+        with contextlib.closing(sqlite3.connect(serve_db)) as copy:
+            state.db.read().backup(copy)
+        rows = len(state.searcher.matrix)
+        src_fill = add_source(state.db, Source(name="filler", config={"type": "fs"}, location="generated:filler"))
+        state.close()
+        del state, dctx["model"], dctx["tok"]
+        vectors = list(filler_vectors(torch.Generator(device=dev).manual_seed(32), DEFAULT_FILLER, 768, norms))
+        filler = background.submit(filler_job, {**ctx, "fill_source": src_fill.id, "next_id": ing["next_id"],
+                                                "next_seq": ing["next_seq"]},
+                                   db_path, DEFAULT_FILLER, vectors, dim=768, mid=7)
+        out["serve"] = default_serve(card, serve_db, q, want, scale, rows, env)
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"default configuration, first half: {out['seconds']:.1f} s  [{card}]")
+    return {"out": out, "ctx": dctx, "filler": filler, "rows": DEFAULT_FILLER + ing["windows"], "norms": norms,
+            "dir": ddir, "env": env}
+
+
+def default_tiers(card: str, dev, half: dict) -> dict:
+    """The default configuration's second half, once ``default_phase``'s
+    filler rows are in (1.58M effective rows at 768-d):
+      (d) an AppState by the defaults on the int8 tier (auto), 16 CLI
+          queries (K3; highlight on the MiniLM model) equal to an exact f32
+          top-10, a 2,048-query batch (K4) equal to search_vector's answers;
+      (e) the same database pinned to int2 (PERCEIVE_TPU_MATRIX_DTYPE),
+          built from (d)'s snapshot: 16 CLI queries per audit route (K5, K6,
+          K7), the device pipeline equal to the plain one,
+          served_recall_at_10 >= 0.99.
+    Both halves' seconds, the filler's written beside other phases left
+    out, stay within DEFAULT_PHASE_S."""
+    import torch
+
+    from perceive_tpu_torch.index.matrix import INT2
+
+    t_phase = time.perf_counter()
+    out, dctx, env, db_path = half["out"], half["ctx"], half["env"], half["ctx"]["db_path"]
+    log(f"default configuration: {DEFAULT_FILLER} filler rows of 768-d (the windows' norms) written in "
+        f"{half['filler'].result()['seconds']:.1f} s, beside the server and the kernel checks")
+    os.environ.update(env)
+    try:
+        # (d) the int8 tier by auto over the windows and the filler
+        state, _ = default_state(card, db_path, dev, "auto")
+        m = state.searcher.matrix
+        if len(m) != half["rows"] or m.dtype != torch.int8 or m.dim != 768:
+            raise SystemExit(f"the default state holds {len(m)} {m.tier_name} rows of {m.dim}; "
+                             f"want {half['rows']} int8 rows of 768")
+        dctx.update(tok=state.model.tokenizer, model=state.model)
+        out["int8"] = default_int8(card, state, dctx, dev, half["norms"])
+        dctx["snap"] = os.path.join(half["dir"], "matrix.npz")
+        cli_snapshot(card, state, dctx, dctx["snap"], "full")
+        state.close()
+        del state, dctx["model"], dctx["tok"]
+        gc.collect()
+
+        # (e) pinned to int2, streamed from (d)'s snapshot (another tier)
+        os.environ["PERCEIVE_TPU_MATRIX_DTYPE"] = "int2"
+        state, route = default_state(card, db_path, dev, "int2 pinned")
+        check_route(route, "default int2", adopted=False, sqlite_rows=0)
+        m = state.searcher.matrix
+        if m.dtype != INT2 or m.dim != 768 or len(m) != half["rows"]:
+            raise SystemExit(f"the pinned default state holds {len(m)} {m.tier_name} rows of {m.dim}")
+        dctx.update(tok=state.model.tokenizer, model=state.model)
+        out["int2"] = default_int2(card, state, dctx, dev)
+        state.close()
+        del state
+    finally:
+        for key in (*env, "PERCEIVE_TPU_MATRIX_DTYPE"):
+            os.environ.pop(key, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] += time.perf_counter() - t_phase
+    log(f"default configuration: {out['seconds']:.1f} s of the phase's {DEFAULT_PHASE_S} s budget (both halves; "
+        f"the filler rows written beside other phases)  [{card}]")
+    if out["seconds"] > DEFAULT_PHASE_S:
+        raise SystemExit(f"the default configuration's phase took {out['seconds']:.1f} s, past its "
+                         f"{DEFAULT_PHASE_S} s budget")
+    return out
+
+
+def default_serve(card: str, db_path: str, q: str, want: list, scale: float, rows: int, env: dict) -> dict:
+    """(c): ``python3 -m perceive_tpu_torch.cli serve --port 0`` in a
+    subprocess over ``db_path`` (a copy of the default database holding the
+    scanned windows alone: ``rows`` of them, bf16, D = 768) with the
+    installed checkpoints and no fallback: ready, /status over the same
+    rows, one /search for ``q`` whose hits equal ``want``, the in-process
+    CLI's (scores within 1e-4 of ``scale`` = |q| |r|max: the same kernels
+    over the same rows), SIGTERM exit 0."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "perceive_tpu_torch.cli", "--db", db_path, "serve", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli, cwd=root, env=dict(os.environ, PYTHONUNBUFFERED="1", **env),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+    reader.start()
+    try:
+        wait_for(lambda: any(l.startswith("Serving on") for l in lines) or proc.poll() is not None, 120,
+                 "the default server's address")
+        url = next((l.split()[-1] for l in lines if l.startswith("Serving on")), None)
+        if url is None:
+            raise SystemExit(f"default serve: the subprocess server exited {proc.returncode}: {lines[-10:]}")
+        port = int(url.rsplit(":", 1)[1])
+        wait_for(lambda: http_request(port, "GET", "/status")[1]["model_loaded"] or proc.poll() is not None, 120,
+                 "the default server's readiness")
+        ready = time.perf_counter() - t0
+        status = http_request(port, "GET", "/status")[1]
+        code, got = http_request(port, "GET", search_path(q, k=10))
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(30)
+        stop_s = time.perf_counter() - t1
+        reader.join(10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in lines[-6:]:
+        log(f"  default serve: {line.rstrip()}")
+    log(f"default serve: `python3 -m perceive_tpu_torch.cli serve` ready in {ready:.1f} s over {status.get('rows')} "
+        f"rows (tier {status.get('tier')}); /search answered {code} with {len(got) if code == 200 else got} hits; "
+        f"SIGTERM exit code {rc} in {stop_s:.2f} s  [{card}]")
+    if not status["model_loaded"] or status["rows"] != rows or status["tier"] != "bfloat16":
+        raise SystemExit(f"default serve: /status {status}")
+    if any("WARNING: no checkpoint" in line for line in lines):
+        raise SystemExit("default serve: the server fell back to a random model")
+    if code != 200 or not hits_match(served_hits(got), served_hits(want), 1e-4 * scale):
+        raise SystemExit(f"default serve: /search answered {code}:\n{got}\nthe CLI:\n{want}")
+    if rc != 0:
+        raise SystemExit(f"default serve: the subprocess server exited {rc} on SIGTERM")
+    return {"ready_s": ready, "sigterm_s": stop_s}
+
+
+def default_int8(card: str, state, ctx: dict, dev, norms) -> dict:
+    """(d): 16 CLI queries over the int8 tier (K3; highlight on the MiniLM
+    model, never the main one) equal to an exact f32 top-10 over the host
+    mirror (scores within 1e-5 of |q| |r|max: both are f32 dot products,
+    summed in another order; ids may trade places within twice that, the
+    11th beside the 10th), then
+    a batch of N_BATCH queries (half near a stored window, half random, at
+    the stored rows' norms) through search_vectors_batch (K4), each answer
+    equal to search_vector's."""
+    import torch
+
+    searcher = state.searcher
+    calls = {"main": 0, "highlight": 0}
+
+    def counted(model, key):
+        run = model.highlight
+
+        def highlight(*args, **kwargs):
+            calls[key] += 1
+            return run(*args, **kwargs)
+        return highlight
+
+    state.model.highlight = counted(state.model, "main")
+    state.highlights_model.highlight = counted(state.highlights_model, "highlight")
+    reset_launch_counts()
+    esc0 = searcher.escalations
+    try:
+        results, p50, p95 = cli_queries(card, state, ctx, "default int8", "scan_int8", gate_self=False)
+    finally:
+        del state.model.highlight, state.highlights_model.highlight
+    launches = launch_counts()["scan_int8"]
+    escalations = searcher.escalations - esc0
+    if calls["highlight"] != 18 or calls["main"]:
+        raise SystemExit(f"default int8: highlight ran {calls['highlight']} times on the MiniLM model and "
+                         f"{calls['main']} on the main model; want 18 and 0")
+    qvs = torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]])
+    rmax = row_norm_max(searcher)
+    scale = qvs.norm(dim=1).cpu().numpy() * rmax
+    exact = exact_top10(searcher, qvs, dev, k=11)
+    for qi, want in enumerate(exact):
+        got = [(r["id"], r["score"]) for r in results[qi]]
+        if not hits_match(got + want[10:], want, 1e-5 * scale[qi]):
+            raise SystemExit(f"default int8 query {qi}: hits differ from the exact f32 top-10:\n{got}\n{want}")
+    log(f"default int8: hits equal the exact f32 top-10 for 16/16 queries (|q| |r|max {scale.min():.4g} to "
+        f"{scale.max():.4g}); highlight on {state.highlights_model.name} 18 times, on the main model 0; "
+        f"escalations {escalations}; scan_int8 launches {launches}")
+
+    # the batch path
+    rng = np.random.default_rng(33)
+    half = N_BATCH // 2
+    stored = searcher.matrix.host_vectors_for(rng.integers(0, searcher.matrix.rows, half))
+    near = stored + 0.02 * np.linalg.norm(stored, axis=1, keepdims=True) * rng.standard_normal(
+        stored.shape).astype(np.float32) / np.sqrt(stored.shape[1])
+    far = rng.standard_normal((N_BATCH - half, 768)).astype(np.float32)
+    far *= (rng.choice(norms, N_BATCH - half) / np.linalg.norm(far, axis=1))[:, None]
+    vecs = np.concatenate([near, far]).astype(np.float32)[rng.permutation(N_BATCH)]
+    reset_launch_counts()
+    esc0 = searcher.escalations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = searcher.search_vectors_batch(vecs, 10)
+    batch_s = time.perf_counter() - t0
+    k4 = launch_counts()["scan_int8_slab"]
+    esc = searcher.escalations - esc0
+    bscale = np.linalg.norm(vecs, axis=1) * rmax
+    bad = sum(not hits_match(batch[i], searcher.search_vector(vecs[i], 10), 1e-5 * bscale[i]) for i in range(N_BATCH))
+    log(f"default int8 search_vectors_batch, {N_BATCH} queries (half near a stored window): {batch_s * 1e3:.2f} ms "
+        f"(one cold run) = {N_BATCH / batch_s:.1f} QPS; {esc} escalations; scan_int8_slab launches {k4}; answers "
+        f"equal search_vector's {N_BATCH - bad}/{N_BATCH}  [{card}]")
+    if k4 == 0 or bad:
+        raise SystemExit(f"default int8 batch: {k4} K4 launches, {bad} answers differ from search_vector's")
+    return {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations, "batch_ms": batch_s * 1e3,
+            "batch_escalations": esc, "scan_int8_slab": k4}
+
+
+def default_int2(card: str, state, ctx: dict, dev) -> dict:
+    """(e): the self-audit's verdict, 16 CLI queries on each of
+    ``audit_routes`` (K5, K6 and K7 where the coarse pass serves), the
+    composed device pipeline against the plain one per query and
+    served_recall_at_10 >= 0.99 against an exact f32 top-10 (scores within
+    1e-5 of |q| |r|max)."""
+    import torch
+
+    searcher = state.searcher
+    log(f"default int2 coarse self-audit: {json.dumps(searcher.coarse_audit)}")
+    qvs = torch.cat([query_vector(ctx, q, dev) for q in ctx["queries"]])
+    scale = score_scale(searcher, qvs)
+    exact = exact_top10(searcher, qvs, dev)
+    out = {"audit": dict(searcher.coarse_audit)}
+    for route, coarse in audit_routes(searcher):
+        tier = f"default int2 ({route}, coarse pass {'serving' if coarse else 'demoted'})"
+        reset_launch_counts()
+        esc0 = searcher.escalations
+        results, p50, p95 = cli_queries(card, state, ctx, tier, "int2_scores" if coarse else "scan_int8t",
+                                        gate_self=False)
+        counts = launch_counts()
+        launches = {name: counts[name] for name in ("int2_scores", "select_topk", "scan_int8t")}
+        escalations = searcher.escalations - esc0
+        log(f"{tier} CLI path: escalations {escalations}; launches {launches}")
+        for name in ("int2_scores", "select_topk", "scan_int8t") if coarse else ("scan_int8t",):
+            if launches[name] == 0:
+                raise SystemExit(f"the {tier} CLI path launched no {name} kernel (audit {searcher.coarse_audit})")
+        recall = served_recall(tier, results, exact, scale=scale)
+        out[route] = {"launches": launches, "p50": p50, "p95": p95, "escalations": escalations, "recall": recall}
+    out["pipeline_ms"] = check_int2_pipeline(card, searcher, ctx, dev, "default int2")
     return out
 
 
@@ -3940,7 +4808,13 @@ def main(argv=None) -> int:
     ap.add_argument("--audit-case", default="", help="write the int2+int4 self-audit's worst sample here (.npz)")
     ap.add_argument("--ladder", action="store_true",
                     help="only build the kernels and time the flat scans by depth and by width, and K5 (ladders)")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)  # host_job's process
+    ap.add_argument("--only", choices=("widths", "families", "default"), action="append",
+                    help="only build and run these phases (repeatable): the kernels at the registry's other "
+                         "widths, the registry families, the default configuration; prints no result")
     args = ap.parse_args(argv)
+    if args.worker:
+        return worker()
     card = environment()
     import torch
 
@@ -3948,39 +4822,67 @@ def main(argv=None) -> int:
         build_kernels(card)
         ladders(card)
         return 0
+    if args.only:
+        dev = torch.device("cuda:0")
+        with phase("build"):
+            build_tokenizer(card)
+            build_kernels(card)
+            build_walker(card)
+        ctx = smoke_texts(dev)
+        with tempfile.TemporaryDirectory() as workdir:
+            installed = {}
+            if {"families", "default"} & set(args.only):
+                with phase("checkpoints"):
+                    installed = host_job("checkpoints", {"models_dir": os.path.join(workdir, "model_data")})
+            with concurrent.futures.ThreadPoolExecutor(1) as background:
+                for name, run in (("widths", lambda: check_wide_kernels(card)),
+                                  ("families", lambda: family_phase(card, workdir, dev, ctx, installed)),
+                                  ("default", lambda: default_tiers(card, dev, default_phase(
+                                      card, workdir, dev, ctx, installed, background)))):
+                    if name in args.only:
+                        with phase(name):
+                            run()
+        return 0
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
-    with phase("build"):
-        # g++ builds the tokenizer while nvcc builds the kernels
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            tokenizer_built = pool.submit(build_tokenizer, card)
-            build_kernels(card)
-            build_walker(card)
-            tokenizer_built.result()
-    with phase("K1, K2 against their plain version"):
-        bf16 = check_bf16_scans(card)
-    with phase("K3, K4 against their plain version"):
-        int8 = check_int8_scans(card)
-    with phase("K11 against its plain version"):
-        k11 = check_k11(card)
-    with phase("K5, K6, K7, K8, K10 against their plain version"):
-        int2k = check_int2_kernels(card)
-    with phase(f"K10 against its plain version at {INT2_TOP_ROWS:,} x {DIM}"):
-        check_tiletop_top(card, dev)
-    with phase("K9 (flat, slab) against its plain version at 25,165,824 x 384, slab at 34,603,008"):
-        int4k = check_int4_kernels(card)
+    with tempfile.TemporaryDirectory() as workdir, concurrent.futures.ThreadPoolExecutor(1) as background:
+        with phase("build"):
+            # g++ builds the tokenizer while nvcc builds the kernels
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                tokenizer_built = pool.submit(build_tokenizer, card)
+                build_kernels(card)
+                build_walker(card)
+                tokenizer_built.result()
 
-    # every main path runs with the launch counts set to 0 just before it
-    # and read just after it; the comparisons above do not count
-    launches = {}
-    with tempfile.TemporaryDirectory() as workdir:
-        with phase("bf16 slice: ingest through source add fs + source scan, 1M rows, 16 CLI queries"):
+        # every main path runs with the launch counts set to 0 just before it
+        # and read just after it; the kernel checks' comparisons do not count
+        launches = {}
+        with phase("bf16 slice: ingest through source add fs + source scan"):
             reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             ctx = build_corpus(card, workdir, dev)
+            launches["attention"] = ctx["attention_launches"]
+        # the kernel checks keep the card busy and the host all but idle:
+        # worker processes meanwhile write the families' and the default
+        # configuration's checkpoints (seeded weights, ~1.4 GB) and the bf16
+        # slice's filler rows, then (below) the default configuration's and
+        # the int8 and int2 slices', each into a database nothing else holds
+        # open then
+        installed = background.submit(host_job, "checkpoints", {"models_dir": os.path.join(workdir, "model_data")})
+        filled = background.submit(fill_corpus, ctx)
+        with phase("K1, K2 against their plain version"):
+            bf16 = check_bf16_scans(card)
+        with phase("K3, K4 against their plain version"):
+            int8 = check_int8_scans(card)
+        with phase("K11 against its plain version"):
+            k11 = check_k11(card)
+        with phase("bf16 slice: 1M rows, 16 CLI queries"):
+            log(f"sqlite corpus: {len(ctx['stored'])} document rows + filler rows = {TOTAL_ROWS} rows (filler "
+                f"written in {filled.result():.1f} s, beside the kernel checks)")
+            reset_launch_counts()
             state, bf16_sl = bf16_slice(card, ctx, dev)
-            launches["scan_topk"], launches["attention"] = bf16_sl["launches"], ctx["attention_launches"]
+            launches["scan_topk"] = bf16_sl["launches"]
         with phase("bf16 batch path"):
             bf16_batch = batch_path(card, state, ctx, "bf16", "scan_slab")
             launches["scan_slab"] = bf16_batch["launches"]["scan_slab"]
@@ -3998,8 +4900,27 @@ def main(argv=None) -> int:
         state.close()
         del state
         torch.cuda.empty_cache()
-        with phase("tokenizer.json families: distilroberta (BPE) and albert (Unigram) at full width"):
-            families = family_phase(card, workdir, dev, ctx)
+        with phase("default configuration, first half: MsMarcoBertBaseDotV5 + AllMiniLmL6V2 by AppState's "
+                   "defaults, the scan, the subprocess server"):
+            half = default_phase(card, workdir, dev, ctx, installed.result(), background)
+        filler = background.submit(slice_filler, ctx, [list(filler_vectors(ctx["gen"], n)) for n in SLICE_FILLER])
+        with phase("K5, K6, K7, K8, K10 against their plain version"):
+            int2k = check_int2_kernels(card)
+        with phase(f"K10 against its plain version at {INT2_TOP_ROWS:,} x {DIM}"):
+            check_tiletop_top(card, dev)
+        with phase("K9 (flat, slab) against its plain version at 25,165,824 x 384, slab at 34,603,008"):
+            int4k = check_int4_kernels(card)
+        with phase(f"K1-K10 at the registry's other widths: D = {WIDE_DIM} at the int8, int2 and int4 tiers' rows, "
+                   f"D = {DENSE_DIM} bf16"):
+            check_wide_kernels(card)
+        t0 = time.perf_counter()
+        ctx["slice_filler"] = filler.result()
+        log(f"waited {time.perf_counter() - t0:.1f} s for the slices' filler rows")
+        with phase("registry families at full width: distilroberta (BPE), albert (Unigram), tas-b (CLS), "
+                   "distiluse (Dense, cased)"):
+            families = family_phase(card, workdir, dev, ctx, installed.result())
+        with phase("default configuration, second half: the int8 tier by auto, the int2 tier pinned"):
+            default = default_tiers(card, dev, half)
         with phase("int8 slice: 2M rows, built from the bf16 base and 1M rows replayed, 16 CLI queries"):
             state, int8_sl = int8_slice(card, ctx, dev)
             launches["scan_int8"] = int8_sl["launches"]
@@ -4046,8 +4967,11 @@ def main(argv=None) -> int:
         del adopted
     note_peak()
     log(f"max_memory_allocated {PEAK_BYTES[0] / 2**30:.3f} GiB  [{card}]")
-    log(f"kernel launches on the main paths: {launches}; the tokenizer.json families' scans and queries: "
-        f"attention {families['attention']}, scan_topk {families['scan_topk']}")
+    log(f"kernel launches on the main paths: {launches}; the registry families' scans and queries: "
+        f"attention {families['attention']}, scan_topk {families['scan_topk']}; the default configuration: "
+        f"attention {default['attention']} in its scan, scan_int8 {default['int8']['launches']}, scan_int8_slab "
+        f"{default['int8']['scan_int8_slab']}, int2 by route "
+        f"{ {r: default['int2'][r]['launches'] for r in ('audited', 'audit off') if r in default['int2']} }")
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"the main path launched no {name} kernel")

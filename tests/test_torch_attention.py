@@ -18,6 +18,7 @@ import torch
 from perceive_tpu.models.encoder import _xla_attention
 from perceive_tpu.ops.attention import fused_attention
 from perceive_tpu_torch.ops import attention as attn
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 TOL = 1e-5
 

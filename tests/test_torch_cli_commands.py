@@ -43,6 +43,7 @@ from perceive_tpu_torch.cli.doctor import doctor
 from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, TextTokenizer
 from perceive_tpu_torch.models.convert import params_from_jax
 from perceive_tpu_torch.types import Source
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 WORDS = "the a and search semantic music pizza river mountain notes kernel".split()
 SCORE_TOL = 1e-4

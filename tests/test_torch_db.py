@@ -18,6 +18,7 @@ from perceive_tpu_torch import db as port_db
 from perceive_tpu_torch import types as port_types
 from perceive_tpu_torch.index.matrix import serialize_embedding
 from perceive_tpu_torch.index.searcher import Searcher
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 DIM = 32
 PACKAGES = {"jax": (jax_db, jax_types), "port": (port_db, port_types)}

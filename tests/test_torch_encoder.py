@@ -22,6 +22,7 @@ from perceive_tpu.models.encoder import encode_tokens as jax_encode
 from perceive_tpu.models.encoder import init_params as jax_init
 from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, encode_tokens
 from perceive_tpu_torch.models.convert import params_from_jax
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 

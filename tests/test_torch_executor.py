@@ -18,6 +18,7 @@ import torch
 from perceive_tpu.index import BatchingSearchExecutor as JaxExecutor
 from perceive_tpu.index import Searcher as JaxSearcher
 from perceive_tpu_torch.index import BatchingSearchExecutor, Searcher
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 N, D = 800, 32
 

@@ -54,6 +54,7 @@ from perceive_tpu_torch.sources import (
 )
 from perceive_tpu_torch.sources.pipeline import chunk_token_windows
 from perceive_tpu_torch.types import ItemCompareStrategy, Source
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 WORDS = "the a and search semantic music pizza river mountain notes kernel".split()
 EMB_TOL = 1e-5  # f32 encoders on the CPU, the same weights

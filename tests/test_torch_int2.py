@@ -27,6 +27,7 @@ from perceive_tpu.index.matrix import EmbeddingMatrix as JaxMatrix
 from perceive_tpu.ops import topk as jax_topk
 from perceive_tpu_torch.index.matrix import INT2, EmbeddingMatrix, _quantize, _quantize2, int2_fine_bits
 from perceive_tpu_torch.ops import int2, topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 N = 8192
 

@@ -21,6 +21,7 @@ from perceive_tpu_torch.index import BatchingSearchExecutor
 from perceive_tpu_torch.index.matrix import INT2, INT4
 from perceive_tpu_torch.index.searcher import RERANK_FACTOR, Searcher
 from perceive_tpu_torch.ops import int2, topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def _unit(x):
@@ -77,6 +78,30 @@ def test_int2_searcher_matches_jax(corpus):
         s.remove_items([7, 8, 9])
     assert p.search_vector(qs[0], 1)[0][0] == j.search_vector(qs[0], 1)[0][0] == 42
     assert (p.escalations, p.scan_calls) == (j.escalations, j.scan_calls)
+
+
+def test_int2_unnormalized_rows_match_jax():
+    """Rows with a spread of norms (log-normal, sigma 0.3: a model without
+    Normalize), queries likewise, a quarter near a stored row: the same
+    audit verdict, the same top-10 (item, score) on the coarse path and in
+    a batch, the same escalations."""
+    rng = np.random.default_rng(18)
+    n, d, k = 4096, 64, 10
+    vecs = (_unit(rng.standard_normal((n, d))) * 8.0 * rng.lognormal(0.0, 0.3, (n, 1))).astype(np.float32)
+    # half the rows crowd around 4 centres: close scores, which escalate
+    vecs[: n // 2] = vecs[rng.integers(0, 4, n // 2)] + 0.3 * vecs[n // 2 :]
+    p, j = _pair(d, list(range(1, n + 1)), [i % 3 for i in range(n)], vecs)
+    assert p.matrix.coarse_trusted == j.matrix.coarse_trusted
+    for key in ("overlap", "min_overlap", "fetch", "queries", "trusted"):
+        assert p.coarse_audit[key] == j.coarse_audit[key], key
+    qs = (_unit(rng.standard_normal((32, d))) * 8.0 * rng.lognormal(0.0, 0.3, (32, 1))).astype(np.float32)
+    qs[:8] = vecs[rng.integers(0, n, 8)] + 0.4 * _unit(rng.standard_normal((8, d)))
+    for q in qs[:6]:
+        _same_hits(p.search_vector(q, k), j.search_vector(q, k))
+    for g, w in zip(p.search_vectors_batch(qs, k), j.search_vectors_batch(qs, k)):
+        _same_hits(g, w)
+    assert (p.escalations, p.scan_calls) == (j.escalations, j.scan_calls)
+    assert p.escalations > 0
 
 
 def test_int2_coarse_path_routing(corpus, monkeypatch):

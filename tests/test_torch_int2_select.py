@@ -23,6 +23,7 @@ from perceive_tpu.ops import topk as jax_topk
 from perceive_tpu_torch.index.matrix import INT2, _quantize, _quantize2, _quantize4
 from perceive_tpu_torch.index.searcher import Searcher
 from perceive_tpu_torch.ops import int2, topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def _unit(x):

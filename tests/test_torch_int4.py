@@ -32,6 +32,7 @@ from perceive_tpu.index.searcher import _scan_topk_xla_int4
 from perceive_tpu.ops import topk as jax_topk
 from perceive_tpu_torch.index.matrix import INT2, INT4, EmbeddingMatrix, _quantize2, _quantize4
 from perceive_tpu_torch.ops import int2, topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 N, D = 4096, 128  # one compiled shape of the JAX references for every case
 

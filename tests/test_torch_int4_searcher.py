@@ -20,6 +20,7 @@ from perceive_tpu_torch.index import BatchingSearchExecutor
 from perceive_tpu_torch.index.matrix import INT2, INT4
 from perceive_tpu_torch.index.searcher import RERANK_FACTOR_INT4, Searcher
 from perceive_tpu_torch.ops import topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 TIERS = {"int4": (INT4, JAX_INT4), "int2+int4fine": (INT2, JAX_INT2)}
 
@@ -98,6 +99,32 @@ def test_int4_searcher_matches_jax(corpus, monkeypatch, tier):
     _same_hits(p.search_vector(qs[1], k, [2]), j.search_vector(qs[1], k, [2]))
     assert (p.escalations, p.scan_calls) == (j.escalations, j.scan_calls)
     assert p.escalations > 0  # the 3-sigma margin re-fetches on 4-bit scores
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_int4_unnormalized_rows_match_jax(tier):
+    """Rows with a spread of norms (log-normal, sigma 0.3: a model without
+    Normalize), queries likewise, a quarter near a stored row: at int2 the
+    same audit verdict; the same top-10 (item, score) at Q = 1 and in a
+    batch, the same escalations."""
+    rng = np.random.default_rng(19)
+    n, d, k = 4096, 64, 10
+    vecs = (_unit(rng.standard_normal((n, d))) * 8.0 * rng.lognormal(0.0, 0.3, (n, 1))).astype(np.float32)
+    # half the rows crowd around 4 centres: close scores, which escalate
+    vecs[: n // 2] = vecs[rng.integers(0, 4, n // 2)] + 0.3 * vecs[n // 2 :]
+    p, j = _pair(tier, d, list(range(1, n + 1)), [i % 3 for i in range(n)], vecs)
+    if tier != "int4":
+        assert p.matrix.coarse_trusted == j.matrix.coarse_trusted
+        for key in ("overlap", "min_overlap", "fetch", "queries", "trusted"):
+            assert p.coarse_audit[key] == j.coarse_audit[key], key
+    qs = (_unit(rng.standard_normal((32, d))) * 8.0 * rng.lognormal(0.0, 0.3, (32, 1))).astype(np.float32)
+    qs[:8] = vecs[rng.integers(0, n, 8)] + 0.4 * _unit(rng.standard_normal((8, d)))
+    for q in qs[:6]:
+        _same_hits(p.search_vector(q, k), j.search_vector(q, k))
+    for g, w in zip(p.search_vectors_batch(qs, k), j.search_vectors_batch(qs, k)):
+        _same_hits(g, w)
+    assert (p.escalations, p.scan_calls) == (j.escalations, j.scan_calls)
+    assert p.escalations > 0
 
 
 def test_int4_dense_ties_escalate_like_jax():

@@ -27,6 +27,7 @@ from perceive_tpu.ops import topk as jax_topk
 from perceive_tpu_torch.index.matrix import EmbeddingMatrix, _quantize
 from perceive_tpu_torch.index.searcher import RERANK_FACTOR, Searcher
 from perceive_tpu_torch.ops import topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 N = 2048
 
@@ -242,6 +243,35 @@ def test_int8_searcher_matches_jax():
         _same_hits(p.search_vector(q, k), j.search_vector(q, k))
     assert (p.escalations, p.scan_calls) == (j.escalations, j.scan_calls)
     assert p.matrix.mutation_gen == j.matrix.mutation_gen
+
+
+def _spread(rng, n, d, scale=8.0):
+    """Rows of a model without Normalize (msmarco-bert-base-dot-v5 writes
+    mean-pooled, unnormalized rows): random directions, log-normal norms
+    (sigma 0.3) around ``scale``."""
+    return (_unit(rng.standard_normal((n, d))) * scale * rng.lognormal(0.0, 0.3, (n, 1))).astype(np.float32)
+
+
+def test_int8_unnormalized_rows_match_jax():
+    """Rows and queries with a spread of norms, a quarter of the queries
+    near a stored row: the same top-10 (item, score) at Q = 1 and in a
+    batch, and the same escalations (the 3-sigma margin scales with the
+    query's norm and the rows' largest one)."""
+    rng = np.random.default_rng(17)
+    n, d, k = 1500, 64, 10
+    vecs = _spread(rng, n, d)
+    # half the rows crowd around 4 centres: close scores, which escalate
+    vecs[: n // 2] = (vecs[rng.integers(0, 4, n // 2)] + 0.02 * _spread(rng, n // 2, d)).astype(np.float32)
+    p, j = _pair(d, list(range(1, n + 1)), [i % 3 for i in range(n)], vecs)
+    assert p.matrix.norm_hw == j.matrix.norm_hw and p.matrix.scale_hw == j.matrix.scale_hw
+    qs = _spread(rng, 64, d)
+    qs[:16] = vecs[rng.integers(0, n, 16)] + 0.05 * _spread(rng, 16, d)
+    for q in qs[:12]:
+        _same_hits(p.search_vector(q, k), j.search_vector(q, k))
+    for g, w in zip(p.search_vectors_batch(qs, k), j.search_vectors_batch(qs, k)):
+        _same_hits(g, w)
+    assert (p.escalations, p.scan_calls) == (j.escalations, j.scan_calls)
+    assert p.escalations > 0
 
 
 def test_int8_with_chunked_documents_matches_jax():

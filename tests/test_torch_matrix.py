@@ -13,6 +13,7 @@ from perceive_tpu.index.matrix import EmbeddingMatrix as JaxMatrix
 from perceive_tpu.index.matrix import chunk_key as jax_chunk_key
 from perceive_tpu.index.matrix import sweep_rows_for as jax_sweep_rows_for
 from perceive_tpu_torch.index.matrix import EmbeddingMatrix, _quantize, chunk_key, sweep_rows_for
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 DIM = 48
 

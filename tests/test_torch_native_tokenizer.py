@@ -31,6 +31,7 @@ from perceive_tpu_torch.models.tokenize import TextTokenizer, WordPieceTokenizer
 from perceive_tpu_torch.models.tokenizer_json import Pipeline
 from perceive_tpu_torch.native import tokenizer as native_tokenizer
 from perceive_tpu_torch.native.tokenizer import NativeTokenizer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def _wordpiece_json():

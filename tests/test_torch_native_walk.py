@@ -15,6 +15,7 @@ import pytest
 from perceive_tpu.native import fastwalk as jax_fastwalk
 from perceive_tpu_torch import native
 from perceive_tpu_torch.sources.fs import FileScanner, _utf8_path
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parent.parent
 

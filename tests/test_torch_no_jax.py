@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 REPO = Path(__file__).resolve().parent.parent
 

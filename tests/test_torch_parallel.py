@@ -45,6 +45,7 @@ from perceive_tpu_torch.parallel import (
     rows_sharding,
     sharded_scan_topk,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 CPU = torch.device("cpu")
 ALLOW_ALL = -2

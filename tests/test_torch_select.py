@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from perceive_tpu_torch.ops import int2, topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 # K6's constants (csrc/select_topk.cu)
 SEL_THREADS = 1024

@@ -43,6 +43,7 @@ from perceive_tpu_torch.models.convert import params_from_jax
 from perceive_tpu_torch.ops import topk
 from perceive_tpu_torch.serve import start_server
 from perceive_tpu_torch.utils import dispatchmeter
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 WORDS = "the a and search semantic music pizza river mountain notes kernel".split()
 SCORE_TOL = 1e-4  # a bf16 matrix, f32 sums in another order

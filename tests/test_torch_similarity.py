@@ -11,6 +11,7 @@ import torch
 
 from perceive_tpu.ops import similarity as jax_sim
 from perceive_tpu_torch.ops import similarity as sim
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 TOL = {"f32": 1e-5, "bf16": 4e-3}
 

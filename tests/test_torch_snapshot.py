@@ -45,6 +45,7 @@ from perceive_tpu_torch.index.matrix import (
 from perceive_tpu_torch.index.searcher import Searcher
 from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, TextTokenizer, tiny_test_vocab
 from perceive_tpu_torch.types import Source, SourceStatus
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 DIM = 40  # padded to 128
 # (id, JAX dtype, port dtype, PERCEIVE_TPU_INT2_FINE)

@@ -9,6 +9,7 @@ from perceive_tpu_torch.cli import AppState
 from perceive_tpu_torch.cli.state import resolve_device, storage_tier
 from perceive_tpu_torch.index.matrix import INT2, INT4
 from perceive_tpu_torch.models import EncoderArch, HeadConfig, Model, TextTokenizer, tiny_test_vocab
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def _model():

@@ -11,6 +11,7 @@ import pytest
 from perceive_tpu.models.tokenize import TextTokenizer as HfTokenizer
 from perceive_tpu.models.tokenize import tiny_test_vocab as hf_tiny_vocab
 from perceive_tpu_torch.models.tokenize import TextTokenizer, tiny_test_vocab
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 

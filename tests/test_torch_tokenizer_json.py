@@ -23,6 +23,7 @@ from tokenizers.trainers import BpeTrainer, UnigramTrainer
 from perceive_tpu.models.tokenize import TextTokenizer as HfTokenizer
 from perceive_tpu_torch.models.tokenize import TextTokenizer
 from perceive_tpu_torch.models.tokenizer_json import Pipeline, graphemes
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 CORPUS = ["hello world the quick brown fox", "jumps over the lazy dog's tail", "café naïve ÜBER 日本語 emoji🙂",
           "it's they're we've I'm you'll he'd", "search semantic retrieval index vector",

@@ -15,6 +15,7 @@ import torch
 from perceive_tpu.index.searcher import _scan_topk_xla_impl
 from perceive_tpu.ops.topk import ALLOW_ALL, scan_topk_pallas
 from perceive_tpu_torch.ops import topk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 N = 2048
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}

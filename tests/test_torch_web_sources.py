@@ -41,6 +41,7 @@ from perceive_tpu_torch.sources.chromium_history import (
 )
 from perceive_tpu_torch.sources.reprocess import reprocess_source
 from perceive_tpu_torch.types import Item, ItemMetadata, Source
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 PAGES = Path(__file__).resolve().parent / "fixtures" / "pages"
 WEBKIT_2023 = (1_700_000_000 + 11_644_473_600) * 1_000_000
