@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--audit-case CASE.npz]
     python3 chip_smoke.py --ladder
-    python3 chip_smoke.py --only widths|families|default [--only ...]
+    python3 chip_smoke.py --only widths|families|checkpoints|default [--only ...]
 
 ``--audit-case`` also writes the int2+int4 self-audit's worst sample and
 the rows around it to CASE.npz, for ``tests/audit_case.py`` to reproduce
@@ -11,7 +11,8 @@ the build and the flat scans' times by depth and by width (K3, K7 and K9
 flat), and K5's, K6's and K10's at 1 and 8 queries (``ladders``), and
 prints no result line.  ``--only`` runs the build and the named phases
 alone (the kernels at the registry's other widths, the registry families,
-the default configuration) and prints no result line either.
+the families and then the checkpoint tools, the default configuration) and
+prints no result line either.
 
 Phases (any failure exits non-zero before the final line):
   1. environment: CUDA present, card name and power limit, versions;
@@ -69,18 +70,27 @@ Phases (any failure exits non-zero before the final line):
      registry families (``family_phase``): all-distilroberta-v1
      (byte-level BPE tokenizer.json), paraphrase-albert-small-v2 (Unigram),
      msmarco-distilbert-base-tas-b (DistilBERT, WordPiece vocab.txt, CLS
-     pooling, no Normalize) and distiluse-base-multilingual-cased
+     pooling, no Normalize), distiluse-base-multilingual-cased
      (DistilBERT, a cased 119,547-entry vocabulary with accented words and
-     CJK ideographs, a Dense 768 -> 512 tanh head, max_seq_length 128) at
+     CJK ideographs, a Dense 768 -> 512 tanh head, max_seq_length 128),
+     msmarco-distilbert-dot-v5 (DistilBERT, mean pooling, no Normalize) and
+     all-MiniLM-L12-v2 (12 layers, 384 wide, 128 tokens, Normalize) at
      their published widths with seeded weights, each written under
      PERCEIVE_TPU_MODEL_DATA, ``model set`` on a fresh database, a fresh
      AppState that must load the checkpoint, 256 files through ``source
      add fs`` + ``source scan`` (the ingest gates, the engine against the
      plain pipeline over the 256 documents; K11 at head width 64, none at
-     distiluse's 128 tokens), 65,536 filler rows at the model's width with
-     the scanned windows' norms, and 16 CLI queries (K1 over the 768- or
-     512-d rows) against an exact f32 top-10, every tolerance scaled by the
-     operands' norms; then the default configuration (``default_phase``):
+     the 128-token families), 65,536 filler rows at the model's width with
+     the scanned windows' norms, and 16 CLI queries (K1 over the 768-,
+     512- or 384-d rows) against an exact f32 top-10, every tolerance
+     scaled by the operands' norms; then the checkpoint tools
+     (``tools_phase``): ``perceive_tpu_torch.tools.verify_checkpoint
+     --no-download --device cuda:0`` in this process (the committed
+     sentence-transformers fixture against its golden vectors at f32, and
+     msmarco-distilbert-dot-v5's f32 encode on the card against the CPU's,
+     written as a real_golden file; each stage's word gated) and
+     ``install_models`` with huggingface_hub absent (exit 1, the package
+     named); then the default configuration (``default_phase``):
      msmarco-bert-base-dot-v5 (12 layers, 768 wide, mean pooling, no
      Normalize) and all-MiniLM-L6-v2 loaded by AppState's own defaults
      from PERCEIVE_TPU_MODEL_DATA with no fallback, the 2,048 files scanned
@@ -3965,6 +3975,22 @@ FAMILIES = {
                    "dim": 768, "n_layers": 6, "n_heads": 12, "hidden_dim": 3072, "activation": "gelu",
                    "max_position_embeddings": 512, "sinusoidal_pos_embds": False, "pad_token_id": 0},
         "max_seq_length": 128, "tokenizer": "wordpiece-cased", "dense": 512, "normalize": False},
+    # msmarco-distilbert-dot-v5: DistilBERT, mean pooling, no Normalize
+    # (dot-product rows, as msmarco-bert-base-dot-v5); the checkpoint the
+    # checkpoint tools phase verifies
+    "MsMarcoDistilbertDotV5": {
+        "config": {"model_type": "distilbert", "architectures": ["DistilBertModel"], "vocab_size": 30522,
+                   "dim": 768, "n_layers": 6, "n_heads": 12, "hidden_dim": 3072, "activation": "gelu",
+                   "max_position_embeddings": 512, "sinusoidal_pos_embds": False, "pad_token_id": 0},
+        "max_seq_length": 512, "tokenizer": "wordpiece", "normalize": False},
+    # all-MiniLM-L12-v2: all-MiniLM-L6-v2's widths, 12 layers, 128 tokens
+    # (no K11), mean pooling and Normalize
+    "AllMiniLmL12V2": {
+        "config": {"model_type": "bert", "architectures": ["BertModel"], "vocab_size": 30522, "hidden_size": 384,
+                   "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 1536,
+                   "hidden_act": "gelu", "max_position_embeddings": 512, "type_vocab_size": 2, "pad_token_id": 0,
+                   "layer_norm_eps": 1e-12},
+        "max_seq_length": 128, "tokenizer": "wordpiece"},
 }
 # the default configuration (cli/state.py DEFAULT_MODEL, DEFAULT_HIGHLIGHT_MODEL)
 DEFAULT_CHECKPOINTS = {
@@ -3984,7 +4010,8 @@ DEFAULT_CHECKPOINTS = {
 FAMILY_DOCS = 256
 FAMILY_LONG = 64  # documents over 400 tokens: their 510-token windows ride the 512 bucket, K11's
 FAMILY_FILLER = 65_536
-FAMILY_PHASE_S = 90  # the phase's budget, all four families
+FAMILY_PHASE_S = 90  # the phase's budget, all six families
+TOOLS_CHECKPOINT = "MsMarcoDistilbertDotV5"  # the family checkpoint the checkpoint tools phase verifies
 ACCENTED = {"a": "á", "e": "é", "i": "í", "o": "ó", "u": "ú"}
 CJK_CHARS = 4096  # CJK ideographs from U+4E00, each a token of the cased vocabulary
 
@@ -4422,7 +4449,8 @@ def family_phase(card: str, workdir: str, dev, ctx: dict, installed: dict) -> di
                          "scan_s": ing["scan_s"], "s": time.perf_counter() - t0}
             state.close()
             del state, model, fctx
-            shutil.rmtree(os.path.join(models_dir, mt.checkpoint_dir_name))
+            if name != TOOLS_CHECKPOINT:  # the checkpoint tools phase verifies that one
+                shutil.rmtree(os.path.join(models_dir, mt.checkpoint_dir_name))
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -4437,6 +4465,90 @@ def family_phase(card: str, workdir: str, dev, ctx: dict, installed: dict) -> di
     if took > FAMILY_PHASE_S:
         raise SystemExit(f"the families' phase took {took:.1f} s, past its {FAMILY_PHASE_S} s budget")
     return out
+
+
+# -- the port's checkpoint tools on the card --
+
+TOOLS_WORDS = {"synthetic_golden": ("PASS",), "torch_golden": ("SKIP", "PASS"), "committed_golden": ("PASS",),
+               "recall_10m": ("SKIP",)}  # the verify tool's stages: the words each may end in
+
+
+def tools_phase(card: str, workdir: str) -> dict:
+    """``perceive_tpu_torch.tools.verify_checkpoint`` in this process with
+    ``--no-download --device cuda:0``, its fixtures directory a temporary
+    copy of the committed synthetic checkpoint and its golden vectors plus
+    one ``real_golden_msmarco-distilbert-dot-v5.npz``: the port's plain CPU
+    encode at f32 of the tool's sentences over the checkpoint the families
+    phase left under ``workdir``/model_data, moved into a model-data dir of
+    its own, so that the tool finds that checkpoint alone (mean pooling, no
+    Dense, no Normalize: the embeddings are the tower's mean-pooled
+    output).  So ``synthetic_golden`` holds the card's encode of the
+    sentence-transformers fixture to transformers' vectors, and
+    ``committed_golden`` the card's f32 encode of a full-width 768-d
+    DistilBERT to the CPU's.  Gated: each stage's word (TOOLS_WORDS) and
+    exit 0; then ``install_models`` with huggingface_hub absent must exit
+    non-zero and name the package."""
+    from pathlib import Path
+
+    import torch
+
+    from perceive_tpu_torch.models import Model, ModelType
+    from perceive_tpu_torch.tools import install_models
+    from perceive_tpu_torch.tools import verify_checkpoint as vc
+
+    t0 = time.perf_counter()
+    mt = ModelType.parse(TOOLS_CHECKPOINT)
+    models_dir = os.path.join(workdir, "tools_model_data")
+    os.makedirs(models_dir)
+    os.rename(os.path.join(workdir, "model_data", mt.checkpoint_dir_name),
+              os.path.join(models_dir, mt.checkpoint_dir_name))
+    fixtures = Path(workdir) / "fixtures"
+    shutil.copytree(vc.FIXTURES / "golden_st_checkpoint", fixtures / "golden_st_checkpoint")
+    shutil.copy(vc.FIXTURES / "golden_vectors.npz", fixtures)
+    os.environ["PERCEIVE_TPU_MODEL_DATA"] = models_dir
+    committed = vc.FIXTURES
+    try:
+        emb = Model.new_pretrained(mt, device="cpu", compute_dtype=torch.float32).encode(vc.SENTENCES)
+        np.savez(fixtures / f"real_golden_{mt.checkpoint_dir_name}.npz", sentences=np.array(vc.SENTENCES),
+                 tower_mean_pooled=emb, embeddings=emb)
+        t_golden = time.perf_counter() - t0
+        vc.FIXTURES = fixtures
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = vc.main(["--no-download", "--device", "cuda:0"])
+        t_verify = time.perf_counter() - t0 - t_golden
+
+        # the install tool where huggingface_hub is absent, into an empty dir
+        os.environ["PERCEIVE_TPU_MODEL_DATA"] = os.path.join(workdir, "empty_model_data")
+        hub = sys.modules.pop("huggingface_hub", None)
+        sys.modules["huggingface_hub"] = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()) as err:
+                install_rc = install_models.main([])
+        finally:
+            del sys.modules["huggingface_hub"]
+            if hub is not None:
+                sys.modules["huggingface_hub"] = hub
+    finally:
+        vc.FIXTURES = committed
+        os.environ.pop("PERCEIVE_TPU_MODEL_DATA", None)
+        shutil.rmtree(models_dir, ignore_errors=True)
+    for line in said.getvalue().splitlines():
+        if line.strip():
+            log(f"  verify: {line.strip()}")
+    summary = said.getvalue().split("== verify-checkpoint ==")[-1].splitlines()
+    words = {line.split()[0]: line.split()[1] for line in summary if line.strip()}
+    log(f"install_models without huggingface_hub: exit {install_rc}; {err.getvalue().strip()}")
+    took = time.perf_counter() - t0
+    log(f"checkpoint tools: verify_checkpoint on cuda:0 exit {rc} in {t_verify:.1f} s "
+        f"({', '.join(f'{k} {v}' for k, v in words.items())}); the {mt.checkpoint_dir_name} golden from the CPU's "
+        f"f32 encode in {t_golden:.1f} s; {took:.1f} s in all  [{card}]")
+    bad = [k for k, ok in TOOLS_WORDS.items() if words.get(k) not in ok]
+    if rc != 0 or bad:
+        raise SystemExit(f"verify_checkpoint on cuda:0 exited {rc}; stages off their gate: "
+                         f"{ {k: words.get(k) for k in bad} }")
+    if install_rc == 0 or "huggingface_hub" not in err.getvalue():
+        raise SystemExit(f"install_models without huggingface_hub exited {install_rc}: {err.getvalue()!r}")
+    return {"words": words, "s": took}
 
 
 # -- the default configuration: the models AppState loads when none is named --
@@ -4809,9 +4921,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ladder", action="store_true",
                     help="only build the kernels and time the flat scans by depth and by width, and K5 (ladders)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)  # host_job's process
-    ap.add_argument("--only", choices=("widths", "families", "default"), action="append",
+    ap.add_argument("--only", choices=("widths", "families", "checkpoints", "default"), action="append",
                     help="only build and run these phases (repeatable): the kernels at the registry's other "
-                         "widths, the registry families, the default configuration; prints no result")
+                         "widths, the registry families, the families and the checkpoint tools, the default "
+                         "configuration; prints no result")
     args = ap.parse_args(argv)
     if args.worker:
         return worker()
@@ -4823,6 +4936,7 @@ def main(argv=None) -> int:
         ladders(card)
         return 0
     if args.only:
+        only = set(args.only) | ({"families", "tools"} if "checkpoints" in args.only else set())
         dev = torch.device("cuda:0")
         with phase("build"):
             build_tokenizer(card)
@@ -4831,15 +4945,16 @@ def main(argv=None) -> int:
         ctx = smoke_texts(dev)
         with tempfile.TemporaryDirectory() as workdir:
             installed = {}
-            if {"families", "default"} & set(args.only):
+            if {"families", "default"} & only:
                 with phase("checkpoints"):
                     installed = host_job("checkpoints", {"models_dir": os.path.join(workdir, "model_data")})
             with concurrent.futures.ThreadPoolExecutor(1) as background:
                 for name, run in (("widths", lambda: check_wide_kernels(card)),
                                   ("families", lambda: family_phase(card, workdir, dev, ctx, installed)),
+                                  ("tools", lambda: tools_phase(card, workdir)),
                                   ("default", lambda: default_tiers(card, dev, default_phase(
                                       card, workdir, dev, ctx, installed, background)))):
-                    if name in args.only:
+                    if name in only:
                         with phase(name):
                             run()
         return 0
@@ -4917,8 +5032,10 @@ def main(argv=None) -> int:
         ctx["slice_filler"] = filler.result()
         log(f"waited {time.perf_counter() - t0:.1f} s for the slices' filler rows")
         with phase("registry families at full width: distilroberta (BPE), albert (Unigram), tas-b (CLS), "
-                   "distiluse (Dense, cased)"):
+                   "distiluse (Dense, cased), msmarco-distilbert-dot-v5, all-MiniLM-L12-v2"):
             families = family_phase(card, workdir, dev, ctx, installed.result())
+        with phase("checkpoint tools: verify_checkpoint on cuda:0, install_models without huggingface_hub"):
+            tools_phase(card, workdir)
         with phase("default configuration, second half: the int8 tier by auto, the int2 tier pinned"):
             default = default_tiers(card, dev, half)
         with phase("int8 slice: 2M rows, built from the bf16 base and 1M rows replayed, 16 CLI queries"):

@@ -132,8 +132,8 @@ def _check_models(rep: _Report) -> None:
     else:
         rep.add(WARN, "checkpoints",
                 f"none under {root} — the CLI falls back to a random-weight "
-                "encoder (rankings meaningless); run scripts/install_models.py "
-                "on a networked machine")
+                "encoder (rankings meaningless); run python -m "
+                "perceive_tpu_torch.tools.install_models on a networked machine")
     try:
         from ..models.tokenize import TextTokenizer  # noqa: F401
         from ..models.tokenizer_json import pipeline_from_json  # noqa: F401

@@ -143,3 +143,38 @@ def test_cold_load_keeps_jax_bookkeeping(tmp_path, monkeypatch, capsys):
     assert pm.item_ids.tolist() == np.asarray(jm.item_ids).tolist()
     assert pm.source_ids.tolist() == np.asarray(jm.source_ids).tolist()
     np.testing.assert_array_equal(pm._host_vectors[: pm.rows, :DIM], np.asarray(jm._host_vectors)[: jm.rows, :DIM])
+
+
+def test_memory_mapped_reads_see_every_write(tmp_path, monkeypatch):
+    """The port's read connections map the file (``READ_MMAP_BYTES``, a
+    divergence from the JAX package's copy): a cold build through one equals
+    a build through plain reads, also after rows written and checkpointed
+    into the mapped file while that connection stayed open."""
+    rng = np.random.default_rng(9)
+    d, srcs, _ = _write(port_db, port_types, tmp_path / "db.sqlite3", rng)
+    assert d.read().execute("PRAGMA mmap_size").fetchone()[0] > 0
+    assert len(Searcher.build(d, 0, 0, DIM, device="cpu", dtype=torch.float32).matrix) == 59
+    more = rng.standard_normal((40, DIM)).astype(np.float32)
+    with d.write() as conn:
+        for i in range(40):
+            conn.execute(
+                """INSERT INTO items (id, source_id, external_id, version, hash, content, process_version)
+                   VALUES (?,?,?,?,?,?,?)""", (1000 + i, srcs[0].id, f"more{i}", 1, "", f"more {i}", 0))
+            conn.execute(
+                """INSERT INTO item_embeddings (item_id, chunk_idx, item_index_version, embedding,
+                     model_id, model_version, seq) VALUES (?,?,?,?,?,?,?)""",
+                (1000 + i, 0, 1, serialize_embedding(more[i]), 0, 0, 1000 + i))
+    d._write_conn.execute("PRAGMA wal_checkpoint(TRUNCATE)")
+    mapped = Searcher.build(d, 0, 0, DIM, device="cpu", dtype=torch.float32)
+    d.close()
+    monkeypatch.setattr(port_db.database, "READ_MMAP_BYTES", 0)
+    plain_db = port_db.Database(tmp_path / "db.sqlite3")
+    try:
+        assert plain_db.read().execute("PRAGMA mmap_size").fetchone()[0] == 0
+        plain = Searcher.build(plain_db, 0, 0, DIM, device="cpu", dtype=torch.float32)
+    finally:
+        plain_db.close()
+    assert len(mapped.matrix) == len(plain.matrix) == 99
+    q = more[3]
+    assert mapped.search_vector(q, 10) == plain.search_vector(q, 10)
+    assert mapped.search_vector(q, 1)[0][0] == 1003
